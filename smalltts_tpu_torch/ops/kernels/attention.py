@@ -1,0 +1,115 @@
+"""Masked attention: wrapper of csrc/attention.cu and its plain version.
+
+Port of the Pallas TPU kernel smalltts_tpu/ops/pallas/attention.py::fused_attention
+(see the source note in csrc/attention.cu for what bounds it on the H100 and
+how the design answers that). The optional second key/value source with its
+own key mask, and the sigmoid gate, carry the DiT's joint attention
+(smalltts_tpu/ops/pallas/block.py:344-377) without a per-step concatenation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from smalltts_tpu_torch.ops import kernels
+
+NAME = "attention"
+HEAD_DIMS = (64, 120, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=None):
+    """The same function in plain PyTorch. q (B,H,Tq,D); k/v (B,H,S,D);
+    key_mask (B,S) bool. fp32 scores x 1/sqrt(D), masked keys replaced by
+    -1e9, fp32 softmax shared over both sources, PV with fp32 probabilities,
+    times sigmoid(gate) (B,H,Tq,D) when given, output in q's dtype."""
+    kf, vf, mask = k.float(), v.float(), key_mask
+    if k2 is not None:
+        kf = torch.cat([kf, k2.float()], dim=2)
+        vf = torch.cat([vf, v2.float()], dim=2)
+        mask = torch.cat([key_mask, key_mask2], dim=1)
+    scores = torch.matmul(q.float(), kf.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
+    scores = torch.where(mask[:, None, None, :], scores, -1e9)
+    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
+    if gate is not None:
+        out = out * torch.sigmoid(gate.float())
+    return out.to(q.dtype)
+
+
+def _strides(t: torch.Tensor, name: str):
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dim must be contiguous")
+    return [t.stride(0), t.stride(1), t.stride(2)]
+
+
+def fused_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_mask: torch.Tensor,
+    k2: Optional[torch.Tensor] = None,
+    v2: Optional[torch.Tensor] = None,
+    key_mask2: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Masked attention (B,H,Tq,D) over one or two key sources, optionally
+    gated. Tensors may be strided views with a contiguous head dim. `out`, a
+    (B,H,Tq,D) view, receives the result; without it the result is a
+    (B,H,Tq,D) view of a (B,Tq,H,D) buffer. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if kernels.use_plain(q):
+        res = attention_plain(q, k, v, key_mask, k2, v2, key_mask2, gate)
+        if out is None:
+            return res
+        out.copy_(res)
+        return out
+    B, H, Tq, D = q.shape
+    two = k2 is not None
+    srcs = [q, k, v, key_mask] + ([k2, v2, key_mask2] if two else []) + ([gate] if gate is not None else [])
+    if any(t is None or t.device != q.device for t in srcs) or (two and (v2 is None or key_mask2 is None)):
+        raise ValueError("attention: all inputs must be given on one device")
+    if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in srcs if t.dtype != torch.bool):
+        raise ValueError(f"attention: q/k/v/gate must share fp32 or bf16, got {q.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"attention: head dim {D} not in {HEAD_DIMS}")
+    S1 = k.shape[2]
+    S2 = k2.shape[2] if two else 0
+    if k.shape != (B, H, S1, D) or v.shape != k.shape or key_mask.shape != (B, S1):
+        raise ValueError("attention: k/v/key_mask shapes do not match q")
+    if two and (k2.shape != (B, H, S2, D) or v2.shape != k2.shape or key_mask2.shape != (B, S2)):
+        raise ValueError("attention: k2/v2/key_mask2 shapes do not match q")
+    if gate is not None and gate.shape != q.shape:
+        raise ValueError("attention: gate must have q's shape")
+    if out is None:
+        out = torch.empty((B, Tq, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
+    elif out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("attention: out must have q's shape and dtype")
+    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies q/k/v rows in 16-byte chunks
+        for t in [q, k, v] + ([k2, v2] if two else []):
+            if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
+                raise ValueError("attention: bf16 q/k/v need 16-byte aligned rows (strides of 8)")
+    m1 = key_mask.to(torch.bool).contiguous()
+    m2 = key_mask2.to(torch.bool).contiguous() if two else None
+    none = [0, 0, 0]
+    strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
+               + (_strides(k2, "k2") + _strides(v2, "v2") if two else none + none)
+               + (_strides(gate, "gate") if gate is not None else none)
+               + _strides(out, "out") + [m1.stride(0), m2.stride(0) if two else 0])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), m1.data_ptr(),
+            k2.data_ptr() if two else None, v2.data_ptr() if two else None,
+            m2.data_ptr() if two else None,
+            gate.data_ptr() if gate is not None else None, out.data_ptr()]
+    lib = kernels.load("attention")
+    status = lib.st_attention(
+        _DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
+        (ctypes.c_int * 5)(B, H, Tq, S1, S2), 1.0 / math.sqrt(D),
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    kernels.check(lib, "attention", status, "attention kernel")
+    kernels.count_launch(NAME)
+    return out
+
