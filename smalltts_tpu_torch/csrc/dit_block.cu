@@ -25,6 +25,7 @@
 // kernel's 4 row chunks summed in bf16 (block.py:418-427). Each linear's
 // result is rounded to bf16 where the JAX path rounds it (after the bias),
 // and the modulation / gating arithmetic is done in fp32 with one rounding.
+// Every kernel here takes bf16 tensors: the scan runs in bf16 on the card.
 //
 // What bounds it on the H100: per denoise step the four products stream
 // 276 MB of bf16 weights (83 us at 3.35 TB/s) and do 88.5 GFLOP at B=8, T=40
@@ -48,15 +49,9 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
-__device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
 __device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16(v); }
-// the value `v` takes once stored in T (rounding points of the JAX path)
-__device__ __forceinline__ float rnd(float v, float*) { return v; }
-__device__ __forceinline__ float rnd(float v, bf16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+// the value `v` takes once stored in bf16 (rounding points of the JAX path)
 __device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -79,12 +74,11 @@ __device__ float block_sum(float v, float* red) {
 
 // ------------------------------------------------------------ adaln_modulate
 
-template <typename T>
-__global__ void adaln_kernel(const T* x, T* out, const T* shift, const T* scale,
+__global__ void adaln_kernel(const bf16* x, bf16* out, const bf16* shift, const bf16* scale,
                              long long mod_sb, int T_len, int H, float eps) {
   __shared__ float red[32];
   const int m = blockIdx.x, b = m / T_len;
-  const T* xr = x + (long long)m * H;
+  const bf16* xr = x + (long long)m * H;
   float s = 0.f;
   for (int i = threadIdx.x; i < H; i += blockDim.x) s += ld(xr + i);
   const float mean = block_sum(s, red) / H;
@@ -94,9 +88,9 @@ __global__ void adaln_kernel(const T* x, T* out, const T* shift, const T* scale,
     v += d * d;
   }
   const float rstd = rsqrtf(block_sum(v, red) / H + eps);
-  const T* sh = shift + b * mod_sb;
-  const T* sc = scale + b * mod_sb;
-  T* o = out + (long long)m * H;
+  const bf16* sh = shift + b * mod_sb;
+  const bf16* sc = scale + b * mod_sb;
+  bf16* o = out + (long long)m * H;
   for (int i = threadIdx.x; i < H; i += blockDim.x)
     st(o + i, (ld(xr + i) - mean) * rstd * (1.f + ld(sc + i)) + ld(sh + i));
 }
@@ -106,20 +100,19 @@ __global__ void adaln_kernel(const T* x, T* out, const T* shift, const T* scale,
 constexpr int QK_WARPS = 8;
 constexpr int QK_DMAX = 256;
 
-template <typename T>
-__global__ void qk_norm_rope_kernel(T* qkvg, long long ldq, int T_len, int heads, int D, int rot,
-                                    const T* q_scale, const T* k_scale, const float* cos_t,
+__global__ void qk_norm_rope_kernel(bf16* qkvg, long long ldq, int T_len, int heads, int D, int rot,
+                                    const bf16* q_scale, const bf16* k_scale, const float* cos_t,
                                     const float* sin_t, float eps) {
   __shared__ float buf[QK_WARPS][QK_DMAX];
   const int m = blockIdx.x, which = blockIdx.y, t = m % T_len;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* row = qkvg + (long long)m * ldq + (long long)which * heads * D;
-  const T* scl = which ? k_scale : q_scale;
+  bf16* row = qkvg + (long long)m * ldq + (long long)which * heads * D;
+  const bf16* scl = which ? k_scale : q_scale;
   const float* ct = cos_t + (long long)t * rot;
   const float* stb = sin_t + (long long)t * rot;
   float* y = buf[warp];
   for (int h = warp; h < heads; h += QK_WARPS) {
-    T* xh = row + h * D;
+    bf16* xh = row + h * D;
     float ss = 0.f;
     for (int d = lane; d < D; d += 32) {
       const float x = ld(xh + d);
@@ -127,7 +120,7 @@ __global__ void qk_norm_rope_kernel(T* qkvg, long long ldq, int T_len, int heads
       ss += x * x;
     }
     const float inv = rsqrtf(warp_sum(ss) / D + eps);
-    for (int d = lane; d < D; d += 32) y[d] = rnd(y[d] * inv * ld(scl + h * D + d), xh);
+    for (int d = lane; d < D; d += 32) y[d] = rbf(y[d] * inv * ld(scl + h * D + d));
     __syncwarp();
     for (int d = lane; d < D; d += 32) {
       float o = y[d];
@@ -299,43 +292,25 @@ int launch_gemm(const GemmArgs& g, cudaStream_t s) {
 
 }  // namespace
 
-// dtype 0 = fp32, 1 = bf16. x / out (M, H) contiguous; shift / scale rows of
-// H at batch stride mod_sb (0 when one modulation serves the whole batch).
-extern "C" int st_adaln_modulate(int dtype, const void* x, void* out, const void* shift,
-                                 const void* scale, long long mod_sb, int M, int T, int H,
-                                 float eps, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    adaln_kernel<float><<<M, 256, 0, s>>>(static_cast<const float*>(x), static_cast<float*>(out),
-                                          static_cast<const float*>(shift),
-                                          static_cast<const float*>(scale), mod_sb, T, H, eps);
-  else if (dtype == 1)
-    adaln_kernel<bf16><<<M, 256, 0, s>>>(static_cast<const bf16*>(x), static_cast<bf16*>(out),
-                                         static_cast<const bf16*>(shift),
-                                         static_cast<const bf16*>(scale), mod_sb, T, H, eps);
-  else
-    return (int)cudaErrorInvalidValue;
+// bf16. x / out (M, H) contiguous; shift / scale rows of H at batch stride
+// mod_sb (0 when one modulation serves the whole batch).
+extern "C" int st_adaln_modulate(const void* x, void* out, const void* shift, const void* scale,
+                                 long long mod_sb, int M, int T, int H, float eps, void* stream) {
+  adaln_kernel<<<M, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const bf16*>(shift),
+      static_cast<const bf16*>(scale), mod_sb, T, H, eps);
   return (int)cudaGetLastError();
 }
 
-// qkvg (M, ldq): q at column 0, k at column heads*D, each (heads, D) per row.
-// cos/sin (T, rot) fp32 tables; q_scale / k_scale (heads, D).
-extern "C" int st_qk_norm_rope(int dtype, void* qkvg, long long ldq, int M, int T, int heads,
-                               int D, int rot, const void* q_scale, const void* k_scale,
-                               const float* cos_t, const float* sin_t, float eps, void* stream) {
+// bf16 qkvg (M, ldq): q at column 0, k at column heads*D, each (heads, D) per
+// row. cos/sin (T, rot) fp32 tables; q_scale / k_scale (heads, D) bf16.
+extern "C" int st_qk_norm_rope(void* qkvg, long long ldq, int M, int T, int heads, int D, int rot,
+                               const void* q_scale, const void* k_scale, const float* cos_t,
+                               const float* sin_t, float eps, void* stream) {
   if (D > QK_DMAX || rot > D || (rot & 1)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(M, 2);
-  if (dtype == 0)
-    qk_norm_rope_kernel<float><<<grid, 32 * QK_WARPS, 0, s>>>(
-        static_cast<float*>(qkvg), ldq, T, heads, D, rot, static_cast<const float*>(q_scale),
-        static_cast<const float*>(k_scale), cos_t, sin_t, eps);
-  else if (dtype == 1)
-    qk_norm_rope_kernel<bf16><<<grid, 32 * QK_WARPS, 0, s>>>(
-        static_cast<bf16*>(qkvg), ldq, T, heads, D, rot, static_cast<const bf16*>(q_scale),
-        static_cast<const bf16*>(k_scale), cos_t, sin_t, eps);
-  else
-    return (int)cudaErrorInvalidValue;
+  qk_norm_rope_kernel<<<dim3(M, 2), 32 * QK_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<bf16*>(qkvg), ldq, T, heads, D, rot, static_cast<const bf16*>(q_scale),
+      static_cast<const bf16*>(k_scale), cos_t, sin_t, eps);
   return (int)cudaGetLastError();
 }
 

@@ -33,6 +33,7 @@ from smalltts_tpu_torch.models.backbone import BackboneConfig, encode_conditions
 from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, codec_encode, init_codec
 from smalltts_tpu_torch.models.dit import fuse_serving_projections
 from smalltts_tpu_torch.ops.masking import length_mask
+from smalltts_tpu_torch.utils.transfer import to_device
 
 CHARS_PER_SECOND = 11.5
 
@@ -62,12 +63,12 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _to_device(tree, dtype, device):
+def _cast_tree(tree, dtype, device):
     """Floating leaves -> `dtype` on `device`; others keep their dtype."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, dtype, device) for k, v in tree.items()}
+        return {k: _cast_tree(v, dtype, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_device(v, dtype, device) for v in tree]
+        return [_cast_tree(v, dtype, device) for v in tree]
     t = torch.as_tensor(tree)
     return t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
 
@@ -78,8 +79,9 @@ class SmallTTS:
     Weights: the port's parameter trees (utils.convert.params_from_jax turns
     the JAX package's trees into them), `.npz` checkpoints of the JAX
     package, or nothing for a seeded random init at `cfg`'s size. Floating
-    backbone params are cast to `dtype` (bf16 on the card, fp32 on the CPU);
-    the codec runs in fp32."""
+    backbone params are cast to bf16 on the card and fp32 on the CPU, and
+    the block projections are fused into the serving layout the DiT kernels
+    read; the codec runs in fp32."""
 
     def __init__(
         self,
@@ -90,11 +92,9 @@ class SmallTTS:
         codec_checkpoint: Optional[str] = None,
         cfg: BackboneConfig = None,
         codec_cfg: CodecConfig = None,
-        dtype=None,
         num_steps: Optional[int] = None,
         seed: int = 0,
         sampler: str = "auto",
-        fused_projections: bool = True,
         pcm16_out: bool = False,
         device=None,
     ) -> None:
@@ -111,9 +111,8 @@ class SmallTTS:
             codec_cfg = codec_config_from_meta(ckpt.load_meta(codec_checkpoint))
         self.cfg = cfg or BackboneConfig()
         self.codec_cfg = codec_cfg or CodecConfig()
-        if dtype is None:
-            dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.dtype = dtype
+        # the card's kernels take bf16 only; the CPU runs fp32, as the tests compare it
+        self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
 
         if backbone_params is None and checkpoint:
             backbone_params = params_from_jax(ckpt.load_pytree(checkpoint), self.cfg)
@@ -125,11 +124,11 @@ class SmallTTS:
         if codec_params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed + 1)
             codec_params = init_codec(gen, self.codec_cfg, device=self.device)
-        params = _to_device(backbone_params, dtype, self.device)
+        params = _cast_tree(backbone_params, self.dtype, self.device)
         if "r_gate" in params:
             raise ValueError("IMF checkpoints need the imf sampler, which is not ported")
-        self.params = fuse_serving_projections(params) if fused_projections else params
-        self.codec_params = _to_device(codec_params, torch.float32, self.device)
+        self.params = fuse_serving_projections(params)
+        self.codec_params = _cast_tree(codec_params, torch.float32, self.device)
         self.num_steps = NUM_STEPS if num_steps is None else num_steps
         self.sampler = "dmd"
         self.pcm16_out = pcm16_out
@@ -151,7 +150,7 @@ class SmallTTS:
             torch.cuda.synchronize(self.device)
 
     def _tensor(self, x, dtype):
-        return torch.as_tensor(np.asarray(x), device=self.device).to(dtype)
+        return to_device(np.asarray(x), self.device).to(dtype)
 
     # ------------------------------------------------------------- public API
 

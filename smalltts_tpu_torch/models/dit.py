@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from smalltts_tpu_torch.ops import nn
 from smalltts_tpu_torch.ops.kernels.dit_block import fused_dit_scan
-from smalltts_tpu_torch.ops.rope import rope_table_interleaved
+from smalltts_tpu_torch.ops.rope import interleaved_cos_sin
 
 
 @dataclass(frozen=True)
@@ -134,8 +134,9 @@ def _all_block_modulations(blocks, emb):
     """Every block's adaLN modulation in one product: (B, H) x (L, H, 6H) -> (L, B, 6H)."""
     lin = blocks["attn_norm"]["linear"]
     s = F.silu(emb)
-    mod = torch.einsum("bh,lhm->lbm", s, lin["w"].to(s.dtype))
-    return (mod.float() + lin["b"].float()[:, None, :]).to(s.dtype)
+    w = lin["w"].to(s.dtype)
+    mod = nn.matmul_f32(s.expand(w.shape[0], *s.shape), w)  # fp32 accumulation, as in JAX
+    return (mod + lin["b"].float()[:, None, :]).to(s.dtype)
 
 
 def _adaln_final_from_mod(mod, x, eps=1e-6):
@@ -176,9 +177,8 @@ def dit_encode_cross_kv(p, cfg: DiTConfig, ref_seq, phoneme_embedding, phonemes_
 
 
 def rope_cos_sin(cfg: DiTConfig, seq_len: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T, rot_dim) fp32 cos/sin of the duplicated-frequency table."""
-    freqs = torch.from_numpy(rope_table_interleaved(seq_len, cfg.rot_dim)).to(device)
-    return torch.cos(freqs), torch.sin(freqs)
+    """(T, rot_dim) fp32 cos/sin of the duplicated-frequency table, cached on the device."""
+    return interleaved_cos_sin(seq_len, cfg.rot_dim, device)
 
 
 def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cross_v, cross_mask,

@@ -10,7 +10,7 @@ import torch
 from smalltts_tpu_torch.models.encoder import EncoderConfig, encoder_stack, init_encoder_blocks
 from smalltts_tpu_torch.ops import nn
 from smalltts_tpu_torch.ops.masking import length_mask
-from smalltts_tpu_torch.ops.rope import rope_table_cos_sin
+from smalltts_tpu_torch.ops.rope import pair_cos_sin
 
 LATENT_SIZE = 64
 STYLE_ENCODER_CONFIG = EncoderConfig(
@@ -35,9 +35,6 @@ def style_encoder(p, latents, lengths, cfg: EncoderConfig = STYLE_ENCODER_CONFIG
     mask = length_mask(lengths, t)
     x = nn.linear(p["in_proj"], latents)
     x = x * torch.exp(p["log_scale"]).to(x.dtype)
-    cos, sin = rope_table_cos_sin(t, cfg.head_dim)
-    dev = x.device
-    x = encoder_stack(p["blocks"], cfg, x, mask, torch.from_numpy(cos).to(dev),
-                      torch.from_numpy(sin).to(dev))
+    x = encoder_stack(p["blocks"], cfg, x, mask, *pair_cos_sin(t, cfg.head_dim, x.device))
     x = nn.linear(p["out_proj"], nn.rmsnorm(p["norm"], x, cfg.norm_eps))
-    return torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype, device=dev)), mask
+    return torch.where(mask[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device)), mask

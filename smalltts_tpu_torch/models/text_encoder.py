@@ -7,7 +7,7 @@ import torch
 
 from smalltts_tpu_torch.models.encoder import EncoderConfig, encoder_stack, init_encoder_blocks
 from smalltts_tpu_torch.ops import nn
-from smalltts_tpu_torch.ops.rope import rope_table_cos_sin
+from smalltts_tpu_torch.ops.rope import pair_cos_sin
 
 TEXT_ENCODER_CONFIG = EncoderConfig(
     model_size=512, num_layers=8, num_heads=4, intermediate_size=1024, norm_eps=1e-6
@@ -27,8 +27,5 @@ def init_text_encoder(gen, vocab_size: int, cfg: EncoderConfig = TEXT_ENCODER_CO
 def text_encoder(p, input_ids, mask=None, cfg: EncoderConfig = TEXT_ENCODER_CONFIG):
     """(B, P) int ids, (B, P) bool mask -> (B, P, model_size)."""
     x = p["text_embedding"]["w"][input_ids]
-    cos, sin = rope_table_cos_sin(input_ids.shape[1], cfg.head_dim)
-    dev = x.device
-    x = encoder_stack(p["blocks"], cfg, x, mask, torch.from_numpy(cos).to(dev),
-                      torch.from_numpy(sin).to(dev))
+    x = encoder_stack(p["blocks"], cfg, x, mask, *pair_cos_sin(input_ids.shape[1], cfg.head_dim, x.device))
     return nn.rmsnorm(p["norm"], x, cfg.norm_eps)

@@ -108,8 +108,8 @@ SIGNATURES = {
                           ctypes.POINTER(_I), _F, _P], _I),
     },
     "dit_block": {
-        "st_adaln_modulate": ([_I, _P, _P, _P, _P, _L, _I, _I, _I, _F, _P], _I),
-        "st_qk_norm_rope": ([_I, _P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P], _I),
+        "st_adaln_modulate": ([_P, _P, _P, _P, _L, _I, _I, _I, _F, _P], _I),
+        "st_qk_norm_rope": ([_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P], _I),
         "st_gemm": ([_I, _P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P], _I),
     },
 }

@@ -23,17 +23,16 @@ from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.attention import fused_attention
 
 EPI_BIAS, EPI_SWIGLU, EPI_RESID = 0, 1, 2
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _dtype_code(t: torch.Tensor, what: str) -> int:
-    if t.dtype not in _DTYPES:
-        raise ValueError(f"{what}: dtype {t.dtype} is not fp32 or bf16")
-    return _DTYPES[t.dtype]
+def _bf16_only(what: str, *ts) -> None:
+    """The scan runs in bf16 on the card: its kernels are built for bf16 alone."""
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise ValueError(f"{what}: bf16 only on the card, got {[t.dtype for t in ts]}")
 
 
 # ------------------------------------------------------------ adaln_modulate
@@ -57,11 +56,10 @@ def adaln_modulate(x, shift, scale, eps=1e-6):
         raise ValueError("adaln_modulate: x (B,T,H) contiguous, shift/scale (B,H)")
     if shift.stride() != scale.stride() or shift.stride(1) != 1:
         raise ValueError("adaln_modulate: shift/scale must share strides, contiguous in H")
-    if shift.dtype != x.dtype or scale.dtype != x.dtype:
-        raise ValueError("adaln_modulate: shift/scale must have x's dtype")
+    _bf16_only("adaln_modulate", x, shift, scale)
     out = torch.empty_like(x)
     lib = kernels.load("dit_block")
-    status = lib.st_adaln_modulate(_dtype_code(x, "adaln_modulate"), x.data_ptr(), out.data_ptr(),
+    status = lib.st_adaln_modulate(x.data_ptr(), out.data_ptr(),
                                    shift.data_ptr(), scale.data_ptr(), shift.stride(0),
                                    B * T, T, H, eps, _stream(x))
     kernels.check(lib, "dit_block", status, "adaln_modulate")
@@ -105,10 +103,9 @@ def qk_norm_rope(qkvg, q_scale, k_scale, cos, sin, eps=1e-6):
         raise ValueError("qk_norm_rope: cos/sin must be fp32 (T, rot)")
     q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
-    if q_scale.dtype != qkvg.dtype or k_scale.dtype != qkvg.dtype:
-        raise ValueError("qk_norm_rope: scales must have qkvg's dtype")
+    _bf16_only("qk_norm_rope", qkvg, q_scale, k_scale)
     lib = kernels.load("dit_block")
-    status = lib.st_qk_norm_rope(_dtype_code(qkvg, "qk_norm_rope"), qkvg.data_ptr(), W, B * T, T,
+    status = lib.st_qk_norm_rope(qkvg.data_ptr(), W, B * T, T,
                                  heads, D, rot, q_scale.data_ptr(), k_scale.data_ptr(),
                                  cos.data_ptr(), sin.data_ptr(), eps, _stream(qkvg))
     kernels.check(lib, "dit_block", status, "qk_norm_rope")
@@ -148,8 +145,7 @@ def gemm_residual_plain(a, w, b, x, gate, row_mask=None):
 
 def _gemm(epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1, half=0):
     M, K = a.numel() // a.shape[-1], a.shape[-1]
-    if a.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or out.dtype != torch.bfloat16:
-        raise ValueError(f"gemm: bf16 only on the card, got {a.dtype} x {w.dtype}")
+    _bf16_only("gemm", a, w, out)
     if not a.is_contiguous() or not w.is_contiguous() or not out.is_contiguous():
         raise ValueError("gemm: operands must be contiguous")
     if w.shape[0] != K or K % 8 or n_out % 8 or w.shape[1] % 8:
@@ -256,6 +252,4 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     for l in range(L):
         block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
                     heads, head_dim)
-    if not kernels.use_plain(x):
-        kernels.count_launch("fused_dit_scan")
     return x

@@ -55,13 +55,26 @@ def init_conv1d(gen, c_in, c_out, k, groups=1, dtype=torch.float32, device="cpu"
 # -------------------------------------------------------------------------- apply
 
 
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in float32 and returned in float32: x (..., K) with
+    w (K, N), or x (L, M, K) with w (L, K, N). bf16 operands on the card go
+    to cuBLAS with a float32 result (the out_dtype of torch.mm / torch.bmm);
+    elsewhere they are upcast, which is exact for bf16."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16):
+        return torch.matmul(x.float(), w.float())
+    if w.dim() == 3:
+        return torch.bmm(x.contiguous(), w, out_dtype=torch.float32)
+    y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
-    """x @ w (+ b) with the bias added in float32, cast back to x's dtype.
-    In bf16 the product rounds once to bf16 before the bias (cuBLAS returns
-    the input dtype); in float32 it matches the JAX package exactly."""
-    y = torch.matmul(x, p["w"].to(x.dtype))
+    """x @ w (+ b) as the JAX package computes it: the product accumulates
+    in float32, the bias adds in float32, and the sum rounds once to x's
+    dtype."""
+    y = matmul_f32(x, p["w"].to(x.dtype))
     if "b" in p:
-        y = y.float() + p["b"].float()
+        y = y + p["b"].float()
     return y.to(x.dtype)
 
 

@@ -10,8 +10,12 @@ Two conventions, kept numerically distinct as in the JAX package:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from smalltts_tpu_torch.utils.transfer import to_device
 
 
 def rope_table_interleaved(max_seq: int, dim: int, theta: float = 1e4) -> np.ndarray:
@@ -28,6 +32,23 @@ def rope_table_cos_sin(max_seq: int, head_dim: int, theta: float = 1e4):
     t = np.arange(max_seq, dtype=np.float32)
     freqs = np.outer(t, inv_freq)
     return np.cos(freqs), np.sin(freqs)
+
+
+# The tables below are made once per (length, dim, device) and kept: the
+# serving path reads them every batch and step without a host round trip.
+
+
+@functools.lru_cache(maxsize=None)
+def interleaved_cos_sin(max_seq: int, dim: int, device) -> tuple:
+    """cos/sin of rope_table_interleaved on `device`, each (max_seq, dim) fp32."""
+    freqs = to_device(rope_table_interleaved(max_seq, dim), device)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+@functools.lru_cache(maxsize=None)
+def pair_cos_sin(max_seq: int, head_dim: int, device) -> tuple:
+    """rope_table_cos_sin on `device`, each (max_seq, head_dim / 2) fp32."""
+    return tuple(to_device(t, device) for t in rope_table_cos_sin(max_seq, head_dim))
 
 
 def _rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:

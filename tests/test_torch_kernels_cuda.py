@@ -76,7 +76,7 @@ def test_attention_two_sources_gate(dev, dtype):
     assert rel(out.unflatten(-1, (H, D)).transpose(1, 2), want) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16])
 def test_adaln_and_qk_norm_rope_kernels(dev, dtype):
     B, T, H, heads, D, rot = 8, 40, 960, 8, 120, 64
     g = gen(dev, 2)
@@ -125,3 +125,71 @@ def test_gemm_rejects_fp32_on_the_card(dev):
     a = torch.zeros((2, 8, 64), device=dev)
     with pytest.raises(ValueError):
         K.gemm_bias(a, torch.zeros((64, 64), device=dev), torch.zeros((64,), device=dev))
+
+
+def test_norm_kernels_reject_fp32_on_the_card(dev):
+    x = torch.zeros((2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        K.adaln_modulate(x, torch.zeros((2, 64), device=dev), torch.zeros((2, 64), device=dev))
+    qkvg = torch.zeros((2, 8, 4 * 64), device=dev)
+    cos = torch.zeros((8, 16), device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        K.qk_norm_rope(qkvg, torch.ones((1, 64), device=dev), torch.ones((1, 64), device=dev), cos, cos)
+
+
+def test_linear_bf16_on_the_card_rounds_once(dev):
+    """cuBLAS with an fp32 result, then the fp32 bias, then one rounding:
+    the same as the upcast product on the card up to the order of the fp32
+    sums. Tolerance: 1 bf16 ulp (2^-7 relative) plus 1e-4 absolute, which
+    covers fp32 sums in another order (~5e-6 here) where the bias cancels
+    the product; at most 1% of entries differ."""
+    from smalltts_tpu_torch.ops import nn
+
+    g = gen(dev, 11)
+    x = randn((8, 384, 512), g, dev, torch.bfloat16)
+    p = {"w": randn((512, 960), g, dev, torch.bfloat16, 0.05), "b": randn((960,), g, dev, torch.bfloat16, 4.0)}
+    got = nn.linear(p, x).float()
+    want = (x.float() @ p["w"].float() + p["b"].float()).to(torch.bfloat16).float()
+    diff = (got - want).abs()
+    assert bool((diff <= want.abs() * 2.0 ** -7 + 1e-4).all())
+    assert float((diff > 0).float().mean()) <= 0.01
+    w3 = randn((4, 512, 960), g, dev, torch.bfloat16, 0.05)
+    s = randn((4, 8, 512), g, dev, torch.bfloat16)
+    assert torch.allclose(nn.matmul_f32(s, w3), s.float() @ w3.float(), rtol=1e-5, atol=1e-4)
+
+
+def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
+    """synthesize_padded(fetch=False) returns the card's tensor without
+    waiting for the card: PyTorch raises on any synchronizing call in
+    "error" sync-debug mode. Small widths that the kernels take (DiT head dim
+    120, encoder head dim 64); the second batch's buckets are new, so the
+    tables made on first use are covered too."""
+    import numpy as np
+
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.codec import CodecConfig
+    from smalltts_tpu_torch.models.dit import DiTConfig
+    from smalltts_tpu_torch.models.encoder import EncoderConfig
+
+    enc = EncoderConfig(model_size=128, num_layers=2, num_heads=2, intermediate_size=256, norm_eps=1e-6)
+    cfg = BackboneConfig(hidden_dim=240, phoneme_dim=128, text=enc, style=enc,
+                         dit=DiTConfig(phoneme_dim=128, hidden_dim=240, n_blocks=2, heads=2))
+    g = gen(dev, 12)
+    params = redraw_zero_init(init_backbone(g, cfg, device=dev), g)
+    tts = SmallTTS(params, cfg=cfg, codec_cfg=CodecConfig(channels=(16, 16, 16, 8, 8, 4)), pcm16_out=True)
+    rs = np.random.RandomState(0)
+
+    def batch(R, P, T):
+        return (rs.randn(2, R, 64).astype(np.float32), np.array([R, R // 2]), rs.randint(1, 198, (2, P)),
+                np.array([P, P // 3]), np.array([T, T // 2]), T)
+
+    tts.synthesize_padded(*batch(64, 128, 16))  # builds the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tts.synthesize_padded(*batch(256, 384, 40), fetch=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.is_cuda and out.dtype == torch.int16 and out.shape == (2, 1, 40 * 3200)
+    assert int(out.abs().max()) > 0

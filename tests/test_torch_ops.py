@@ -46,6 +46,25 @@ def test_linear(bias):
     close(nn.linear(pt, T(x)), jnn.linear(pj, jnp.asarray(x)))
 
 
+@pytest.mark.parametrize("bias", [True, False])
+def test_linear_bf16_rounds_once(bias):
+    """bf16, as the card serves: the product accumulates in fp32 and the bias
+    adds in fp32 before one rounding, as the JAX linear does. Tolerance: 1
+    bf16 ulp (2^-7 relative) plus 1e-4 absolute anywhere, and at most 1% of
+    entries differ (fp32 sums in another order may cross a rounding
+    boundary, or show where the bias cancels the product). Rounding the
+    product to bf16 before the bias changes ~17% of them."""
+    x, w, b = rnd(4, 16, 256, seed=20), rnd(256, 96, seed=21, scale=0.0625), rnd(96, seed=22, scale=4.0)
+    pj = {"w": jnp.asarray(w, jnp.bfloat16), **({"b": jnp.asarray(b, jnp.bfloat16)} if bias else {})}
+    pt = {"w": T(w).bfloat16(), **({"b": T(b).bfloat16()} if bias else {})}
+    got = nn.linear(pt, T(x).bfloat16())
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(jnn.linear(pj, jnp.asarray(x, jnp.bfloat16)).astype(jnp.float32))
+    diff = np.abs(got.float().numpy() - want)
+    assert (diff <= np.abs(want) * 2.0 ** -7 + 1e-4).all()
+    assert (diff > 0).mean() <= 0.01
+
+
 @pytest.mark.parametrize("scale_shape", [(32,), (4, 8)])
 def test_rmsnorm(scale_shape):
     x = rnd(2, 7, 4, 8, seed=3) if len(scale_shape) == 2 else rnd(2, 7, 32, seed=3)
@@ -102,6 +121,18 @@ def test_rope_pairs():
     np.testing.assert_array_equal(sin, js)
     want = jrope.apply_rope_pairs(jnp.asarray(x), jnp.asarray(cos), jnp.asarray(sin))
     close(rope.apply_rope_pairs(T(x), T(cos), T(sin)), want)
+
+
+def test_cached_rope_tables_match_the_host_tables():
+    """The device-side tables the models read are the host tables, exactly."""
+    cos, sin = rope.pair_cos_sin(12, 16, "cpu")
+    jc, js = jrope.rope_table_cos_sin(12, 16)
+    np.testing.assert_array_equal(cos.numpy(), jc)
+    np.testing.assert_array_equal(sin.numpy(), js)
+    assert rope.pair_cos_sin(12, 16, "cpu")[0] is cos  # made once, then reused
+    icos, isin = rope.interleaved_cos_sin(10, 8, "cpu")
+    freqs = torch.from_numpy(jrope.rope_table_interleaved(10, 8))
+    assert torch.equal(icos, torch.cos(freqs)) and torch.equal(isin, torch.sin(freqs))
 
 
 def test_alpha_sigma_and_length_mask():
