@@ -7,14 +7,19 @@
    started together) and prints the build times.
 2. Kernel phases: each hand-written kernel against its plain PyTorch version
    on the card, at the serving path's shapes, with the tolerance stated;
-   kernel, plain and (where one exists) library-call times from CUDA events.
-3. Serving phase: SmallTTS(pcm16_out=True) at full width (default
-   BackboneConfig / CodecConfig, bf16, seeded random weights) behind the
-   port's Batcher answers 10 requests; the launch counters, reset just
-   before, must show every kernel of the path; one batch is held against
-   the same batch run with the plain versions forced; synthesize_padded
-   (fetch=False) must queue a batch with no synchronizing call, and one
-   batch is profiled (host dispatch time, wall time, device busy time).
+   kernel, plain and (where one exists) library-call times. A: attention;
+   B: the DiT block scan's kernels, bf16 and int8-weight, and the 12-layer
+   scan on bf16 and on int8 stream weights; C: the three w8 products.
+3. Serving phases, both at full width (default BackboneConfig /
+   CodecConfig, bf16, the same seeded random weights) behind the port's
+   Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
+   path SmallTTS(pcm16_out=True, w8_modulation=True, w8_stream=True). The
+   launch counters, reset just before each, must show every kernel of that
+   path (and, for int8, no bf16 GEMM); one batch is held against the same
+   batch with the plain versions forced; synthesize_padded(fetch=False)
+   must queue a batch with no synchronizing call, and one batch is profiled
+   (host dispatch time, wall time, device busy time). The int8 batch is
+   also held against the bf16 batch on the same noise.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -37,7 +42,22 @@ BLOCK_SRC = "smalltts_tpu_torch/csrc/dit_block.cu"
 ATTN_TPU = "smalltts_tpu/ops/pallas/attention.py:58"
 ATTN_KERNELS = ("attn_kernel<", "attn_tc_kernel<")  # fp32 (CUDA cores), bf16 (tensor cores)
 BLOCK_TPU = "smalltts_tpu/ops/pallas/block.py:216"
-SCAN_KERNELS = ("adaln_modulate", "qk_norm_rope", "gemm_bias", "gemm_swiglu", "gemm_residual")
+W8_SRC = "smalltts_tpu_torch/csrc/w8.cu"
+W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmul": "smalltts_tpu/ops/pallas/w8.py:80",
+          "w8_matmul_stacked": "smalltts_tpu/ops/pallas/w8.py:117"}
+W8_TOL = 1e-2  # one bf16 rounding (2^-8 of a value) that fp32 sums in another order may flip
+GEMMS = ("gemm_bias", "gemm_swiglu", "gemm_residual")
+SCAN_KERNELS = ("adaln_modulate", "qk_norm_rope") + GEMMS
+# profiler names of the GEMM instances: demangled, or mangled (gemm_kernel<EPI, W8>)
+GEMM_NAMES = {f"{n}{sfx}": (f"gemm_kernel<{i}, {w}>", f"gemm_kernelILi{i}ELb{int(w == 'true')}E")
+              for i, n in enumerate(GEMMS) for sfx, w in (("", "false"), ("_w8", "true"))}
+# the bf16 and int8 serve batches differ by the int8 weight rounding (~0.4%
+# of each weight, per channel) carried through 48 products a step and 4
+# steps: 5.0e-3 rel-L2 on an H100 at this configuration. A wiring fault (a
+# wrong scale axis or layer) gives O(1); the bound is the kernels-vs-plain
+# one, 5e-2, a tenth of the 10% of peak at which the JAX package holds the
+# int8 stream path's waveform (tests/test_pallas.py)
+W8_VS_BF16_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -227,31 +247,45 @@ def main() -> int:
     # each launch of a layer, timed over the 12 layers' weights (88+ MB: out of L2, as in the scan)
     h_in = randn((B, T, H))
     mid_in = randn((B, T, F))
+
+    def gemm_rows(at, fw, sfx):
+        """The layer's three products; a leaf holds bf16 `w` or int8 `w_q` + `scale`."""
+        def weight(lin, l):
+            return (lin["w_q"][l], lin["scale"][l]) if "w_q" in lin else (lin["w"][l], None)
+
+        def leaf_bytes(lin, l):
+            return nbytes(*(lin[k][l] for k in ("w", "w_q", "scale", "b") if k in lin))
+
+        def prod(fn, lin, a, *rest):
+            def run(l):
+                w, s = weight(lin, l)
+                return fn(a, w, lin["b"][l], *(r(l) for r in rest), w_scale=s)
+            return run
+
+        fresh_x, gate = (lambda l: x.clone()), (lambda l: mods[l][:, 5 * H:])
+        qk, w13, w2 = at["qkvg"], fw["w13"], fw["w2"]
+        return [
+            ("gemm_bias" + sfx, prod(K.gemm_bias, qk, h_in), prod(K.gemm_bias_plain, qk, h_in),
+             lambda l: torch.addmm(attn["qkvg"]["b"][l], h_in.view(M, H), attn["qkvg"]["w"][l]),
+             lambda l: (nbytes(h_in) + leaf_bytes(qk, l) + M * 4 * H * 2, 2.0 * M * H * 4 * H)),
+            ("gemm_swiglu" + sfx, prod(K.gemm_swiglu, w13, h_in), prod(K.gemm_swiglu_plain, w13, h_in), None,
+             lambda l: (nbytes(h_in) + leaf_bytes(w13, l) + M * F * 2, 2.0 * M * H * 2 * F)),
+            ("gemm_residual" + sfx, prod(K.gemm_residual, w2, mid_in, fresh_x, gate),
+             prod(K.gemm_residual_plain, w2, mid_in, fresh_x, gate), None,
+             lambda l: (nbytes(mid_in, mods[l][:, 5 * H:]) + leaf_bytes(w2, l) + 2 * M * H * 2, 2.0 * M * F * H)),
+        ]
+
+    qkvg0 = randn((B, T, 4 * H))
+    qs, ks = attn["q_norm"]["scale"], attn["k_norm"]["scale"]
     per_layer = [
         ("adaln_modulate", lambda l: K.adaln_modulate(h_in, mods[l][:, :H], mods[l][:, H:2 * H]),
          lambda l: K.adaln_modulate_plain(h_in, mods[l][:, :H], mods[l][:, H:2 * H]),
          None, lambda l: (nbytes(h_in, mods[l][:, :2 * H]) + h_in.numel() * 2, 0.0)),
-        ("qk_norm_rope", None, None, None, None),
-        ("gemm_bias", lambda l: K.gemm_bias(h_in, attn["qkvg"]["w"][l], attn["qkvg"]["b"][l]),
-         lambda l: K.gemm_bias_plain(h_in, attn["qkvg"]["w"][l], attn["qkvg"]["b"][l]),
-         lambda l: torch.addmm(attn["qkvg"]["b"][l], h_in.view(M, H), attn["qkvg"]["w"][l]),
-         lambda l: (nbytes(h_in, attn["qkvg"]["w"][l], attn["qkvg"]["b"][l]) + M * 4 * H * 2,
-                    2.0 * M * H * 4 * H)),
-        ("gemm_swiglu", lambda l: K.gemm_swiglu(h_in, ff["w13"]["w"][l], ff["w13"]["b"][l]),
-         lambda l: K.gemm_swiglu_plain(h_in, ff["w13"]["w"][l], ff["w13"]["b"][l]), None,
-         lambda l: (nbytes(h_in, ff["w13"]["w"][l], ff["w13"]["b"][l]) + M * F * 2, 2.0 * M * H * 2 * F)),
-        ("gemm_residual", lambda l: K.gemm_residual(mid_in, ff["w2"]["w"][l], ff["w2"]["b"][l], x.clone(),
-                                                   mods[l][:, 5 * H:]),
-         lambda l: K.gemm_residual_plain(mid_in, ff["w2"]["w"][l], ff["w2"]["b"][l], x.clone(),
-                                         mods[l][:, 5 * H:]), None,
-         lambda l: (nbytes(mid_in, ff["w2"]["w"][l], ff["w2"]["b"][l], mods[l][:, 5 * H:]) + 2 * M * H * 2,
-                    2.0 * M * F * H)),
+        ("qk_norm_rope", lambda l: K.qk_norm_rope(qkvg0.clone(), qs[l], ks[l], cos, sin),
+         lambda l: K.qk_norm_rope_plain(qkvg0.clone(), qs[l], ks[l], cos, sin), None,
+         lambda l: (2 * 2 * M * H * 2 + nbytes(qs[l], ks[l], cos, sin), 0.0)),
+        *gemm_rows(attn, ff, ""),
     ]
-    qkvg0 = randn((B, T, 4 * H))
-    qs, ks = attn["q_norm"]["scale"], attn["k_norm"]["scale"]
-    per_layer[1] = ("qk_norm_rope", lambda l: K.qk_norm_rope(qkvg0.clone(), qs[l], ks[l], cos, sin),
-                    lambda l: K.qk_norm_rope_plain(qkvg0.clone(), qs[l], ks[l], cos, sin), None,
-                    lambda l: (2 * 2 * M * H * 2 + nbytes(qs[l], ks[l], cos, sin), 0.0))
 
     def over_layers(fn):
         def run():
@@ -259,11 +293,9 @@ def main() -> int:
                 fn(l)
         return run
 
-    kernel_names = {"adaln_modulate": ("adaln_kernel",), "qk_norm_rope": ("qk_norm_rope_kernel",),
-                    "gemm_bias": ("gemm_kernel<0>", "gemm_kernelILi0E"),
-                    "gemm_swiglu": ("gemm_kernel<1>", "gemm_kernelILi1E"),
-                    "gemm_residual": ("gemm_kernel<2>", "gemm_kernelILi2E")}
-    for name, kfn, pfn, lfn, cost in per_layer:
+    kernel_names = {"adaln_modulate": ("adaln_kernel",), "qk_norm_rope": ("qk_norm_rope_kernel",), **GEMM_NAMES}
+
+    def layer_entry(name, kfn, pfn, lfn, cost, **extra):
         got_k, want_k = kfn(0), pfn(0)
         abs_e, rel_e = err(got_k, want_k)
         check(rel_e <= 2e-2, f"{name}: rel err {rel_e:.3e}")
@@ -273,14 +305,123 @@ def main() -> int:
         b_ms, b_by = bound(*cost(0), "bf16")
         e = dict(name=name, route="cuda", source=BLOCK_SRC, replaces=BLOCK_TPU, max_abs_err=abs_e,
                  rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lms, shape=f"M={M}")
+                 library_ms=lms, shape=f"M={M}", **extra)
         entries.append(e)
         print("  " + json.dumps(e), flush=True)
+
+    for row in per_layer:
+        layer_entry(*row)
     entries.append(scan_entry)
-    del blocks, p, ck, cv
+
+    # int8 stream weights (w8_stream): the four products' weights int8, as
+    # quantize_stream_weights stores them in bf16 arithmetic, (L, 1, N) scales
+    from smalltts_tpu_torch.models.dit import quantize_stream_weights
+
+    qb = quantize_stream_weights({"blocks": blocks})["blocks"]
+    print("phase B, int8 stream weights: each GEMM epilogue vs plain over the 12 layers (tolerance 2e-2); "
+          "library = torch.addmm on the bf16 weights, the float path's product")
+    for row in gemm_rows(qb["attn"], qb["ff"], "_w8"):
+        layer_entry(*row, **({"library_of": "torch.addmm, bf16 weights"} if row[3] else {}))
+    scan8 = lambda: K.fused_dit_scan(x, mods, mask, ck, cv, cmask, qb, cos, sin, heads=heads, head_dim=hd)  # noqa: E731
+    got = scan8()
+    with kernels.force_plain():
+        want = scan8()
+        plain_ms = timed(scan8, 5)[0]
+    rel_l2 = float((got.float() - want.float()).norm() / want.float().norm())
+    print(f"  12-layer scan on int8 stream weights: rel-L2 {rel_l2:.3e} (tolerance 2e-2)", flush=True)
+    check(rel_l2 <= 2e-2 and bool(torch.isfinite(got).all()), f"int8 fused_dit_scan rel-L2 {rel_l2:.3e}")
+    abs_e, _ = err(got, want)
+    ms, wall, clock = timed(scan8, 10)
+    qa, qf = qb["attn"], qb["ff"]
+    wbytes = nbytes(*(lin[k] for lin in (qa["qkvg"], qa["to_out"], qf["w13"], qf["w2"])
+                      for k in ("w_q", "scale", "b") if k in lin), attn["q_norm"]["scale"], attn["k_norm"]["scale"])
+    b_ms, b_by = bound(wbytes + nbytes(x, mods, mask, ck, cv, cmask, cos, sin, got), flops, "bf16")
+    print(f"  int8 scan: {ms:.4f} ms on the device ({wall:.4f} ms wall), {plain_ms:.4f} ms plain, "
+          f"bound {b_ms:.4f} ms ({b_by}); int8 stream bytes {wbytes / 1e6:.1f} MB")
+    entries.append(dict(name="fused_dit_scan_w8", route="cuda", source=BLOCK_SRC, replaces=BLOCK_TPU,
+                        max_abs_err=abs_e, rel_l2=rel_l2, ms=ms, wall_ms=wall, clock=clock, plain_ms=plain_ms,
+                        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                        shape=f"B={B} T={T} Sc={Sc} L={L} H={H}, int8 qkvg/to_out/w13/w2"))
+    del blocks, qb, p, ck, cv
     torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- serving phase
+    # ------------------------------------------------------------- kernel C
+    from smalltts_tpu_torch.ops.kernels import w8 as W8
+
+    print(f"phase C: w8 kernels vs plain, bf16 x, int8 weights (tolerance: max|diff|/max|plain| <= {W8_TOL}); "
+          "library = torch.bmm / torch.mm with an fp32 result on the same weights in bf16, the product the "
+          "float path computes (nn.matmul_f32)")
+
+    def w8_stack(n, K_, N_):
+        """n int8 (K_, N_) weights with their scales, and the same weights in bf16."""
+        w = randn((n, K_, N_), torch.float32, 0.02)
+        wq, sc = W8.quantize_w8(w)
+        return wq, sc, w.to(torch.bfloat16)
+
+    def w8_row(label, n, kfn, pfn, lfn, nbytes_, flops_, per):
+        """Check the first launch against plain, then time launches over the n weights."""
+        over = lambda fn: (lambda: [fn(i) for i in range(n)])  # noqa: E731
+        got_k, want_k = kfn(0), pfn(0)
+        abs_e, rel_e = err(got_k, want_k)
+        check(rel_e <= W8_TOL, f"w8 {label}: rel err {rel_e:.3e}")
+        ms, wall, clock = timed(over(kfn), 5, ("w8_kernel",), per=per)
+        pms = timed(over(pfn), 5, per=per)[0]
+        lms = timed(over(lfn), 5, per=per)[0]
+        b_ms, b_by = bound(nbytes_, flops_, "bf16")
+        row = dict(shape=label, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=pms,
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lms)
+        print("  " + json.dumps(row), flush=True)
+        return row
+
+    def w8_entry(name, rows, head, **extra):
+        entries.append(dict(name=name, route="cuda", source=W8_SRC, replaces=W8_TPU[name],
+                            **{k: rows[head][k] for k in ("max_abs_err", "ms", "wall_ms", "clock", "plain_ms",
+                                                          "bound_ms", "bound_by", "library_ms")},
+                            shape=rows[head]["shape"], shapes=rows, **extra))
+
+    # the main path's shape: the 4 steps' time embeddings x every layer's modulation weights (66 MB int8)
+    M4, Lm = 4, cfg.n_blocks
+    x4 = randn((M4, H))
+    wq, sc, wbf = w8_stack(Lm, H, 6 * H)
+    x4e = x4.expand(Lm, M4, H).contiguous()
+    row = w8_row(f"M={M4} K={H} N={6 * H} L={Lm}", 1, lambda i: W8.w8_matmul_all_layers(x4, wq, sc),
+                 lambda i: W8.w8_matmul_ref(x4, wq, sc), lambda i: torch.bmm(x4e, wbf, out_dtype=torch.float32),
+                 nbytes(x4, wq, sc) + Lm * M4 * 6 * H * 2, 2.0 * Lm * M4 * H * 6 * H, 1)
+    w8_entry("w8_matmul_all_layers", [row], 0, library_of="torch.bmm, bf16 weights, fp32 result",
+             on_main_path=True)
+    del wq, sc, wbf
+
+    # the JAX package's test shapes, each over enough weights (>= 128 MB of int8) to stream from HBM
+    rows = []
+    for M_, K_, N_ in ((320, 960, 2880), (40, 2400, 960), (8, 960, 5760)):
+        n = -(-128_000_000 // (K_ * N_))
+        xm = randn((M_, K_))
+        wq, sc, wbf = w8_stack(n, K_, N_)
+        rows.append(w8_row(f"M={M_} K={K_} N={N_} (over {n} weights)", n,
+                           lambda i: W8.w8_matmul(xm, wq[i], sc[i]), lambda i: W8.w8_matmul_ref(xm, wq[i], sc[i]),
+                           lambda i: torch.mm(xm, wbf[i], out_dtype=torch.float32),
+                           nbytes(xm, wq[0], sc[0]) + M_ * N_ * 2, 2.0 * M_ * K_ * N_, n))
+        del wq, sc, wbf
+    w8_entry("w8_matmul", rows, 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
+
+    # the stacked form: the index is a device int32 that the kernel reads; every layer of a 12-layer stack
+    Ms, Ns = 8, 4 * H
+    xs = randn((Ms, H))
+    wq, sc, wbf = w8_stack(Lm, H, Ns)
+    idx = [torch.full((1,), i, dtype=torch.int32, device=dev) for i in range(Lm)]
+    for i in (0, 5, 11):
+        e_abs, e_rel = err(W8.w8_matmul_stacked(xs, wq, sc, idx[i]), W8.w8_matmul_ref(xs, wq[i], sc[i]))
+        check(e_rel <= W8_TOL, f"w8_matmul_stacked idx {i}: rel err {e_rel:.3e}")
+        print(f"  w8_matmul_stacked, device index {i}: rel err {e_rel:.3e}")
+    row = w8_row(f"M={Ms} K={H} N={Ns}, index in a device int32, over the {Lm} layers", Lm,
+                 lambda i: W8.w8_matmul_stacked(xs, wq, sc, idx[i]), lambda i: W8.w8_matmul_ref(xs, wq[i], sc[i]),
+                 lambda i: torch.mm(xs, wbf[i], out_dtype=torch.float32),
+                 nbytes(xs, wq[0], sc[0], idx[0]) + Ms * Ns * 2, 2.0 * Ms * H * Ns, Lm)
+    w8_entry("w8_matmul_stacked", [row], 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
+    del wq, sc, wbf
+    torch.cuda.empty_cache()
+
+    # --------------------------------------------------------- serving phases
     import numpy as np
 
     from smalltts_tpu_torch.data.bucketing import HOP_SIZE, SAMPLE_RATE, frames_for_duration
@@ -289,129 +430,191 @@ def main() -> int:
     from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
     from smalltts_tpu_torch.serving.batcher import Batcher, pad_group, Request
 
-    print("phase serve: SmallTTS(pcm16_out=True), default BackboneConfig/CodecConfig, bf16, seed 0")
-    t_init = time.perf_counter()
-    gb = torch.Generator(device=dev).manual_seed(0)
-    params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
-    tts = SmallTTS(params, pcm16_out=True, seed=0)
-    del params
-    n_params = sum(t.numel() for t in _leaves(tts.params))
-    print(f"  built in {time.perf_counter() - t_init:.2f} s: {n_params / 1e6:.1f}M backbone params "
-          f"({tts.dtype}), codec fp32, {tts.num_steps} steps", flush=True)
-
     rs = np.random.RandomState(0)
     durations = [2.0, 5.0] * 5
     waves = [(0.1 * rs.randn(int(rs.uniform(2.0, 6.0) * SAMPLE_RATE))).astype(np.float32) for _ in durations]
     ids = [rs.randint(1, 198, size=int(rs.randint(40, 201))).tolist() for _ in durations]
-    # warm-up outside the counted run (cuDNN picks its algorithms on first use)
-    tts.synthesize(tts.encode_reference(waves[0]), ids[0], 2.0)
-    torch.cuda.synchronize()
 
-    batches = []
+    def build(label, **opts):
+        """SmallTTS at full width on the same seeded weights for every phase."""
+        print(f"phase serve {label}: SmallTTS(pcm16_out=True{''.join(f', {k}=True' for k in opts)}), "
+              "default BackboneConfig/CodecConfig, bf16, seed 0")
+        t_init = time.perf_counter()
+        gb = torch.Generator(device=dev).manual_seed(0)
+        params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
+        tts = SmallTTS(params, pcm16_out=True, seed=0, **opts)
+        del params
+        n_params = sum(t.numel() for t in _leaves(tts.params))
+        print(f"  built in {time.perf_counter() - t_init:.2f} s: {n_params / 1e6:.1f}M backbone params "
+              f"({tts.dtype}), codec fp32, {tts.num_steps} steps", flush=True)
+        return tts
 
-    class Recorder:
-        """Passes through to the pipeline and records each padded batch."""
+    def serve(tts):
+        """10 requests through the Batcher, the launch counters reset just
+        before; returns (launches, batches, references)."""
+        # warm-up outside the counted run (cuDNN picks its algorithms on first use)
+        tts.synthesize(tts.encode_reference(waves[0]), ids[0], 2.0)
+        torch.cuda.synchronize()
+        batches = []
 
-        def __init__(self, inner):
-            self.inner = inner
+        class Recorder:
+            """Passes through to the pipeline and records each padded batch."""
 
-        def synthesize_padded(self, ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, **kw):
-            batches.append(dict(batch=len(seq_lens), requests=int((np.asarray(ref_lens) > 0).sum()),
-                                t_bucket=t_bucket, ref_bucket=ref.shape[1], phoneme_bucket=ph.shape[1]))
-            return self.inner.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, **kw)
+            def __init__(self, inner):
+                self.inner = inner
 
-    kernels.reset_launches()
-    t_serve = time.perf_counter()
-    refs = [tts.encode_reference(w) for w in waves]
-    batcher = Batcher(Recorder(tts), max_batch=8)
-    t_sub, t_done = [], [0.0] * len(durations)
-    try:
-        futs = []
-        for i, (ref, tok, d) in enumerate(zip(refs, ids, durations)):
-            t_sub.append(time.perf_counter())
-            futs.append(batcher.submit(ref, tok, d))
-            # the time the request resolved, whatever order the futures are read in
-            futs[-1].add_done_callback(lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
-        outs = [f.result(timeout=600) for f in futs]
-    finally:
-        batcher.close()
-    lat_ms = [(done - sub) * 1e3 for sub, done in zip(t_sub, t_done)]
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t_serve
-    launches = dict(kernels.LAUNCHES)
-    for out, d in zip(outs, durations):
-        n = frames_for_duration(d) * HOP_SIZE
-        check(out.dtype == np.int16 and out.shape == (1, n), f"result {out.dtype} {out.shape}, want int16 (1, {n})")
-        check(int(np.abs(out).max()) > 0, "an all-zero waveform")
-    print(f"  {len(outs)} requests answered in {serve_s:.3f} s (reference encode included)")
-    print(f"  per-request latency ms (submit -> result): {json.dumps([round(v, 3) for v in lat_ms])}")
-    print(f"  batches: {json.dumps(batches)}")
-    print(f"  launches during the serving phase: {json.dumps(launches)}", flush=True)
+            def synthesize_padded(self, ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, **kw):
+                batches.append(dict(batch=len(seq_lens), requests=int((np.asarray(ref_lens) > 0).sum()),
+                                    t_bucket=t_bucket, ref_bucket=ref.shape[1], phoneme_bucket=ph.shape[1]))
+                return self.inner.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, **kw)
+
+        kernels.reset_launches()
+        t_serve = time.perf_counter()
+        refs = [tts.encode_reference(w) for w in waves]
+        batcher = Batcher(Recorder(tts), max_batch=8)
+        t_sub, t_done = [], [0.0] * len(durations)
+        try:
+            futs = []
+            for i, (ref, tok, d) in enumerate(zip(refs, ids, durations)):
+                t_sub.append(time.perf_counter())
+                futs.append(batcher.submit(ref, tok, d))
+                # the time the request resolved, whatever order the futures are read in
+                futs[-1].add_done_callback(lambda _f, i=i: t_done.__setitem__(i, time.perf_counter()))
+            outs = [f.result(timeout=600) for f in futs]
+        finally:
+            batcher.close()
+        lat_ms = [(done - sub) * 1e3 for sub, done in zip(t_sub, t_done)]
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t_serve
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for out, d in zip(outs, durations):
+            n = frames_for_duration(d) * HOP_SIZE
+            check(out.dtype == np.int16 and out.shape == (1, n), f"result {out.dtype} {out.shape}, want int16 (1, {n})")
+            check(int(np.abs(out).max()) > 0, "an all-zero waveform")
+        print(f"  {len(outs)} requests answered in {serve_s:.3f} s (reference encode included)")
+        print(f"  per-request latency ms (submit -> result): {json.dumps([round(v, 3) for v in lat_ms])}")
+        print(f"  batches: {json.dumps(batches)}")
+        print(f"  launches during the serving phase: {json.dumps(launches)}", flush=True)
+        return launches, batches, refs
+
+    def scan_launches(launches, gemms):
+        """The scan is a host loop that launches nothing itself: the launches
+        of its per-layer kernels, and the one attention launch each layer
+        makes (one per qk_norm_rope launch; the attention counter also holds
+        the encoders' launches)."""
+        names = ("adaln_modulate", "qk_norm_rope") + gemms
+        total = sum(launches.get(n, 0) for n in names) + launches.get("qk_norm_rope", 0)
+        return total, list(names) + ["attention (one per layer)"]
+
+    def batch_checks(tts, group_args, noises):
+        """One batch with the kernels vs the same batch with the plain
+        versions forced; the no-sync check of fetch=False; one batch
+        profiled. Returns (latents with the kernels, profile row)."""
+        ref, ref_lens, ph, ph_lens, seq_lens, t_bucket = group_args
+        tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+        args = (tts.params, tts.cfg, tt(ref, tts.dtype), tt(ref_lens, torch.int32), tt(ph, torch.int64),
+                tt(ph_lens, torch.int32), tt(seq_lens, torch.int32))
+        with torch.inference_mode():
+            lat_k = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
+            with kernels.force_plain():
+                lat_p = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
+        lat_rel = float((lat_k.float() - lat_p.float()).norm() / lat_p.float().norm())
+        print(f"  batch of 8 (t_bucket {t_bucket}) kernels vs plain: latents rel-L2 {lat_rel:.3e} (tolerance 5e-2)")
+        check(bool(torch.isfinite(lat_k).all()) and lat_rel <= 5e-2, f"serving latents rel-L2 {lat_rel:.3e}")
+
+        # where one batch's time goes: wall clock unprofiled, device busy from the profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        def one_batch(fetch=True):
+            return tts.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, fetch=fetch)
+
+        one_batch()
+        # fetch=False must queue the whole batch without waiting for the card:
+        # PyTorch raises here on any synchronizing call (a pageable copy, .item())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one_batch(fetch=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print("  synthesize_padded(fetch=False) queued a batch with no synchronizing call", flush=True)
+        # dispatch: host time to queue the batch; wall: until its waveform is on the host
+        walls, dispatch = [], []
+        for _ in range(5):
+            t_b = time.perf_counter()
+            audio = one_batch(fetch=False)
+            dispatch.append((time.perf_counter() - t_b) * 1e3)
+            audio.cpu()
+            walls.append((time.perf_counter() - t_b) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            one_batch()
+        kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+                       if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in kern)
+        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
+                                                                              "gemm_kernel", "w8_kernel")))
+        wall_med = sorted(walls)[len(walls) // 2]
+        prof_row = dict(batch=8, t_bucket=t_bucket, ref_bucket=ref.shape[1], phoneme_bucket=ph.shape[1],
+                        wall_ms=walls, dispatch_ms=dispatch, device_busy_ms=busy, hand_written_kernels_ms=ours,
+                        idle_share=(1.0 - busy / wall_med) if busy else None,
+                        top=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:12]])
+        print(f"  serving batch profile: {json.dumps(prof_row)}", flush=True)
+        return lat_k
+
+    # bf16 serving: every kernel of this path launched
+    tts = build("bf16")
+    launches, _, refs = serve(tts)
+    check(not any(launches.get(n) for n in (*W8_TPU, *(g + "_w8" for g in GEMMS))),
+          "an int8 kernel ran on the bf16 path")
+    unserved = {n: launches.get(n, 0) for n in ("w8_matmul", "w8_matmul_stacked")}  # no serving path calls them
     for e in entries:
         if e["name"] == "fused_dit_scan":
-            # a host loop that launches nothing itself: the launches of its
-            # per-layer kernels, and the one attention launch each layer
-            # makes (one per qk_norm_rope launch; the attention counter also
-            # holds the encoders' launches)
-            e["launches"] = sum(launches.get(n, 0) for n in SCAN_KERNELS) + launches.get("qk_norm_rope", 0)
-            e["launches_of"] = list(SCAN_KERNELS) + ["attention (one per layer)"]
-        else:
+            e["launches"], e["launches_of"] = scan_launches(launches, GEMMS)
+        elif e["name"] in ("attention",) + SCAN_KERNELS:
             e["launches"] = launches.get(e["name"], 0)
+        else:
+            continue
         check(e["launches"] > 0, f"kernel {e['name']} was not launched by the serving path")
-
-    # one batch with the kernels vs the same batch with the plain versions forced
     group = [Request(r, tok, d) for r, tok, d in zip(refs[:8], ids[:8], durations[:8])]
-    ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, _ = pad_group(group, 8)
-    tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
-    args = (tts.params, tts.cfg, tt(ref, tts.dtype), tt(ref_lens, torch.int32), tt(ph, torch.int64),
-            tt(ph_lens, torch.int32), tt(seq_lens, torch.int32))
-    noises = torch.randn((tts.num_steps, 8, t_bucket, 64), generator=g, device=dev).to(tts.dtype)
-    with torch.inference_mode():
-        lat_k = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
-        with kernels.force_plain():
-            lat_p = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
-    lat_rel = float((lat_k.float() - lat_p.float()).norm() / lat_p.float().norm())
-    print(f"  batch of 8 (t_bucket {t_bucket}) kernels vs plain: latents rel-L2 {lat_rel:.3e} (tolerance 5e-2)")
-    check(bool(torch.isfinite(lat_k).all()) and lat_rel <= 5e-2, f"serving latents rel-L2 {lat_rel:.3e}")
+    group_args = pad_group(group, 8)[:6]
+    noises = torch.randn((tts.num_steps, 8, group_args[5], 64), generator=g, device=dev).to(tts.dtype)
+    lat_bf16 = batch_checks(tts, group_args, noises)
+    del tts
+    torch.cuda.empty_cache()
 
-    # where one batch's time goes: wall clock unprofiled, device busy from the profiler
-    from torch.profiler import ProfilerActivity, profile
-
-    def one_batch(fetch=True):
-        return tts.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, fetch=fetch)
-
-    one_batch()
-    # fetch=False must queue the whole batch without waiting for the card:
-    # PyTorch raises here on any synchronizing call (a pageable copy, .item())
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        one_batch(fetch=False)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    torch.cuda.synchronize()
-    print("  synthesize_padded(fetch=False) queued a batch with no synchronizing call", flush=True)
-    # dispatch: host time to queue the batch; wall: until its waveform is on the host
-    walls, dispatch = [], []
-    for _ in range(5):
-        t_b = time.perf_counter()
-        audio = one_batch(fetch=False)
-        dispatch.append((time.perf_counter() - t_b) * 1e3)
-        audio.cpu()
-        walls.append((time.perf_counter() - t_b) * 1e3)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_batch()
-    kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
-                  key=lambda r: -r[1])
-    busy = sum(r[1] for r in kern)
-    ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
-                                                                          "gemm_kernel")))
-    wall_med = sorted(walls)[len(walls) // 2]
-    prof_row = dict(batch=8, t_bucket=t_bucket, ref_bucket=ref.shape[1], phoneme_bucket=ph.shape[1],
-                    wall_ms=walls, dispatch_ms=dispatch, device_busy_ms=busy, hand_written_kernels_ms=ours,
-                    idle_share=(1.0 - busy / wall_med) if busy else None,
-                    top=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:12]])
-    print(f"  serving batch profile: {json.dumps(prof_row)}", flush=True)
+    # int8 serving: the w8 product once per batch, the int8 GEMM for every
+    # product of the scan, and no bf16 GEMM
+    tts = build("w8", w8_modulation=True, w8_stream=True)
+    launches, batches, _ = serve(tts)
+    n_b, per_scan = len(batches), tts.num_steps * tts.cfg.dit.n_blocks
+    want = {"w8_matmul_all_layers": n_b, "gemm_bias_w8": n_b * per_scan, "gemm_swiglu_w8": n_b * per_scan,
+            "gemm_residual_w8": 2 * n_b * per_scan, **{n: 0 for n in GEMMS}}
+    check(all(launches.get(k, 0) == v for k, v in want.items()),
+          f"int8 path launches {json.dumps({k: launches.get(k, 0) for k in want})}, want {json.dumps(want)}")
+    print(f"  int8 path launch counts as expected for {n_b} batches: {json.dumps(want)}")
+    for e in entries:
+        if e["name"] == "fused_dit_scan_w8":
+            e["launches"], e["launches_of"] = scan_launches(launches, tuple(n + "_w8" for n in GEMMS))
+        elif e["name"] in ("w8_matmul_all_layers",) + tuple(n + "_w8" for n in GEMMS):
+            e["launches"] = launches.get(e["name"], 0)
+        elif e["name"] in unserved:
+            # no serving path calls them (phase C holds them): the counts of both serve phases, 0
+            e["launches"], e["launches_bf16_serve"] = launches.get(e["name"], 0), unserved[e["name"]]
+            check(e["launches"] == 0 and e["launches_bf16_serve"] == 0,
+                  f"{e['name']} was launched by a serving path")
+            continue
+        else:
+            if e["name"] in ("attention",) + SCAN_KERNELS:
+                e["launches_w8_serve"] = launches.get(e["name"], 0)
+            continue
+        check(e["launches"] > 0, f"kernel {e['name']} was not launched by the int8 serving path")
+    lat_w8 = batch_checks(tts, group_args, noises)
+    w8_rel = float((lat_w8.float() - lat_bf16.float()).norm() / lat_bf16.float().norm())
+    print(f"  int8 vs bf16 batch, same inputs and noise: latents rel-L2 {w8_rel:.3e} "
+          f"(must be > 0 and <= {W8_VS_BF16_TOL}: the int8 weight rounding)", flush=True)
+    check(0.0 < w8_rel <= W8_VS_BF16_TOL, f"int8 vs bf16 latents rel-L2 {w8_rel:.3e}")
+    del tts
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))

@@ -39,6 +39,16 @@
 // Bigger tiles, wgmma, TMA, split-K for the N=960 products and a persistent
 // multi-layer design are later work. The LayerNorm and RMSNorm passes are
 // bound by bytes (a few hundred KB each).
+//
+// int8 weights (the w8_stream serving option, smalltts_tpu/models/dit.py::
+// quantize_stream_weights): the same GEMM with W stored int8 (K, N) and an
+// fp32 per-column scale, which halves the 276 MB a denoise step streams to
+// 138 MB. The int8 tile is copied into shared memory by cp.async (16 columns
+// a copy, so N and the row stride must be multiples of 16), then each stage
+// is dequantized in shared memory to the bf16 tile the MMA reads, as the
+// JAX nn.linear dequantizes: bf16(bf16(q) * bf16(scale)), one rounding, the
+// scale applied to W and not in the epilogue. No bf16 copy of a weight is
+// ever written to device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,6 +156,8 @@ struct GemmArgs {
   long long lda;
   const bf16* W;  // (K, cols), row stride ldw
   long long ldw;
+  const signed char* Wq;  // int8 weights: (K, cols) at row stride ldw, in place of W
+  const float* wscale;    // int8 weights: (cols,) fp32 per-column scale
   const bf16* bias;  // (cols,) or null
   bf16* out;         // (M, N), row stride ldo; EPI_RESID: the residual, updated in place
   long long ldo;
@@ -167,24 +179,32 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-template <int EPI>
+template <int EPI, bool W8>
 struct GemmShape {
   static constexpr int BNW = EPI == EPI_SWIGLU ? 2 * GBN : GBN;  // columns computed per block
   static constexpr int AST = GBK + 8, BST = BNW + 8, CST = BNW + 4;
+  static constexpr int QST = BNW + 16;  // int8 stage row stride (bytes), 16-byte aligned rows
   static constexpr int NF = BNW / 32;  // 16-wide column fragments per warp
   // tiles in flight: each k step waits only for the load started STAGES-1 steps earlier
   static constexpr int STAGES = EPI == EPI_SWIGLU ? 3 : 4;
-  static constexpr int PIPE = STAGES * (GBM * AST + GBK * BST) * 2;
+  // bf16: STAGES x (A tile, W tile). int8: STAGES x (A tile, int8 W tile), one
+  // dequantized bf16 W tile and the block's column scales
+  static constexpr int PIPE = W8 ? STAGES * (GBM * AST * 2 + GBK * QST) + GBK * BST * 2 + BNW * 4
+                                 : STAGES * (GBM * AST + GBK * BST) * 2;
   static constexpr int CBYTES = GBM * CST * 4;
   static constexpr int SMEM = PIPE > CBYTES ? PIPE : CBYTES;
 };
 
-template <int EPI>
+template <int EPI, bool W8>
 __global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
-  using S = GemmShape<EPI>;
+  using S = GemmShape<EPI, W8>;
   __shared__ __align__(128) unsigned char smem[S::SMEM];
   bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][GBM][AST]
-  bf16* Bs = As + S::STAGES * GBM * S::AST;  // [STAGES][GBK][BST]
+  bf16* Bs = As + S::STAGES * GBM * S::AST;  // bf16: [STAGES][GBK][BST]
+  // int8: [STAGES][GBK][QST] int8 stages, then [GBK][BST] bf16, then [BNW] fp32 scales
+  signed char* Bq = reinterpret_cast<signed char*>(Bs);
+  bf16* Bc = reinterpret_cast<bf16*>(Bq + S::STAGES * GBK * S::QST);
+  float* Ss = reinterpret_cast<float*>(Bc + GBK * S::BST);
   float* Cs = reinterpret_cast<float*>(smem);  // [GBM][CST], after the main loop
 
   const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
@@ -199,24 +219,64 @@ __global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
 #pragma unroll
     for (int j = 0; j < S::NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
+  // the W column of block column c (c < BNW: the W3 half starts at g.half)
+  auto w_col = [&](int c) { return (long long)(c >= GBN ? g.half : 0) + n0 + (c % GBN); };
+
   auto load_stage = [&](int stage, int k0) {
     bf16* as = As + stage * GBM * S::AST;
-    bf16* bs = Bs + stage * GBK * S::BST;
     for (int i = threadIdx.x; i < GBM * (GBK / 8); i += GNT) {
       const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
       const int gm = m0 + r, gk = k0 + c;
       const bool ok = gm < g.M && gk < g.K;
       cp_async16(as + r * S::AST + c, ok ? g.A + (long long)gm * g.lda + gk : g.A, ok);
     }
-    constexpr int CPR = S::BNW / 8;
-    for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
-      const int r = i / CPR, c = (i % CPR) * 8;
-      const int gk = k0 + r, gn = n0 + (c % GBN);
-      const long long col = (c >= GBN ? g.half : 0) + gn;
-      const bool ok = gk < g.K && gn < g.N;
-      cp_async16(bs + r * S::BST + c, ok ? g.W + (long long)gk * g.ldw + col : g.W, ok);
+    if constexpr (W8) {
+      signed char* bq = Bq + stage * GBK * S::QST;
+      constexpr int CPR = S::BNW / 16;
+      for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
+        const int r = i / CPR, c = (i % CPR) * 16;
+        const int gk = k0 + r;
+        const bool ok = gk < g.K && n0 + (c % GBN) < g.N;
+        cp_async16(bq + r * S::QST + c, ok ? g.Wq + (long long)gk * g.ldw + w_col(c) : g.Wq, ok);
+      }
+    } else {
+      bf16* bs = Bs + stage * GBK * S::BST;
+      constexpr int CPR = S::BNW / 8;
+      for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
+        const int r = i / CPR, c = (i % CPR) * 8;
+        const int gk = k0 + r;
+        const bool ok = gk < g.K && n0 + (c % GBN) < g.N;
+        cp_async16(bs + r * S::BST + c, ok ? g.W + (long long)gk * g.ldw + w_col(c) : g.W, ok);
+      }
     }
   };
+
+  // int8: stage -> the bf16 tile Bc, each value bf16(q * bf16(scale[col]))
+  auto dequant_stage = [&](int stage) {
+    const signed char* bq = Bq + stage * GBK * S::QST;
+    constexpr int CPR = S::BNW / 16;
+    for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
+      const int r = i / CPR, c = (i % CPR) * 16;
+      const uint4 raw = *reinterpret_cast<const uint4*>(bq + r * S::QST + c);
+      const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
+      unsigned packed[8];
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const float q0 = static_cast<float>(static_cast<signed char>((words[j >> 2] >> (8 * (j & 3))) & 0xffu));
+        const float q1 = static_cast<float>(static_cast<signed char>((words[j >> 2] >> (8 * (j & 3) + 8)) & 0xffu));
+        const __nv_bfloat162 h = __floats2bfloat162_rn(q0 * Ss[c + j], q1 * Ss[c + j + 1]);
+        packed[j >> 1] = *reinterpret_cast<const unsigned*>(&h);
+      }
+      uint4* dst = reinterpret_cast<uint4*>(Bc + r * S::BST + c);
+      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+    }
+  };
+
+  if constexpr (W8) {
+    for (int c = threadIdx.x; c < S::BNW; c += GNT)
+      Ss[c] = n0 + (c % GBN) < g.N ? rbf(g.wscale[w_col(c)]) : 0.f;
+  }
 
   // one commit group per k step (empty past the end) keeps the wait counts uniform
   const int nk = (g.K + GBK - 1) / GBK;
@@ -233,6 +293,11 @@ __global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
     cp_async_commit();
     const bf16* as = As + (kt % S::STAGES) * GBM * S::AST;
     const bf16* bs = Bs + (kt % S::STAGES) * GBK * S::BST;
+    if constexpr (W8) {
+      dequant_stage(kt % S::STAGES);  // Bc is free: every warp passed this step's barrier
+      __syncthreads();
+      bs = Bc;
+    }
 #pragma unroll
     for (int kk = 0; kk < GBK; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
@@ -269,10 +334,12 @@ __global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
       if (g.bias) v += ld(g.bias + n);
       st(o, v);
     } else if (EPI == EPI_SWIGLU) {
-      // JAX rounds the [w1|w3] linear to bf16, then silu(a) * b
+      // JAX rounds the [w1|w3] linear to bf16, then silu(a) * b, with silu the
+      // op chain of JAX's silu, a * (1 / (1 + exp(-a))), each op rounded to bf16
       const float a = rbf(v + ld(g.bias + n));
       const float bb = rbf(Cs[r * S::CST + GBN + c] + ld(g.bias + g.half + n));
-      st(o, rbf(a / (1.f + expf(-a))) * bb);
+      const float sig = rbf(1.f / rbf(1.f + rbf(expf(-a))));
+      st(o, rbf(a * sig) * bb);
     } else {
       if (g.bias) v += ld(g.bias + n);
       v = rbf(v);
@@ -283,11 +350,25 @@ __global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
   }
 }
 
-template <int EPI>
+template <int EPI, bool W8>
 int launch_gemm(const GemmArgs& g, cudaStream_t s) {
   dim3 grid((g.N + GBN - 1) / GBN, (g.M + GBM - 1) / GBM);
-  gemm_kernel<EPI><<<grid, GNT, 0, s>>>(g);
+  gemm_kernel<EPI, W8><<<grid, GNT, 0, s>>>(g);
   return (int)cudaGetLastError();
+}
+
+template <bool W8>
+int dispatch_gemm(int epi, const GemmArgs& g, cudaStream_t s) {
+  switch (epi) {
+    case EPI_BIAS: return launch_gemm<EPI_BIAS, W8>(g, s);
+    case EPI_SWIGLU:
+      if (!g.bias) return (int)cudaErrorInvalidValue;
+      return launch_gemm<EPI_SWIGLU, W8>(g, s);
+    case EPI_RESID:
+      if (!g.gate || g.T <= 0) return (int)cudaErrorInvalidValue;
+      return launch_gemm<EPI_RESID, W8>(g, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -314,32 +395,30 @@ extern "C" int st_qk_norm_rope(void* qkvg, long long ldq, int M, int T, int head
   return (int)cudaGetLastError();
 }
 
-// bf16 GEMM out = epilogue(A @ W). epi: 0 bias, 1 swiglu, 2 gated residual.
-// K, N, lda, ldw and ldo must be multiples of 8 and the pointers 16-byte aligned.
+// GEMM out = epilogue(A @ W), A bf16 (M, K) at row stride lda. epi: 0 bias,
+// 1 swiglu, 2 gated residual. W (K, cols) at row stride ldw is bf16, or int8
+// where wscale, an fp32 scale per W column (cols,), is given. K, lda and ldo
+// must be multiples of 8 and A, W and out 16-byte aligned; N, ldw and half
+// multiples of 8 for bf16 W, of 16 for int8 W.
 extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, long long ldw,
-                       const void* bias, void* out, long long ldo, const void* gate,
-                       long long gate_sb, const void* row_mask, int M, int N, int K, int T,
-                       int half, void* stream) {
-  GemmArgs g;
+                       const float* wscale, const void* bias, void* out, long long ldo,
+                       const void* gate, long long gate_sb, const void* row_mask, int M, int N,
+                       int K, int T, int half, void* stream) {
+  const long long wmul = wscale ? 15 : 7;
+  if (((K | lda | ldo) & 7) || ((N | ldw | half) & wmul)) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  GemmArgs g{};
   g.A = static_cast<const bf16*>(A); g.lda = lda;
-  g.W = static_cast<const bf16*>(W); g.ldw = ldw;
+  g.W = static_cast<const bf16*>(W); g.Wq = static_cast<const signed char*>(W); g.ldw = ldw;
+  g.wscale = wscale;
   g.bias = static_cast<const bf16*>(bias);
   g.out = static_cast<bf16*>(out); g.ldo = ldo;
   g.gate = static_cast<const bf16*>(gate); g.gate_sb = gate_sb;
   g.row_mask = static_cast<const unsigned char*>(row_mask);
   g.M = M; g.N = N; g.K = K; g.T = T; g.half = half;
-  if ((K | N | lda | ldw | ldo) & 7) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (epi) {
-    case EPI_BIAS: return launch_gemm<EPI_BIAS>(g, s);
-    case EPI_SWIGLU:
-      if (!bias) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_SWIGLU>(g, s);
-    case EPI_RESID:
-      if (!gate || T <= 0) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_RESID>(g, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return wscale ? dispatch_gemm<true>(epi, g, s) : dispatch_gemm<false>(epi, g, s);
 }
 
 extern "C" const char* st_dit_block_error(int e) {

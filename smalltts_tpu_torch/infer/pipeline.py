@@ -31,7 +31,11 @@ from smalltts_tpu_torch.data.bucketing import (
 from smalltts_tpu_torch.infer.sampler import NUM_STEPS, _sample_loop, draw_noises, make_synthesize_fn
 from smalltts_tpu_torch.models.backbone import BackboneConfig, encode_conditions, init_backbone
 from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, codec_encode, init_codec
-from smalltts_tpu_torch.models.dit import fuse_serving_projections
+from smalltts_tpu_torch.models.dit import (
+    fuse_serving_projections,
+    quantize_modulations,
+    quantize_stream_weights,
+)
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.utils.transfer import to_device
 
@@ -81,7 +85,16 @@ class SmallTTS:
     package, or nothing for a seeded random init at `cfg`'s size. Floating
     backbone params are cast to bf16 on the card and fp32 on the CPU, and
     the block projections are fused into the serving layout the DiT kernels
-    read; the codec runs in fp32."""
+    read; the codec runs in fp32.
+
+    int8 serving, both off by default as in the JAX package, applied after
+    the cast and the fusion so the scales stay fp32:
+    - `w8_modulation`: the stacked adaLN modulation weights are stored int8
+      (models.dit.quantize_modulations) and the hoisted modulation product
+      runs through the w8 kernel;
+    - `w8_stream`: the scan's four weight streams (qkvg, to_out, w13, w2)
+      are stored int8 (models.dit.quantize_stream_weights) and the scan's
+      GEMM kernel dequantizes them in shared memory."""
 
     def __init__(
         self,
@@ -96,6 +109,8 @@ class SmallTTS:
         seed: int = 0,
         sampler: str = "auto",
         pcm16_out: bool = False,
+        w8_modulation: bool = False,
+        w8_stream: bool = False,
         device=None,
     ) -> None:
         self.device = resolve_device(device)
@@ -127,7 +142,12 @@ class SmallTTS:
         params = _cast_tree(backbone_params, self.dtype, self.device)
         if "r_gate" in params:
             raise ValueError("IMF checkpoints need the imf sampler, which is not ported")
-        self.params = fuse_serving_projections(params)
+        params = fuse_serving_projections(params)
+        if w8_modulation:
+            params = quantize_modulations(params)
+        if w8_stream:
+            params = quantize_stream_weights(params)
+        self.params = params
         self.codec_params = _cast_tree(codec_params, torch.float32, self.device)
         self.num_steps = NUM_STEPS if num_steps is None else num_steps
         self.sampler = "dmd"

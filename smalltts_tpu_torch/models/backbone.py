@@ -10,7 +10,6 @@ from dataclasses import dataclass, field
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from smalltts_tpu_torch.models.dit import DiTConfig, dit_encode_cross_kv, dit_forward_cached, init_dit
 from smalltts_tpu_torch.models.encoder import EncoderConfig
@@ -81,7 +80,7 @@ def time_embedding(p, t: torch.Tensor, dim: int = 256) -> torch.Tensor:
                       * (-math.log(1e4) / (half - 1)))
     ang = 1e3 * t.float()[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(p["l1"]["w"].dtype)
-    return nn.linear(p["l2"], F.silu(nn.linear(p["l1"], emb)))
+    return nn.linear(p["l2"], nn.silu(nn.linear(p["l1"], emb)))
 
 
 def encode_conditions(p, cfg: BackboneConfig, ref_latents, ref_latents_lengths, phonemes,

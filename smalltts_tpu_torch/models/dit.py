@@ -14,10 +14,10 @@ from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from smalltts_tpu_torch.ops import nn
 from smalltts_tpu_torch.ops.kernels.dit_block import fused_dit_scan
+from smalltts_tpu_torch.ops.kernels.w8 import quantize_w8, w8_matmul_all_layers
 from smalltts_tpu_torch.ops.rope import interleaved_cos_sin
 
 
@@ -89,30 +89,92 @@ def init_dit(gen, cfg: DiTConfig, dtype=torch.float32, device="cpu"):
     }
 
 
-def fuse_serving_projections(params):
-    """[qkv_self | gate] -> one (H, 4H) product (zero gate bias), [w1 | w3] ->
-    one (H, 2F) product: the same math in fewer weight streams (port of
-    dit.py:295-324). Returns a new tree; leaves are shared, not copied."""
+def _with_blocks(params, fn):
+    """A new tree (a backbone's or a DiT's) whose DiT `blocks` are
+    fn(a shallow copy of them); leaves are shared, not copied."""
     params = dict(params)
     dit = dict(params["dit"]) if "dit" in params else params
-    blocks = dict(dit["blocks"])
-    attn, ff = dict(blocks["attn"]), dict(blocks["ff"])
-    if "qkvg" not in attn:
-        qkv, gate = attn.pop("qkv_self"), attn.pop("gate")
-        zeros_g = torch.zeros(gate["w"].shape[:1] + gate["w"].shape[2:],
-                              dtype=qkv["b"].dtype, device=qkv["b"].device)
-        attn["qkvg"] = {"w": torch.cat([qkv["w"], gate["w"]], dim=-1),
-                        "b": torch.cat([qkv["b"], zeros_g], dim=-1)}
-    if "w13" not in ff:
-        w1, w3 = ff.pop("w1"), ff.pop("w3")
-        ff["w13"] = {"w": torch.cat([w1["w"], w3["w"]], dim=-1),
-                     "b": torch.cat([w1["b"], w3["b"]], dim=-1)}
-    blocks["attn"], blocks["ff"] = attn, ff
-    dit["blocks"] = blocks
+    dit["blocks"] = fn(dict(dit["blocks"]))
     if "dit" in params:
         params["dit"] = dit
         return params
     return dit
+
+
+def fuse_serving_projections(params):
+    """[qkv_self | gate] -> one (H, 4H) product (zero gate bias), [w1 | w3] ->
+    one (H, 2F) product: the same math in fewer weight streams (port of
+    dit.py:295-324). Returns a new tree; leaves are shared, not copied."""
+
+    def fuse(blocks):
+        attn, ff = dict(blocks["attn"]), dict(blocks["ff"])
+        if "qkvg" not in attn:
+            qkv, gate = attn.pop("qkv_self"), attn.pop("gate")
+            zeros_g = torch.zeros(gate["w"].shape[:1] + gate["w"].shape[2:],
+                                  dtype=qkv["b"].dtype, device=qkv["b"].device)
+            attn["qkvg"] = {"w": torch.cat([qkv["w"], gate["w"]], dim=-1),
+                            "b": torch.cat([qkv["b"], zeros_g], dim=-1)}
+        if "w13" not in ff:
+            w1, w3 = ff.pop("w1"), ff.pop("w3")
+            ff["w13"] = {"w": torch.cat([w1["w"], w3["w"]], dim=-1),
+                         "b": torch.cat([w1["b"], w3["b"]], dim=-1)}
+        blocks["attn"], blocks["ff"] = attn, ff
+        return blocks
+
+    return _with_blocks(params, fuse)
+
+
+def quantize_modulations(params):
+    """The stacked adaLN modulation weights (L, H, 6H) -> int8 `w_q` with an
+    fp32 per-layer, per-channel `scale` (L, 6H) from quantize_w8 (port of
+    dit.py:187-206). The hoisted modulation product then streams half the
+    bytes through the w8 kernel. Returns a new tree; other leaves are shared."""
+
+    def quant(blocks):
+        lin = blocks["attn_norm"]["linear"]
+        if "w_q" not in lin:
+            w_q, scale = quantize_w8(lin["w"])
+            blocks["attn_norm"] = {**blocks["attn_norm"], "linear": {"w_q": w_q, "scale": scale, "b": lin["b"]}}
+        return blocks
+
+    return _with_blocks(params, quant)
+
+
+def quantize_stream_weights(params):
+    """The denoise scan's weight streams (attn qkvg/to_out, ff w13/w2) ->
+    int8 `w_q` with a per-layer, per-output-channel `scale` (L, 1, O) (port
+    of dit.py:327-368). The scan's GEMM then streams 138 MB a step instead
+    of 276. The tree must hold the fused serving layout
+    (fuse_serving_projections first): the scan runs on no other.
+
+    The arithmetic is in the weights' own dtype, as in the JAX package, which
+    quantizes after the cast to the serving dtype: bf16 on the card, so
+    max|w| / 127, the 1e-12 floor and w / scale all round in bf16; only the
+    stored scale is fp32. This quantizer is not quantize_w8: the floor for an
+    all-zero channel differs (1e-12 against 1), and so does the arithmetic."""
+
+    def quant(lin):
+        if "w_q" in lin:
+            return lin
+        w = lin["w"]
+        scale = torch.clamp_min(torch.amax(torch.abs(w), dim=-2, keepdim=True) / 127.0, 1e-12)
+        out = {"w_q": torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8),
+               "scale": scale.float()}
+        if "b" in lin:
+            out["b"] = lin["b"]
+        return out
+
+    def quant_blocks(blocks):
+        split = [k for g, ks in (("attn", ("qkv_self", "gate")), ("ff", ("w1", "w3"))) for k in ks
+                 if k in blocks.get(g, {})]
+        if split:
+            raise ValueError(f"quantize_stream_weights needs the fused serving layout, found {split}: "
+                             "call fuse_serving_projections first")
+        for group, names in (("attn", ("qkvg", "to_out")), ("ff", ("w13", "w2"))):
+            blocks[group] = {k: quant(v) if k in names else v for k, v in blocks[group].items()}
+        return blocks
+
+    return _with_blocks(params, quant_blocks)
 
 
 def _input_embed(p, cfg: DiTConfig, x, mask):
@@ -127,13 +189,20 @@ def _input_embed(p, cfg: DiTConfig, x, mask):
 
 
 def _emb_proj(p, emb):
-    return nn.linear(p["l2"], F.silu(nn.linear(p["l1"], emb)))
+    return nn.linear(p["l2"], nn.silu(nn.linear(p["l1"], emb)))
 
 
 def _all_block_modulations(blocks, emb):
-    """Every block's adaLN modulation in one product: (B, H) x (L, H, 6H) -> (L, B, 6H)."""
+    """Every block's adaLN modulation in one product: (B, H) x (L, H, 6H) -> (L, B, 6H).
+
+    With int8 modulation weights (quantize_modulations) the product is the
+    w8 kernel's, which rounds to the dtype; the fp32 bias is then added and
+    the sum rounded again, as the JAX package's w8 branch does (dit.py:174-179)."""
     lin = blocks["attn_norm"]["linear"]
-    s = F.silu(emb)
+    s = nn.silu(emb)
+    if "w_q" in lin:
+        mod = w8_matmul_all_layers(s, lin["w_q"], lin["scale"])
+        return (mod.float() + lin["b"].float()[:, None, :]).to(s.dtype)
     w = lin["w"].to(s.dtype)
     mod = nn.matmul_f32(s.expand(w.shape[0], *s.shape), w)  # fp32 accumulation, as in JAX
     return (mod + lin["b"].float()[:, None, :]).to(s.dtype)
@@ -149,7 +218,7 @@ def precompute_step_modulations(p_dit, t_embs):
     t_embs (S, H) -> (mods (L, S, 6H), final (S, 2H))."""
     emb = _emb_proj(p_dit["emb_proj"], t_embs)
     mods = _all_block_modulations(p_dit["blocks"], emb)
-    final = nn.linear(p_dit["norm_out"]["linear"], F.silu(emb))
+    final = nn.linear(p_dit["norm_out"]["linear"], nn.silu(emb))
     return mods, final
 
 
@@ -194,7 +263,7 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
     if step_mods is None:
         emb = _emb_proj(p["emb_proj"], time_embedding)
         mods = _all_block_modulations(p["blocks"], emb)
-        final = nn.linear(p["norm_out"]["linear"], F.silu(emb))
+        final = nn.linear(p["norm_out"]["linear"], nn.silu(emb))
     else:
         mods_i, final_i = step_mods
         mods = mods_i[:, None, :].expand(mods_i.shape[0], b, mods_i.shape[-1])

@@ -11,7 +11,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
-import torch.nn.functional as F
 
 from smalltts_tpu_torch.ops import nn
 from smalltts_tpu_torch.ops.rope import apply_rope_pairs
@@ -67,7 +66,7 @@ def _self_attention(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
 
 
 def _mlp(p, x):
-    return nn.linear(p["w2"], F.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
+    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
 
 
 def encoder_block(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):

@@ -28,7 +28,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("attention", "dit_block")
+SOURCES = ("attention", "dit_block", "w8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -110,7 +110,10 @@ SIGNATURES = {
     "dit_block": {
         "st_adaln_modulate": ([_P, _P, _P, _P, _L, _I, _I, _I, _F, _P], _I),
         "st_qk_norm_rope": ([_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _F, _P], _I),
-        "st_gemm": ([_I, _P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P], _I),
+        "st_gemm": ([_I, _P, _L, _P, _L, _P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "w8": {
+        "st_w8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
 }
 

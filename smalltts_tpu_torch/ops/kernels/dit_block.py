@@ -12,12 +12,17 @@ and what the design does about that):
 Each wrapper takes its plain version for CPU tensors (and under the
 test-only `kernels.force_plain()`), and otherwise launches its kernel or
 raises. The products go to the port's own GEMM kernel, never to cuBLAS.
+
+With int8 stream weights (models/dit.py::quantize_stream_weights) a
+product's leaf holds `w_q` (K, N) int8 and `scale` (1, N) fp32 in place of
+`w`; the GEMM wrappers then take `w_scale` and launch the int8-weight
+variant of the kernel, counted under their own names (`gemm_bias_w8`,
+`gemm_swiglu_w8`, `gemm_residual_w8`).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.attention import fused_attention
@@ -116,42 +121,58 @@ def qk_norm_rope(qkvg, q_scale, k_scale, cos, sin, eps=1e-6):
 # ---------------------------------------------------------------------- gemm
 
 
-def _product(a, w, b=None):
-    """The JAX package's linear: fp32 accumulation, fp32 bias, one rounding."""
+def _product(a, w, b=None, w_scale=None):
+    """The JAX package's linear: fp32 accumulation, fp32 bias, one rounding.
+    int8 `w` with `w_scale` is first dequantized as nn.linear does it."""
+    if w_scale is not None:
+        w = nn.dequantize(w, w_scale, a.dtype)
     y = torch.matmul(a.float(), w.float())
     if b is not None:
         y = y + b.float()
     return y.to(a.dtype)
 
 
-def gemm_bias_plain(a, w, b):
-    return _product(a, w, b)
+def gemm_bias_plain(a, w, b, w_scale=None):
+    return _product(a, w, b, w_scale)
 
 
-def gemm_swiglu_plain(a, w13, b13):
-    ab = _product(a, w13, b13)
+def gemm_swiglu_plain(a, w13, b13, w_scale=None):
+    ab = _product(a, w13, b13, w_scale)
     f = ab.shape[-1] // 2
-    return F.silu(ab[..., :f]) * ab[..., f:]
+    return nn.silu(ab[..., :f]) * ab[..., f:]
 
 
-def gemm_residual_plain(a, w, b, x, gate, row_mask=None):
+def gemm_residual_plain(a, w, b, x, gate, row_mask=None, w_scale=None):
     """x (B, T, N) += tanh(gate[b]) * (a @ w (+ b)) [* row_mask], in place."""
-    y = _product(a, w, b)
+    y = _product(a, w, b, w_scale)
     if row_mask is not None:
         y = torch.where(row_mask[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
     x.copy_(x + torch.tanh(gate)[:, None, :] * y)
     return x
 
 
-def _gemm(epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1, half=0):
+def _gemm(name, epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1, half=0, w_scale=None):
+    """Launch the GEMM and count it under `name`: bf16 `w`, or int8 `w` with
+    its fp32 per-column `w_scale` ((N,) or (1, N)), counted as `name`_w8."""
     M, K = a.numel() // a.shape[-1], a.shape[-1]
-    _bf16_only("gemm", a, w, out)
+    _bf16_only("gemm", a, out)
+    if w_scale is not None:
+        if w.dtype != torch.int8 or w_scale.dtype != torch.float32 or w_scale.numel() != w.shape[1]:
+            raise ValueError("gemm: int8 w needs an fp32 scale per column")
+        if w_scale.device != a.device:
+            raise ValueError("gemm: w_scale must be on a's device")
+        if n_out % 16 or w.shape[1] % 16 or half % 16:
+            raise ValueError(f"gemm: int8 w needs N={n_out} and W's width in multiples of 16")
+        w_scale = w_scale.reshape(-1).contiguous()
+    else:
+        _bf16_only("gemm", w)
     if not a.is_contiguous() or not w.is_contiguous() or not out.is_contiguous():
         raise ValueError("gemm: operands must be contiguous")
     if w.shape[0] != K or K % 8 or n_out % 8 or w.shape[1] % 8:
         raise ValueError(f"gemm: K={K}, N={n_out} and W's width must be multiples of 8")
+    # 16-byte cp.async copies of every operand, int8 W included
     if any(t.data_ptr() % 16 for t in (a, w, out)):
-        raise ValueError("gemm: operands must be 16-byte aligned")
+        raise ValueError("gemm: a, w and out must be 16-byte aligned")
     for t in (bias, gate):
         if t is not None and (t.dtype != torch.bfloat16 or t.stride(-1) != 1):
             raise ValueError("gemm: bias/gate must be bf16 and contiguous in N")
@@ -160,58 +181,61 @@ def _gemm(epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1, half=
         mask = row_mask.to(torch.bool).contiguous()
         if mask.numel() != M:
             raise ValueError("gemm: row_mask must hold one flag per row")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = kernels.load("dit_block")
-    status = lib.st_gemm(epi, a.data_ptr(), K, w.data_ptr(), w.shape[1],
-                         bias.data_ptr() if bias is not None else None, out.data_ptr(), n_out,
-                         gate.data_ptr() if gate is not None else None,
-                         gate.stride(0) if gate is not None else 0,
-                         mask.data_ptr() if mask is not None else None,
-                         M, n_out, K, T, half, _stream(a))
+    status = lib.st_gemm(epi, a.data_ptr(), K, w.data_ptr(), w.shape[1], ptr(w_scale), ptr(bias),
+                         out.data_ptr(), n_out, ptr(gate), gate.stride(0) if gate is not None else 0,
+                         ptr(mask), M, n_out, K, T, half, _stream(a))
     kernels.check(lib, "dit_block", status, "gemm")
+    kernels.count_launch(name if w_scale is None else name + "_w8")
 
 
-def gemm_bias(a, w, b):
-    """a (..., K) @ w (K, N) + b, bf16 in, fp32 accumulation, bf16 out."""
+def gemm_bias(a, w, b, w_scale=None):
+    """a (..., K) @ w (K, N) + b, bf16 in, fp32 accumulation, bf16 out; an
+    int8 w with its per-column fp32 `w_scale` takes the int8-weight kernel."""
     if kernels.use_plain(a):
-        return gemm_bias_plain(a, w, b)
+        return gemm_bias_plain(a, w, b, w_scale)
     out = torch.empty((*a.shape[:-1], w.shape[1]), device=a.device, dtype=a.dtype)
-    _gemm(EPI_BIAS, a, w, b, out, n_out=w.shape[1])
-    kernels.count_launch("gemm_bias")
+    _gemm("gemm_bias", EPI_BIAS, a, w, b, out, n_out=w.shape[1], w_scale=w_scale)
     return out
 
 
-def gemm_swiglu(a, w13, b13):
+def gemm_swiglu(a, w13, b13, w_scale=None):
     """silu(a @ w1 + b1) * (a @ w3 + b3) with w13 = [w1 | w3] (K, 2F)."""
     if kernels.use_plain(a):
-        return gemm_swiglu_plain(a, w13, b13)
+        return gemm_swiglu_plain(a, w13, b13, w_scale)
     f = w13.shape[1] // 2
     out = torch.empty((*a.shape[:-1], f), device=a.device, dtype=a.dtype)
-    _gemm(EPI_SWIGLU, a, w13, b13, out, n_out=f, half=f)
-    kernels.count_launch("gemm_swiglu")
+    _gemm("gemm_swiglu", EPI_SWIGLU, a, w13, b13, out, n_out=f, half=f, w_scale=w_scale)
     return out
 
 
-def gemm_residual(a, w, b, x, gate, row_mask=None):
+def gemm_residual(a, w, b, x, gate, row_mask=None, w_scale=None):
     """x (B, T, N) += tanh(gate (B, N)) * (a @ w (+ b)) [* row_mask (B, T)],
     updated in place; rows are NOT masked when row_mask is None."""
     if kernels.use_plain(a):
-        return gemm_residual_plain(a, w, b, x, gate, row_mask)
+        return gemm_residual_plain(a, w, b, x, gate, row_mask, w_scale)
     B, T, N = x.shape
     if gate.shape != (B, N) or (row_mask is not None and row_mask.shape != (B, T)):
         raise ValueError("gemm_residual: gate (B,N), row_mask (B,T)")
-    _gemm(EPI_RESID, a, w, b, x, gate=gate, row_mask=row_mask, n_out=N, T=T)
-    kernels.count_launch("gemm_residual")
+    _gemm("gemm_residual", EPI_RESID, a, w, b, x, gate=gate, row_mask=row_mask, n_out=N, T=T, w_scale=w_scale)
     return x
 
 
 # ---------------------------------------------------------------------- scan
 
 
+def _weight(lin):
+    """(w, w_scale) of a product's leaf: bf16 `w`, or int8 `w_q` and its scale."""
+    return (lin["w_q"], lin["scale"]) if "w_q" in lin else (lin["w"], None)
+
+
 def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, heads, head_dim):
     """One cached DiT block (port of smalltts_tpu/models/dit.py::_block_core)
     on the fused serving layout, updating x (B, T, H) in place.
     mod (B, 6H) [shift|scale|gate]_msa, [shift|scale|gate]_mlp; cross_k/v
-    (B, heads, Sc, D); masks (B, T) / (B, Sc)."""
+    (B, heads, Sc, D); masks (B, T) / (B, Sc). Each product's leaf holds
+    `w`, or int8 `w_q` with `scale` (quantize_stream_weights)."""
     B, T, H = x.shape
     inner = heads * head_dim
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -219,7 +243,8 @@ def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, hea
     attn, ff = layer["attn"], layer["ff"]
 
     h = adaln_modulate(x, shift_msa, scale_msa)
-    qkvg = gemm_bias(h, attn["qkvg"]["w"], attn["qkvg"]["b"])
+    w, s = _weight(attn["qkvg"])
+    qkvg = gemm_bias(h, w, attn["qkvg"]["b"], w_scale=s)
     qk_norm_rope(qkvg, attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin)
 
     def heads_view(i):  # (B, heads, T, D) view of column block i of qkvg
@@ -229,10 +254,13 @@ def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, hea
     fused_attention(heads_view(0), heads_view(1), heads_view(2), mask,
                     cross_k, cross_v, cross_mask, gate=heads_view(3),
                     out=att.unflatten(-1, (heads, head_dim)).transpose(1, 2))
-    gemm_residual(att, attn["to_out"]["w"], None, x, gate_msa, row_mask=mask)
+    w, s = _weight(attn["to_out"])
+    gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s)
     h = adaln_modulate(x, shift_mlp, scale_mlp)
-    mid = gemm_swiglu(h, ff["w13"]["w"], ff["w13"]["b"])
-    gemm_residual(mid, ff["w2"]["w"], ff["w2"]["b"], x, gate_mlp)
+    w, s = _weight(ff["w13"])
+    mid = gemm_swiglu(h, w, ff["w13"]["b"], w_scale=s)
+    w, s = _weight(ff["w2"])
+    gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s)
     return x
 
 
@@ -241,7 +269,8 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     """The L-layer cached DiT scan. x (B, T, H); mods (L, B, 6H) (the batch
     stride may be 0); mask (B, T) bool; cross_k/v (L, B, heads, Sc, D) with
     cross_mask (B, Sc); blocks: stacked fused-serving block params (qkvg,
-    to_out, q_norm, k_norm, w13, w2, each with a leading L); cos/sin (T, rot)
+    to_out, q_norm, k_norm, w13, w2, each with a leading L; a product's leaf
+    holds bf16 `w`, or int8 `w_q` with fp32 `scale` (L, 1, N)); cos/sin (T, rot)
     fp32. Returns the new residual (x is not modified)."""
     if "qkvg" not in blocks["attn"] or "w13" not in blocks["ff"]:
         raise ValueError("fused_dit_scan needs the fused serving layout (fuse_serving_projections)")

@@ -68,11 +68,18 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 
+def dequantize(w_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """int8 weight times its per-channel scale, both cast to `dtype` first and
+    the product rounded in `dtype` (the JAX package's nn.linear, nn.py:79)."""
+    return w_q.to(dtype) * scale.to(dtype)
+
+
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     """x @ w (+ b) as the JAX package computes it: the product accumulates
     in float32, the bias adds in float32, and the sum rounds once to x's
-    dtype."""
-    y = matmul_f32(x, p["w"].to(x.dtype))
+    dtype. An int8 leaf (`w_q`, `scale`) is dequantized first."""
+    w = dequantize(p["w_q"], p["scale"], x.dtype) if "w_q" in p else p["w"].to(x.dtype)
+    y = matmul_f32(x, w)
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
@@ -104,6 +111,12 @@ def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 
     h = F.pad(x.transpose(1, 2), (lo, hi))
     y = F.conv1d(h, p["w"].to(x.dtype), None, dilation=dilation, groups=groups)
     return (y.float() + p["b"].float()[:, None]).to(x.dtype).transpose(1, 2)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x * (1 / (1 + exp(-x))), each op rounded to x's dtype: the op chain of
+    JAX's silu, which in bf16 gives other values than F.silu's one rounding."""
+    return x * (1 / (1 + torch.exp(-x)))
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:

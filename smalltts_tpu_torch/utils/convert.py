@@ -4,7 +4,9 @@ The trees keep their keys and nesting. Linear weights stay (in, out) and
 block stacks keep their leading L. Convolution kernels go from the JAX
 package's HIO layout (k, c_in/groups, c_out) to torch's (c_out, c_in/groups,
 k). Both the split block layout (qkv_self/gate, w1/w3) and the fused serving
-layout (qkvg, w13) convert as they are; the pipeline fuses at load.
+layout (qkvg, w13) convert as they are; the pipeline fuses at load. The
+int8 `w_q` and fp32 `scale` leaves of a quantized tree (quantize_modulations,
+quantize_stream_weights) keep their dtypes and values.
 """
 
 from __future__ import annotations

@@ -56,10 +56,16 @@ def test_kernel_wrappers_never_build_on_the_cpu():
     """CPU tensors take the plain versions; nothing is compiled or loaded."""
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import dit_block as K
+    from smalltts_tpu_torch.ops.kernels import w8 as W
 
     a = torch.randn(2, 8, 64)
     before = dict(kernels.LAUNCHES)
     K.gemm_bias(a, torch.randn(64, 32), torch.randn(32))
     K.adaln_modulate(a, torch.zeros(2, 64), torch.zeros(2, 64))
+    w_q, scale = W.quantize_w8(torch.randn(3, 64, 32))
+    K.gemm_bias(a, w_q[0], torch.randn(32), w_scale=scale[0])
+    W.w8_matmul(a[0], w_q[0], scale[0])
+    W.w8_matmul_stacked(a[0], w_q, scale, torch.tensor(1, dtype=torch.int32))
+    W.w8_matmul_all_layers(a[0], w_q, scale)
     assert kernels.LAUNCHES == before
     assert not kernels._libs

@@ -6,7 +6,9 @@ kernels have no CPU mode). On a card machine, which has no JAX:
 
 Tolerances, as max |kernel - plain| / max |plain|: 1e-5 in fp32 (sums in
 another order); 2e-2 in bf16 (a few bf16 roundings of 2^-8 taken at other
-points; the plain version rounds where PyTorch's bf16 ops do).
+points; the plain version rounds where PyTorch's bf16 ops do); 1e-2 for the
+w8 products, whose one bf16 rounding may fall on the other side of a
+boundary when the fp32 sum is taken in another order (2^-8 of a value).
 """
 
 import math
@@ -17,9 +19,11 @@ import torch
 from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.kernels import attention as A
 from smalltts_tpu_torch.ops.kernels import dit_block as K
+from smalltts_tpu_torch.ops.kernels import w8 as W
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+W8_TOL = 1e-2
 
 
 @pytest.fixture
@@ -119,6 +123,94 @@ def test_gemm_ragged_rows(dev):
     w = randn((960, 3840), g, dev, torch.bfloat16, 0.03)
     b = randn((3840,), g, dev, torch.bfloat16)
     assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
+
+
+@pytest.mark.parametrize("M,K_,N,L", [(4, 960, 5760, 12), (320, 960, 2880, 1), (40, 2400, 960, 1),
+                                     (8, 960, 5760, 1), (5, 96, 136, 2)])
+def test_w8_kernels(dev, M, K_, N, L):
+    """All layers (L > 1) or one (K, N) weight; (5, 96, 136): rows past the
+    8-row block and a ragged 128-column tile."""
+    g = gen(dev, M + N)
+    x = randn((M, K_), g, dev, torch.bfloat16)
+    w_q, scale = W.quantize_w8(randn((L, K_, N), g, dev, torch.float32, 0.02))
+    if L == 1:
+        got, want = W.w8_matmul(x, w_q[0], scale[0]), W.w8_matmul_ref(x, w_q[0], scale[0])
+    else:
+        n0 = kernels.LAUNCHES.get("w8_matmul_all_layers", 0)
+        got, want = W.w8_matmul_all_layers(x, w_q, scale), W.w8_matmul_ref(x, w_q, scale)
+        assert kernels.LAUNCHES["w8_matmul_all_layers"] == n0 + 1
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert rel(got, want) <= W8_TOL
+
+
+def test_w8_stacked_reads_a_device_index_without_a_sync(dev):
+    """The layer index stays on the card: PyTorch raises on any
+    synchronizing call in "error" sync-debug mode."""
+    g = gen(dev, 13)
+    x = randn((8, 960), g, dev, torch.bfloat16)
+    w_q, scale = W.quantize_w8(randn((12, 960, 3840), g, dev, torch.float32, 0.02))
+    idxs = [torch.tensor([i], dtype=torch.int32, device=dev) for i in (0, 5, 11)]
+    W.w8_matmul_stacked(x, w_q, scale, idxs[0])  # builds the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [W.w8_matmul_stacked(x, w_q, scale, i) for i in idxs]
+        got.append(W.w8_matmul_stacked(x, w_q, scale, 7))  # a Python int becomes a fill on the card
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for out, i in zip(got, (0, 5, 11, 7)):
+        assert rel(out, W.w8_matmul_ref(x, w_q[i], scale[i])) <= W8_TOL
+
+
+@pytest.mark.parametrize("K_,N", [(960, 3840), (960, 4800), (960, 960), (2400, 960)])
+def test_int8_gemm_kernels(dev, K_, N):
+    """The int8-weight GEMM, each epilogue, against its plain version: the
+    weight dequantized as bf16(bf16(q) * bf16(scale)) before the product."""
+    B, T = 8, 40
+    g = gen(dev, 3 * N + K_)
+    a = randn((B, T, K_), g, dev, torch.bfloat16)
+    w_q, scale = W.quantize_w8(randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_)))
+    scale = scale[None]  # (1, N), as a layer of the (L, 1, N) stream scales
+    b = randn((N,), g, dev, torch.bfloat16, 0.1)
+    if N == 4800:
+        n0 = kernels.LAUNCHES.get("gemm_swiglu_w8", 0)
+        got = K.gemm_swiglu(a, w_q, b, w_scale=scale)
+        assert kernels.LAUNCHES["gemm_swiglu_w8"] == n0 + 1
+        assert rel(got, K.gemm_swiglu_plain(a, w_q, b, w_scale=scale)) <= 2e-2
+        return
+    assert rel(K.gemm_bias(a, w_q, b, w_scale=scale), K.gemm_bias_plain(a, w_q, b, w_scale=scale)) <= 2e-2
+    x = randn((B, T, N), g, dev, torch.bfloat16)
+    gate = randn((B, N), g, dev, torch.bfloat16)
+    mask = key_mask(B, T, g, dev)
+    want = K.gemm_residual_plain(a, w_q, b, x.clone(), gate, mask, w_scale=scale)
+    got = K.gemm_residual(a, w_q, b, x.clone(), gate, mask, w_scale=scale)
+    assert rel(got, want) <= 2e-2
+
+
+def test_w8_wrappers_reject_fp32_on_the_card(dev):
+    w_q, scale = W.quantize_w8(torch.randn((2, 64, 32), device=dev))
+    x = torch.zeros((4, 64), device=dev)
+    for call in (lambda: W.w8_matmul(x, w_q[0], scale[0]), lambda: W.w8_matmul_all_layers(x, w_q, scale),
+                 lambda: W.w8_matmul_stacked(x, w_q, scale, 1),
+                 lambda: K.gemm_bias(x[None], w_q[0], torch.zeros(32, device=dev), w_scale=scale[0])):
+        with pytest.raises(ValueError, match="bf16"):
+            call()
+
+
+def test_int8_gemm_rejects_a_misaligned_weight(dev):
+    """The int8 tile is copied 16 bytes at a time: a weight view that does not
+    start on a 16-byte boundary is refused before the launch, and the card
+    stays usable."""
+    a = torch.zeros((2, 8, 64), device=dev, dtype=torch.bfloat16)
+    flat = torch.zeros((64 * 64 + 16,), device=dev, dtype=torch.int8)
+    scale, b = torch.ones((64,), device=dev), torch.zeros((64,), device=dev, dtype=torch.bfloat16)
+    for off in (1, 8):
+        w_q = flat[off:off + 64 * 64].view(64, 64)
+        with pytest.raises(ValueError, match="aligned"):
+            K.gemm_bias(a, w_q, b, w_scale=scale)
+    got = K.gemm_bias(a, flat[16:].view(64, 64), b, w_scale=scale)
+    torch.cuda.synchronize()
+    assert float(got.abs().max()) == 0.0
 
 
 def test_gemm_rejects_fp32_on_the_card(dev):

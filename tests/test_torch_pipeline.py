@@ -110,6 +110,35 @@ def test_synthesize_padded_matches_jax_pipeline(weights, batch, pcm16):
         assert rel_err(got, want) < RTOL
 
 
+@pytest.mark.parametrize("w8_modulation,w8_stream", [(True, False), (False, True), (True, True)])
+def test_w8_serving_matches_jax_pipeline(weights, batch, w8_modulation, w8_stream):
+    """int8 serving: the same options in both packages, the same weights and
+    noise. Latents to 1e-5 relative, pcm16 within 1 LSB; and the int8 output
+    is not the float output (the quantized path really ran)."""
+    jp, jc, tp, tc = weights
+    ref, ref_len, ph, ph_len, seq, noises = batch
+    opts = dict(w8_modulation=w8_modulation, w8_stream=w8_stream, pcm16_out=True)
+    jtts = JSmallTTS(jp, jc, cfg=TINY_BACKBONE, codec_cfg=TINY_CODEC, codec="native", **opts)
+    lat_j = j_sample_latents(jtts.params, TINY_BACKBONE, *(jnp.asarray(a) for a in (ref, ref_len, ph, ph_len, seq)),
+                             jax.random.PRNGKey(9), num_steps=STEPS, noises=jnp.asarray(noises))
+    wave_j = jnp.clip(j_codec_decode(jtts.codec_params, lat_j, TINY_CODEC), -1.0, 1.0)
+    want = np.asarray(jnp.rint(wave_j * jnp.float32(32767.0)).astype(jnp.int16))
+    tts = SmallTTS(tp, tc, cfg=PCFG, codec_cfg=PCODEC, device="cpu", **opts)
+    blocks = tts.params["dit"]["blocks"]
+    assert ("w_q" in blocks["attn_norm"]["linear"]) == w8_modulation
+    assert all(("w_q" in blocks[g][n]) == w8_stream for g, n in (("attn", "qkvg"), ("attn", "to_out"),
+                                                                  ("ff", "w13"), ("ff", "w2")))
+    T = torch.from_numpy
+    args = (PCFG, T(ref), T(ref_len), T(ph).long(), T(ph_len), T(seq))
+    lat_t = sample_latents(tts.params, *args, num_steps=STEPS, noises=T(noises))
+    assert rel_err(lat_t.numpy(), lat_j) < RTOL
+    got = tts.synthesize_padded(ref, ref_len, ph, ph_len, seq, TB, noises=noises)
+    assert got.dtype == np.int16 and int(np.abs(got.astype(np.int32) - want.astype(np.int32)).max()) <= 1
+    fp = SmallTTS(tp, tc, cfg=PCFG, codec_cfg=PCODEC, device="cpu")
+    lat_fp = sample_latents(fp.params, *args, num_steps=STEPS, noises=T(noises))
+    assert rel_err(lat_t.numpy(), lat_fp.numpy()) > 1e-4
+
+
 def test_batcher_answers_requests(weights):
     _, _, tp, tc = weights
     tts = SmallTTS(tp, tc, cfg=PCFG, codec_cfg=PCODEC, device="cpu", pcm16_out=True)
