@@ -7,9 +7,12 @@
    started together) and prints the build times.
 2. Kernel phases: each hand-written kernel against its plain PyTorch version
    on the card, at the serving path's shapes, with the tolerance stated;
-   kernel, plain and (where one exists) library-call times. A: attention;
-   B: the DiT block scan's kernels, bf16 and int8-weight, and the 12-layer
-   scan on bf16 and on int8 stream weights; C: the three w8 products.
+   kernel, plain and (where one exists) library-call times. A: attention,
+   the served DiT shapes (T 16 and 40, cross Sc 448) among them; B: the DiT
+   block scan's kernels, bf16 and int8-weight, with the four GEMM products
+   at M = 320 and M = 128 rows, and the 12-layer scan on bf16 and on int8
+   stream weights; C: the three w8 products. Then the GEMM and attention
+   wrappers' host time per call (median of 1000).
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
@@ -18,13 +21,20 @@
    path (and, for int8, no bf16 GEMM); one batch is held against the same
    batch with the plain versions forced; synthesize_padded(fetch=False)
    must queue a batch with no synchronizing call, and one batch is profiled
-   (host dispatch time, wall time, device busy time). The int8 batch is
-   also held against the bf16 batch on the same noise.
+   (host dispatch time, wall time, device busy time): the profiler must see
+   every counted GEMM and attention launch on the port's kernels and no
+   library attention kernel. The int8 batch is also held against the bf16
+   batch on the same noise.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this script; any failed check raises.
+
+    python3 chip_smoke.py --host-ms-of DIR
+
+builds the kernels of the package in DIR (another checkout) and prints only
+its wrappers' host time per call, to compare two trees in one run.
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ PEAK = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the t
 ATTN_SRC = "smalltts_tpu_torch/csrc/attention.cu"
 BLOCK_SRC = "smalltts_tpu_torch/csrc/dit_block.cu"
 ATTN_TPU = "smalltts_tpu/ops/pallas/attention.py:58"
-ATTN_KERNELS = ("attn_kernel<", "attn_tc_kernel<")  # fp32 (CUDA cores), bf16 (tensor cores)
+ATTN_KERNELS = ("attn_kernel<", "attn_mma_kernel<")  # fp32 (CUDA cores), bf16 (tensor cores)
+# no library attention may run on the serving path: profiler names of PyTorch's fused attentions
+LIBRARY_ATTENTION = ("flash", "fmha", "efficient_attention", "mem_eff", "scaled_dot_product", "sdpa")
 BLOCK_TPU = "smalltts_tpu/ops/pallas/block.py:216"
 W8_SRC = "smalltts_tpu_torch/csrc/w8.cu"
 W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmul": "smalltts_tpu/ops/pallas/w8.py:80",
@@ -48,8 +60,8 @@ W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmu
 W8_TOL = 1e-2  # one bf16 rounding (2^-8 of a value) that fp32 sums in another order may flip
 GEMMS = ("gemm_bias", "gemm_swiglu", "gemm_residual")
 SCAN_KERNELS = ("adaln_modulate", "qk_norm_rope") + GEMMS
-# profiler names of the GEMM instances: demangled, or mangled (gemm_kernel<EPI, W8>)
-GEMM_NAMES = {f"{n}{sfx}": (f"gemm_kernel<{i}, {w}>", f"gemm_kernelILi{i}ELb{int(w == 'true')}E")
+# profiler names of the GEMM instances: demangled, or mangled (gemm_wgmma_kernel<EPI, W8, BN>)
+GEMM_NAMES = {f"{n}{sfx}": (f"gemm_wgmma_kernel<{i}, {w},", f"gemm_wgmma_kernelILi{i}ELb{int(w == 'true')}E")
               for i, n in enumerate(GEMMS) for sfx, w in (("", "false"), ("_w8", "true"))}
 # the bf16 and int8 serve batches differ by the int8 weight rounding (~0.4%
 # of each weight, per channel) carried through 48 products a step and 4
@@ -95,12 +107,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # --host-ms-of DIR: only the wrappers' host time per call, of the package in DIR (another checkout)
+    other = sys.argv[sys.argv.index("--host-ms-of") + 1] if "--host-ms-of" in sys.argv else None
+    sys.path.insert(0, os.path.abspath(other) if other else os.path.dirname(os.path.abspath(__file__)))
     try:
         import smalltts_tpu_torch  # noqa: F401
     except ImportError:
         print("chip_smoke: the smalltts_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
+    if other:
+        from smalltts_tpu_torch.ops import kernels
+
+        kernels.build_all()
+        print(json.dumps({"package": os.path.dirname(os.path.abspath(smalltts_tpu_torch.__file__)),
+                          "card": card_line(), "wrapper_host_ms": wrapper_host_ms(torch, torch.device("cuda"))}))
+        return 0
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -173,8 +194,13 @@ def main() -> int:
     tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
     print("phase A: attention kernel vs plain (tolerance: max|diff|/max|plain| <= 1e-5 fp32, 2e-2 bf16)")
     shapes = []
+    # the served shapes (ref bucket 64 + phoneme bucket 384 -> Sc = 448; latent buckets 16 and 40;
+    # the style encoder at the served ref bucket) beside the earlier ones
     for label, B, H, T, S2, D in (("style R=256", 8, 8, 256, 0, 64), ("text P=384", 8, 4, 384, 0, 128),
-                                  ("dit T=40 + cross Sc=192, gated", 8, 8, 40, 192, 120)):
+                                  ("dit T=40 + cross Sc=192, gated", 8, 8, 40, 192, 120),
+                                  ("dit T=40 + cross Sc=448, gated (served)", 8, 8, 40, 448, 120),
+                                  ("dit T=16 + cross Sc=448, gated (served)", 8, 8, 16, 448, 120),
+                                  ("style R=64 (served)", 8, 8, 64, 0, 64)):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (randn((B, H, T, D), dtype) for _ in range(3))
             m = key_mask(B, T)
@@ -201,7 +227,8 @@ def main() -> int:
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             shapes.append(row)
             print("  " + json.dumps(row), flush=True)
-    head = shapes[4]  # the DiT's gated two-source form in bf16: 48 of a batch's 68 launches
+    # the served DiT form in bf16 (T 40, Sc 448): 48 of a batch's 68 launches
+    head = next(r for r in shapes if r["shape"].startswith("dit T=40 + cross Sc=448") and r["dtype"] == "bfloat16")
     entries.append(dict(name="attention", route="cuda", source=ATTN_SRC, replaces=ATTN_TPU,
                         **{k: head[k] for k in ("max_abs_err", "ms", "wall_ms", "clock", "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms")}, shape=head["shape"], shapes=shapes))
@@ -244,12 +271,20 @@ def main() -> int:
                       bound_ms=b_ms,
                       bound_by=b_by, library_ms=None, shape=f"B={B} T={T} Sc={Sc} L={L} H={H}")
 
-    # each launch of a layer, timed over the 12 layers' weights (88+ MB: out of L2, as in the scan)
-    h_in = randn((B, T, H))
-    mid_in = randn((B, T, F))
+    # each launch of a layer, timed over the 12 layers' weights (88+ MB: out of L2, as in the scan),
+    # at the two served row counts: M = 320 (latent bucket 40) and M = 128 (bucket 16)
+    def acts(Tm):
+        m_ = key_mask(B, Tm)
+        m_[-1, :3] = True
+        return dict(h=randn((B, Tm, H)), mid=randn((B, Tm, F)), x=randn((B, Tm, H)), mask=m_)
+
+    act_rows = {T: acts(T), 16: acts(16)}
+    h_in = act_rows[T]["h"]
 
     def gemm_rows(at, fw, sfx):
-        """The layer's three products; a leaf holds bf16 `w` or int8 `w_q` + `scale`."""
+        """kernel name -> [(shape, kernel, plain, library, cost)] for the layer's four products at both
+        row counts; a leaf holds bf16 `w` or int8 `w_q` + `scale`. The library call is torch.addmm (mm
+        for to_out, which has no bias) on the product alone, with the bf16 weights."""
         def weight(lin, l):
             return (lin["w_q"][l], lin["scale"][l]) if "w_q" in lin else (lin["w"][l], None)
 
@@ -259,33 +294,55 @@ def main() -> int:
         def prod(fn, lin, a, *rest):
             def run(l):
                 w, s = weight(lin, l)
-                return fn(a, w, lin["b"][l], *(r(l) for r in rest), w_scale=s)
+                return fn(a, w, lin["b"][l] if "b" in lin else None, *(r(l) for r in rest), w_scale=s)
             return run
 
-        fresh_x, gate = (lambda l: x.clone()), (lambda l: mods[l][:, 5 * H:])
-        qk, w13, w2 = at["qkvg"], fw["w13"], fw["w2"]
-        return [
-            ("gemm_bias" + sfx, prod(K.gemm_bias, qk, h_in), prod(K.gemm_bias_plain, qk, h_in),
-             lambda l: torch.addmm(attn["qkvg"]["b"][l], h_in.view(M, H), attn["qkvg"]["w"][l]),
-             lambda l: (nbytes(h_in) + leaf_bytes(qk, l) + M * 4 * H * 2, 2.0 * M * H * 4 * H)),
-            ("gemm_swiglu" + sfx, prod(K.gemm_swiglu, w13, h_in), prod(K.gemm_swiglu_plain, w13, h_in), None,
-             lambda l: (nbytes(h_in) + leaf_bytes(w13, l) + M * F * 2, 2.0 * M * H * 2 * F)),
-            ("gemm_residual" + sfx, prod(K.gemm_residual, w2, mid_in, fresh_x, gate),
-             prod(K.gemm_residual_plain, w2, mid_in, fresh_x, gate), None,
-             lambda l: (nbytes(mid_in, mods[l][:, 5 * H:]) + leaf_bytes(w2, l) + 2 * M * H * 2, 2.0 * M * F * H)),
-        ]
+        def at_rows(act):
+            h_, mid_, x_, m_ = act["h"], act["mid"], act["x"], act["mask"]
+            M_ = h_.shape[0] * h_.shape[1]
+            fresh = lambda l: x_.clone()  # noqa: E731
+            g_msa, g_mlp, rmask = (lambda l: mods[l][:, 2 * H:3 * H]), (lambda l: mods[l][:, 5 * H:]), (lambda l: m_)
+            qk, out_, w13, w2 = at["qkvg"], at["to_out"], fw["w13"], fw["w2"]
+            return {
+                "gemm_bias": [(f"qkvg M={M_} K={H} N={4 * H}", prod(K.gemm_bias, qk, h_),
+                               prod(K.gemm_bias_plain, qk, h_),
+                               lambda l: torch.addmm(attn["qkvg"]["b"][l], h_.view(M_, H), attn["qkvg"]["w"][l]),
+                               lambda l: (nbytes(h_) + leaf_bytes(qk, l) + M_ * 4 * H * 2, 2.0 * M_ * H * 4 * H))],
+                "gemm_swiglu": [(f"w13 M={M_} K={H} N={2 * F} (out {F})", prod(K.gemm_swiglu, w13, h_),
+                                 prod(K.gemm_swiglu_plain, w13, h_),
+                                 lambda l: torch.addmm(ff["w13"]["b"][l], h_.view(M_, H), ff["w13"]["w"][l]),
+                                 lambda l: (nbytes(h_) + leaf_bytes(w13, l) + M_ * F * 2, 2.0 * M_ * H * 2 * F))],
+                "gemm_residual": [
+                    (f"w2 M={M_} K={F} N={H}", prod(K.gemm_residual, w2, mid_, fresh, g_mlp),
+                     prod(K.gemm_residual_plain, w2, mid_, fresh, g_mlp),
+                     lambda l: torch.addmm(ff["w2"]["b"][l], mid_.view(M_, F), ff["w2"]["w"][l]),
+                     lambda l: (nbytes(mid_, mods[l][:, 5 * H:]) + leaf_bytes(w2, l) + 2 * M_ * H * 2,
+                                2.0 * M_ * F * H)),
+                    (f"to_out M={M_} K={H} N={H}, row-masked", prod(K.gemm_residual, out_, h_, fresh, g_msa, rmask),
+                     prod(K.gemm_residual_plain, out_, h_, fresh, g_msa, rmask),
+                     lambda l: torch.mm(h_.view(M_, H), attn["to_out"]["w"][l]),
+                     lambda l: (nbytes(h_, mods[l][:, 2 * H:3 * H], m_) + leaf_bytes(out_, l) + 2 * M_ * H * 2,
+                                2.0 * M_ * H * H))],
+            }
+
+        rows = {}
+        for act in act_rows.values():
+            for name, rs in at_rows(act).items():
+                rows.setdefault(name + sfx, []).extend(rs)
+        return rows
 
     qkvg0 = randn((B, T, 4 * H))
     qs, ks = attn["q_norm"]["scale"], attn["k_norm"]["scale"]
-    per_layer = [
-        ("adaln_modulate", lambda l: K.adaln_modulate(h_in, mods[l][:, :H], mods[l][:, H:2 * H]),
-         lambda l: K.adaln_modulate_plain(h_in, mods[l][:, :H], mods[l][:, H:2 * H]),
-         None, lambda l: (nbytes(h_in, mods[l][:, :2 * H]) + h_in.numel() * 2, 0.0)),
-        ("qk_norm_rope", lambda l: K.qk_norm_rope(qkvg0.clone(), qs[l], ks[l], cos, sin),
-         lambda l: K.qk_norm_rope_plain(qkvg0.clone(), qs[l], ks[l], cos, sin), None,
-         lambda l: (2 * 2 * M * H * 2 + nbytes(qs[l], ks[l], cos, sin), 0.0)),
-        *gemm_rows(attn, ff, ""),
-    ]
+    per_layer = {
+        "adaln_modulate": [(f"M={M} H={H}", lambda l: K.adaln_modulate(h_in, mods[l][:, :H], mods[l][:, H:2 * H]),
+                            lambda l: K.adaln_modulate_plain(h_in, mods[l][:, :H], mods[l][:, H:2 * H]), None,
+                            lambda l: (nbytes(h_in, mods[l][:, :2 * H]) + h_in.numel() * 2, 0.0))],
+        "qk_norm_rope": [(f"M={M} heads={heads} D={hd}",
+                          lambda l: K.qk_norm_rope(qkvg0.clone(), qs[l], ks[l], cos, sin),
+                          lambda l: K.qk_norm_rope_plain(qkvg0.clone(), qs[l], ks[l], cos, sin), None,
+                          lambda l: (2 * 2 * M * H * 2 + nbytes(qs[l], ks[l], cos, sin), 0.0))],
+        **gemm_rows(attn, ff, ""),
+    }
 
     def over_layers(fn):
         def run():
@@ -295,22 +352,30 @@ def main() -> int:
 
     kernel_names = {"adaln_modulate": ("adaln_kernel",), "qk_norm_rope": ("qk_norm_rope_kernel",), **GEMM_NAMES}
 
-    def layer_entry(name, kfn, pfn, lfn, cost, **extra):
-        got_k, want_k = kfn(0), pfn(0)
-        abs_e, rel_e = err(got_k, want_k)
-        check(rel_e <= 2e-2, f"{name}: rel err {rel_e:.3e}")
-        ms, wall, clock = timed(over_layers(kfn), 5, kernel_names[name], per=L)
-        pms = timed(over_layers(pfn), 5, per=L)[0]
-        lms = timed(over_layers(lfn), 5, per=L)[0] if lfn else None
-        b_ms, b_by = bound(*cost(0), "bf16")
-        e = dict(name=name, route="cuda", source=BLOCK_SRC, replaces=BLOCK_TPU, max_abs_err=abs_e,
-                 rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
-                 library_ms=lms, shape=f"M={M}", **extra)
+    def layer_entry(name, rows, **extra):
+        """Each shape of kernel `name` against its plain version (2e-2), then timed over the 12
+        layers; the entry carries the first shape's numbers and every shape's row."""
+        shape_rows = []
+        for label, kfn, pfn, lfn, cost in rows:
+            got_k, want_k = kfn(0), pfn(0)
+            abs_e, rel_e = err(got_k, want_k)
+            check(rel_e <= 2e-2, f"{name} {label}: rel err {rel_e:.3e}")
+            ms, wall, clock = timed(over_layers(kfn), 5, kernel_names[name], per=L)
+            pms = timed(over_layers(pfn), 5, per=L)[0]
+            lms = timed(over_layers(lfn), 5, per=L)[0] if lfn else None
+            b_ms, b_by = bound(*cost(0), "bf16")
+            row = dict(shape=label, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=pms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lms)
+            print(f"  {name}: {json.dumps(row)}", flush=True)
+            shape_rows.append(row)
+        e = dict(name=name, route="cuda", source=BLOCK_SRC, replaces=BLOCK_TPU, **shape_rows[0], **extra)
+        if len(shape_rows) > 1:
+            e["shapes"] = shape_rows
         entries.append(e)
-        print("  " + json.dumps(e), flush=True)
 
-    for row in per_layer:
-        layer_entry(*row)
+    for name, rows in per_layer.items():
+        layer_entry(name, rows, **({"library_of": "torch.addmm (torch.mm for to_out), product only"}
+                                   if name in GEMMS else {}))
     entries.append(scan_entry)
 
     # int8 stream weights (w8_stream): the four products' weights int8, as
@@ -320,8 +385,8 @@ def main() -> int:
     qb = quantize_stream_weights({"blocks": blocks})["blocks"]
     print("phase B, int8 stream weights: each GEMM epilogue vs plain over the 12 layers (tolerance 2e-2); "
           "library = torch.addmm on the bf16 weights, the float path's product")
-    for row in gemm_rows(qb["attn"], qb["ff"], "_w8"):
-        layer_entry(*row, **({"library_of": "torch.addmm, bf16 weights"} if row[3] else {}))
+    for name, rows in gemm_rows(qb["attn"], qb["ff"], "_w8").items():
+        layer_entry(name, rows, library_of="torch.addmm (torch.mm for to_out), product only, bf16 weights")
     scan8 = lambda: K.fused_dit_scan(x, mods, mask, ck, cv, cmask, qb, cos, sin, heads=heads, head_dim=hd)  # noqa: E731
     got = scan8()
     with kernels.force_plain():
@@ -421,6 +486,12 @@ def main() -> int:
     del wq, sc, wbf
     torch.cuda.empty_cache()
 
+    host_ms = wrapper_host_ms(torch, dev)
+    print(f"wrapper host time per call, median of 1000 (ms): {json.dumps(host_ms)}", flush=True)
+    for e in entries:
+        if e["name"] in ("attention", "gemm_bias"):
+            e["wrapper_host_ms"] = next(v for k, v in host_ms.items() if k.startswith(e["name"]))
+
     # --------------------------------------------------------- serving phases
     import numpy as np
 
@@ -509,7 +580,9 @@ def main() -> int:
     def batch_checks(tts, group_args, noises):
         """One batch with the kernels vs the same batch with the plain
         versions forced; the no-sync check of fetch=False; one batch
-        profiled. Returns (latents with the kernels, profile row)."""
+        profiled, in which the profiler must show every counted GEMM and
+        attention launch on the port's kernels and no library attention.
+        Returns the latents with the kernels."""
         ref, ref_lens, ph, ph_lens, seq_lens, t_bucket = group_args
         tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
         args = (tts.params, tts.cfg, tt(ref, tts.dtype), tt(ref_lens, torch.int32), tt(ph, torch.int64),
@@ -546,14 +619,28 @@ def main() -> int:
             dispatch.append((time.perf_counter() - t_b) * 1e3)
             audio.cpu()
             walls.append((time.perf_counter() - t_b) * 1e3)
+        kernels.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             one_batch()
+        counted = {k: v for k, v in kernels.LAUNCHES.items() if v}
         kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
                        if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in kern)
         ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
-                                                                              "gemm_kernel", "w8_kernel")))
+                                                                              "gemm_wgmma_kernel", "w8_kernel")))
+
+        def seen(match):  # launches the profiler saw of kernels whose names hold one of `match`
+            return sum(c for k, _, c in kern if any(m in k for m in match))
+
+        lib_att = sorted({k[:80] for k, _, _ in kern if any(n in k.lower() for n in LIBRARY_ATTENTION)})
+        check(not lib_att, f"library attention kernels ran in the served batch: {lib_att}")
+        check(seen(ATTN_KERNELS[1:]) == counted.get("attention", 0) > 0,
+              f"bf16 attention kernels seen {seen(ATTN_KERNELS[1:])}, counted {counted.get('attention', 0)}")
+        for n, match in GEMM_NAMES.items():
+            check(seen(match) == counted.get(n, 0), f"{n}: the profiler saw {seen(match)}, the counter {counted.get(n, 0)}")
+        print(f"  profiled batch: every counted launch seen on the port's kernels ({json.dumps(counted)}), "
+              "no library attention kernel", flush=True)
         wall_med = sorted(walls)[len(walls) // 2]
         prof_row = dict(batch=8, t_bucket=t_bucket, ref_bucket=ref.shape[1], phoneme_bucket=ph.shape[1],
                         wall_ms=walls, dispatch_ms=dispatch, device_busy_ms=busy, hand_written_kernels_ms=ours,
@@ -621,6 +708,40 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def wrapper_host_ms(torch, dev, calls=1000):
+    """Host time per call (ms, median of `calls`) of the GEMM and attention
+    wrappers at served shapes: the Python checks, the ctypes call and the C
+    launch code. The device runs behind; it is drained every 50 calls,
+    outside the timed calls."""
+    from smalltts_tpu_torch.ops.kernels import attention as A
+    from smalltts_tpu_torch.ops.kernels import dit_block as K
+
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    a, w, b = r(8, 40, 960), r(960, 3840), r(3840)
+    q, k, v, gate, k2, v2 = r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), \
+        r(8, 8, 448, 120), r(8, 8, 448, 120)
+    m1, m2 = torch.ones((8, 40), dtype=torch.bool, device=dev), torch.ones((8, 448), dtype=torch.bool, device=dev)
+    res = {}
+    for name, fn in (("gemm_bias M=320 K=960 N=3840", lambda: K.gemm_bias(a, w, b)),
+                     ("attention dit T=40 + Sc=448", lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate))):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        ts = []
+        for i in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+            if i % 50 == 49:
+                torch.cuda.synchronize()
+        res[name] = sorted(ts)[len(ts) // 2] * 1e3
+    return res
 
 
 def _dev_us(evt) -> float:

@@ -10,22 +10,29 @@
 // denominator (the two-piece softmax of block.py:344-377), and an optional
 // gate multiplies the output by sigmoid(gate) before it is stored.
 //
-// What bounds it on the H100: at the serving shapes (S <= 880 keys, D <= 128,
-// B*H <= 256 (b, h) pairs) the work is small; the bound is the bytes of
-// q/k/v/out (a few MB) at 3.35 TB/s. The TPU kernel kept a whole (Tq, S)
-// score tile in VMEM; here a block has at most 227 KB of shared memory, so
-// both kernels below use an online softmax over key tiles of 64, with the
-// running max / denominator in fp32:
+// What bounds it on the H100: bytes at the DiT's shapes. One DiT launch (B 8,
+// H 8, Tq 40, keys T + 448, D 120) reads 14 MB of cross K/V (4.1 us at 3.35
+// TB/s) for 1.4 GFLOP; the 12 layers' cross K/V do not fit in L2, so every
+// launch streams them from HBM, and only 64 (b, h) pairs exist to do it. The
+// text encoder's shape (B 8, H 4, 384 x 384, D 128) is near the ridge.
 //
-//  * bf16 (the serving path): attn_tc_kernel. One block of 2 warps per
-//    (b, h, 32-row q tile); each warp owns 16 query rows. QK^T and PV run on
-//    the tensor cores (WMMA bf16 16x16x16, fp32 accumulation); K/V tiles are
-//    double-buffered in shared memory with cp.async so the next tile loads
-//    while this one computes. The fp32 probabilities enter PV as two bf16
-//    terms (hi + lo), so PV sees them to ~2^-16 relative, not bf16's 2^-8.
-//    D = 120 is zero-padded to 128 in shared memory; the scale stays 1/sqrt(D).
+//  * bf16 (the serving path): attn_mma_kernel, FlashAttention-2 in
+//    registers. A block has 4 warps, a warp 16 query rows. QK^T and PV run
+//    on mma.sync m16n8k16 (bf16, fp32 accumulation) with ldmatrix (.trans
+//    for V) from shared memory in an XOR swizzle; the scores, the online
+//    softmax (quad shuffles) and O stay in registers, and P goes from the
+//    score fragments straight into PV's A fragments as bf16 hi + lo (PV sees
+//    the fp32 probabilities to ~2^-16). K/V tiles of 64 keys are
+//    double-buffered by cp.async with D = 120 zero-padded to 128: 67 KB of
+//    shared memory, 3 blocks (12 warps) per SM. Where the (b, h, q tile)
+//    blocks cannot fill the card, the keys are split across blocks: the
+//    splits of one (b, h, q tile) form a thread-block cluster, each keeps its
+//    own (m, l, O), and they merge by a log-sum-exp combine through
+//    distributed shared memory, in one launch with no scratch buffer.
 //  * fp32 (exact fp32 parity, tests): attn_kernel. One block of 128 threads
 //    per (b, h, 16-row q tile), products on the CUDA cores in fp32.
+//
+// Measured times (H100 80GB HBM3, 700 W) are in PERF.md section 6.
 //
 // Layouts: every tensor is addressed by (batch, head, token) strides with the
 // head dim contiguous, so the wrapper can pass views of the DiT's fused qkvg
@@ -34,9 +41,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
+#include <algorithm>
 
 namespace {
 
@@ -192,208 +199,394 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
 
 // ------------------------------------------------------------------ bf16, tensor cores
 
-constexpr int WQ = 16;            // query rows per warp
-constexpr int TNW = 2;            // warps per block
-constexpr int TBQ = WQ * TNW;     // query rows per block
-constexpr int TBK = 64;           // keys per tile
-constexpr int TNT = 32 * TNW;
+constexpr int FNW = 4;             // warps per block, 16 query rows each
+constexpr int FBQ = 16 * FNW;      // query rows per block
+constexpr int FBK = 64;            // keys per tile
+constexpr int FNT = 32 * FNW;
+constexpr int FMAXSPLIT = 8;       // key splits of one (b, h, q tile): the cluster's size
 
 template <int DP>
-struct TcLayout {  // shared memory, every region a multiple of 32 bytes
-  static constexpr int LD = DP + 8, SLD = TBK + 4, PLD = TBK + 8, OLD = DP + 4;
-  static constexpr size_t O = 0;                                  // fp32 [TBQ][OLD]
-  static constexpr size_t S = O + TBQ * OLD * 4;                  // fp32 [TNW][WQ][SLD]
-  static constexpr size_t Q = S + TNW * WQ * SLD * 4;             // bf16 [TBQ][LD]
-  static constexpr size_t K = Q + TBQ * LD * 2;                   // bf16 [2][TBK][LD]
-  static constexpr size_t V = K + 2 * TBK * LD * 2;               // bf16 [2][TBK][LD]
-  static constexpr size_t P = V + 2 * TBK * LD * 2;               // bf16 [2 (hi, lo)][TNW][WQ][PLD]
-  static constexpr size_t ROW = P + 2 * TNW * WQ * PLD * 2;       // fp32 alpha[TBQ], l[TBQ]
-  static constexpr size_t M = ROW + 2 * TBQ * 4;                  // u8 [2][TBK]
-  static constexpr size_t BYTES = M + 2 * TBK;
+struct MmaLayout {  // shared memory; DP is the head dim padded to 64 or 128
+  static constexpr int TILE = FBK * DP * 2;    // one bf16 K or V tile (Q's 64 rows have the same size)
+  static constexpr int MASK = 4 * TILE;        // after [2 stages][K, V]: u8 key masks [2][FBK]
+  static constexpr int ROW = MASK + 2 * FBK;   // then fp32 m[FBQ], l[FBQ], merge weights [FBQ][FMAXSPLIT]
+  static constexpr int BYTES = ROW + FBQ * (2 + FMAXSPLIT) * 4;
+  static constexpr int OST = DP + 8;           // fp32 row stride of the O partials, in the K/V tiles' place
+  static_assert(FBQ * OST * 4 <= MASK, "the O partials fit in the K/V tiles");
 };
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int bytes = ok ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+// element offset of 16-byte chunk `c` of row `r` in a tile of DP-wide bf16
+// rows: chunk c sits at c ^ (r % 8), so ldmatrix's 8 rows hit 8 bank groups
+template <int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * DP + ((c ^ (r & 7)) << 3);
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool ok) {
+  const int bytes = ok ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem_dst)), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+// d (16 x 8, fp32) += a (16 x 16, bf16) * b (16 x 8, bf16)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two fp32 probabilities as bf16 hi + lo terms, each packed in pairs
+__device__ __forceinline__ void hi_lo(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+// the float (pair) at `p` in the shared memory of cluster rank `rank`. No
+// memory clobber: the cluster barriers order these loads, and without one a
+// run of them is issued back to back instead of one round trip at a time.
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(cluster_addr(p, rank)));
+  return v;
+}
+__device__ __forceinline__ float2 ld_cluster2(const float* p, int rank) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(cluster_addr(p, rank)));
+  return v;
+}
+
+// One block per (key split, 64-row q tile, (b, h)); a warp owns 16 query
+// rows. `per` key tiles of 64 per split; the splits of one (b, h, q tile)
+// are a cluster (grid.x) and merge through distributed shared memory.
 template <int DP>
-__global__ void __launch_bounds__(TNT) attn_tc_kernel(const AttnArgs a, const int D) {
-  using Lay = TcLayout<DP>;
+__global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, const int D, const int per) {
+  using Lay = MmaLayout<DP>;
   using bf16 = __nv_bfloat16;
-  constexpr int LD = Lay::LD, SLD = Lay::SLD, PLD = Lay::PLD, OLD = Lay::OLD, CH = DP / 8;
+  constexpr int CH = DP / 8, KS = DP / 16, NF = FBK / 8;
   extern __shared__ __align__(128) unsigned char sm[];
-  float* O = reinterpret_cast<float*>(sm + Lay::O);
-  float* Sx = reinterpret_cast<float*>(sm + Lay::S);
-  bf16* Qs = reinterpret_cast<bf16*>(sm + Lay::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(sm + Lay::K);
-  bf16* Vs = reinterpret_cast<bf16*>(sm + Lay::V);
-  bf16* Ps = reinterpret_cast<bf16*>(sm + Lay::P);
-  float* alpha_s = reinterpret_cast<float*>(sm + Lay::ROW);
-  float* l_s = alpha_s + TBQ;
-  unsigned char* Ms = sm + Lay::M;
+  bf16* Kt[2] = {reinterpret_cast<bf16*>(sm), reinterpret_cast<bf16*>(sm + 2 * Lay::TILE)};
+  bf16* Vt[2] = {reinterpret_cast<bf16*>(sm + Lay::TILE), reinterpret_cast<bf16*>(sm + 3 * Lay::TILE)};
+  unsigned char* Ms = sm + Lay::MASK;
+  float* m_s = reinterpret_cast<float*>(sm + Lay::ROW);
+  float* l_s = m_s + FBQ;
+  float* w_s = l_s + FBQ;
 
-  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
-  const int q0 = blockIdx.x * TBQ, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, ri = lane & 7;  // ldmatrix: the 8x8 matrix this lane addresses, and its row
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int q0 = blockIdx.y * FBQ, b = blockIdx.z / a.H, h = blockIdx.z % a.H;
   const int dch = D / 8;  // 16-byte chunks per row that hold data; the rest are zero
+  const int n0 = (a.S[0] + FBK - 1) / FBK, nt = n0 + (a.S[1] + FBK - 1) / FBK;
+  const int t_begin = min(nt, split * per), t_end = min(nt, t_begin + per);
 
-  const bf16* q = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  for (int i = tid; i < TBQ * CH; i += TNT) {
-    const int r = i / CH, c = i % CH, t = q0 + r;
-    const bool ok = t < a.Tq && c < dch;
-    cp_async16(Qs + r * LD + c * 8, ok ? q + (long long)t * a.sq[2] + c * 8 : q, ok);
-  }
-  for (int i = tid; i < TBQ * OLD; i += TNT) O[i] = 0.f;
-
-  const int n0 = (a.S[0] + TBK - 1) / TBK, nt = n0 + (a.S[1] + TBK - 1) / TBK;
   auto load_tile = [&](int t, int stage) {
-    const int src = t < n0 ? 0 : 1, j0 = (t < n0 ? t : t - n0) * TBK;
-    const int nk = min(TBK, a.S[src] - j0);
+    const int src = t < n0 ? 0 : 1, j0 = (t < n0 ? t : t - n0) * FBK;
+    const int nk = min(FBK, a.S[src] - j0);
     const bf16* kp = static_cast<const bf16*>(a.k[src]) + b * a.sk[src][0] + h * a.sk[src][1];
     const bf16* vp = static_cast<const bf16*>(a.v[src]) + b * a.sv[src][0] + h * a.sv[src][1];
-    bf16* ks = Ks + stage * TBK * LD;
-    bf16* vs = Vs + stage * TBK * LD;
-    for (int i = tid; i < TBK * CH; i += TNT) {
+    for (int i = tid; i < FBK * CH; i += FNT) {
       const int j = i / CH, c = i % CH;
-      const bool ok = j < nk && c < dch;
-      cp_async16(ks + j * LD + c * 8, ok ? kp + (long long)(j0 + j) * a.sk[src][2] + c * 8 : kp, ok);
-      cp_async16(vs + j * LD + c * 8, ok ? vp + (long long)(j0 + j) * a.sv[src][2] + c * 8 : vp, ok);
+      const bool ok = j < nk && c < dch;  // zero fill: keys past the end, and D = 120's padding
+      cp_async16(Kt[stage] + swz<DP>(j, c), ok ? kp + (long long)(j0 + j) * a.sk[src][2] + c * 8 : kp, ok);
+      cp_async16(Vt[stage] + swz<DP>(j, c), ok ? vp + (long long)(j0 + j) * a.sv[src][2] + c * 8 : vp, ok);
     }
-    for (int j = tid; j < TBK; j += TNT)
-      Ms[stage * TBK + j] = j < nk ? a.m[src][b * a.msb[src] + j0 + j] : 0;
-    asm volatile("cp.async.commit_group;\n" ::);
+    for (int j = tid; j < FBK; j += FNT) Ms[stage * FBK + j] = j < nk ? a.m[src][b * a.msb[src] + j0 + j] : 0;
   };
 
-  float m = -INFINITY, l = 0.f;  // the running max and denominator of row `r` (2 lanes per row)
-  const int r = lane >> 1, half = lane & 1;
-  float* Sw = Sx + w * WQ * SLD;
-  bf16* Phi = Ps + w * WQ * PLD;
-  bf16* Plo = Ps + (TNW + w) * WQ * PLD;
-  float* Ow = O + w * WQ * OLD;
+  // the block's 64 query rows are staged in stage 1's K tile, then held in registers
+  const bf16* qp = static_cast<const bf16*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  for (int i = tid; i < FBQ * CH; i += FNT) {
+    const int r = i / CH, c = i % CH, t = q0 + r;
+    const bool ok = t < a.Tq && c < dch;
+    cp_async16(Kt[1] + swz<DP>(r, c), ok ? qp + (long long)t * a.sq[2] + c * 8 : qp, ok);
+  }
+  if (t_begin < t_end) load_tile(t_begin, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qf[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], Kt[1] + swz<DP>(warp * 16 + (mi & 1) * 8 + ri, 2 * kk + (mi >> 1)));
+  __syncthreads();  // stage 1 is free for the first prefetch
 
-  load_tile(0, 0);
-  for (int t = 0; t < nt; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < nt) {
-      load_tile(t + 1, stage ^ 1);
-      asm volatile("cp.async.wait_group 1;\n" ::);
+  // O (16 rows x DP per warp), the running max and denominator of rows g and g + 8
+  float o[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    const int st = i & 1;
+    if (t + 1 < t_end) {
+      load_tile(t + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
     } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+      cp_async_wait<0>();
     }
-    __syncthreads();  // tile t (and Q, O on the first pass) visible to every warp
+    __syncthreads();  // tile t is visible to every warp
     const int src = t < n0 ? 0 : 1;
-    const int nk = min(TBK, a.S[src] - (t < n0 ? t : t - n0) * TBK);
-    const bf16* ks = Ks + stage * TBK * LD;
-    const bf16* vs = Vs + stage * TBK * LD;
-    const unsigned char* ms = Ms + stage * TBK;
+    const int nk = min(FBK, a.S[src] - (t < n0 ? t : t - n0) * FBK);
+    const bf16* ks = Kt[st];
+    const bf16* vs = Vt[st];
+    const unsigned char* ms = Ms + st * FBK;
 
-    // scores for this warp's 16 rows: S = Q K^T
+    // S = Q K^T for the warp's 16 rows, 8 fragments of 8 keys, in registers
+    float s[NF][4];
 #pragma unroll
-    for (int nf = 0; nf < TBK / 16; ++nf) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+    for (int n = 0; n < NF; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, Qs + (w * WQ) * LD + kk * 16, LD);
-        wmma::load_matrix_sync(fb, ks + (nf * 16) * LD + kk * 16, LD);
-        wmma::mma_sync(acc, fa, fb, acc);
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int np = 0; np < NF / 2; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, ks + swz<DP>(16 * np + (mi >> 1) * 8 + ri, 2 * kk + (mi & 1)));
+        mma16816(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma16816(s[2 * np + 1], qf[kk], kb[2], kb[3]);
       }
-      wmma::store_matrix_sync(Sw + nf * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
 
-    // online softmax: lanes 2r and 2r+1 each hold 32 of row r's 64 scores
-    float s[32];
-    float tmax = -INFINITY;
+    // online softmax; lanes 4g..4g+3 share rows g and g + 8
+    float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = half * 32 + c;
-      float v = Sw[r * SLD + j] * a.scale;
-      if (j >= nk) v = -INFINITY;      // past the end: no weight at all
-      else if (!ms[j]) v = -1e9f;      // masked: replaced, as the reference does
-      s[c] = v;
-      tmax = fmaxf(tmax, v);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float mnew = fmaxf(m, tmax);
-    const float alpha = expf(m - mnew);  // 0 on the first tile (m = -inf)
-    float psum = 0.f;
+    for (int n = 0; n < NF; ++n)
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int j = half * 32 + c;
-      const float p = expf(s[c] - mnew);
-      const bf16 hi = __float2bfloat16(p);
-      Phi[r * PLD + j] = hi;
-      Plo[r * PLD + j] = __float2bfloat16(p - __bfloat162float(hi));
-      psum += p;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = mnew;
-    if (half == 0) alpha_s[w * WQ + r] = alpha;
-    __syncwarp();
-
-    // O = alpha * O + P V for this warp's rows
-    for (int i = lane; i < WQ * DP; i += 32) {
-      const int rr = i / DP, d = i % DP;
-      Ow[rr * OLD + d] *= alpha_s[w * WQ + rr];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int df = 0; df < DP / 16; ++df) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Ow + df * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < TBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, vs + (kk * 16) * LD + df * 16, LD);
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-        wmma::load_matrix_sync(fp, Phi + kk * 16, PLD);
-        wmma::mma_sync(acc, fp, fv, acc);
-        wmma::load_matrix_sync(fp, Plo + kk * 16, PLD);
-        wmma::mma_sync(acc, fp, fv, acc);
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * t4 + (e & 1);
+        float v = s[n][e] * a.scale;
+        if (j >= nk) v = -INFINITY;   // past the end: no weight at all
+        else if (!ms[j]) v = -1e9f;   // masked: replaced, as the reference does
+        s[n][e] = v;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
       }
-      wmma::store_matrix_sync(Ow + df * 16, acc, OLD, wmma::mem_row_major);
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float mnew = fmaxf(mrow[r], tmax[r]);  // finite: a tile holds at least one key
+      alpha[r] = expf(mrow[r] - mnew);             // 0 on the split's first tile (m = -inf)
+      mrow[r] = mnew;
     }
-    __syncthreads();  // every warp is done with stage `stage` before it is refilled
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[n][e] - mrow[e >> 1]);
+        s[n][e] = p;
+        psum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      lrow[r] = lrow[r] * alpha[r] + psum[r];
+    }
+#pragma unroll
+    for (int i2 = 0; i2 < DP / 8; ++i2)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i2][e] *= alpha[e >> 1];
+
+    // O += P V: the score fragments of keys 16kk..16kk+15 are the A fragment
+    // of k step kk, as bf16 hi + lo (PV sees P to ~2^-16, not bf16's 2^-8)
+#pragma unroll
+    for (int kk = 0; kk < NF / 2; ++kk) {
+      uint32_t ph[4], pl[4];
+      hi_lo(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      hi_lo(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      hi_lo(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      hi_lo(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < KS; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_t(vb, vs + swz<DP>(16 * kk + (mi & 1) * 8 + ri, 2 * dp + (mi >> 1)));
+        mma16816(o[2 * dp], ph, vb[0], vb[1]);
+        mma16816(o[2 * dp], pl, vb[0], vb[1]);
+        mma16816(o[2 * dp + 1], ph, vb[2], vb[3]);
+        mma16816(o[2 * dp + 1], pl, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
-  if (half == 0) l_s[w * WQ + r] = l;
-  __syncwarp();
-  bf16* out = static_cast<bf16*>(a.out) + b * a.so[0] + h * a.so[1];
-  const bf16* g = a.gate ? static_cast<const bf16*>(a.gate) + b * a.sg[0] + h * a.sg[1] : nullptr;
-  for (int i = lane; i < WQ * D; i += 32) {
-    const int rr = i / D, d = i % D, t = q0 + w * WQ + rr;
-    if (t >= a.Tq) continue;
-    float o = Ow[rr * OLD + d] / l_s[w * WQ + rr];
-    if (g) o *= 1.f / (1.f + expf(-__bfloat162float(g[(long long)t * a.sg[2] + d])));
-    out[(long long)t * a.so[2] + d] = __float2bfloat16(o);
+  // The merge reads everything (gate, the other splits' partials) before its
+  // first store: `out` may alias the gate for all the compiler knows, so a
+  // load after a store would wait for it, one round trip at a time.
+  bf16* op = static_cast<bf16*>(a.out) + b * a.so[0] + h * a.so[1];
+  const bf16* gp = a.gate ? static_cast<const bf16*>(a.gate) + b * a.sg[0] + h * a.sg[1] : nullptr;
+  auto gated = [&](int t, int d, float& v0, float& v1) {  // * sigmoid(gate)
+    if (gp) {
+      const bf16* gr = gp + (long long)t * a.sg[2] + d;
+      v0 *= 1.f / (1.f + expf(-__bfloat162float(gr[0])));
+      v1 *= 1.f / (1.f + expf(-__bfloat162float(gr[1])));
+    }
+  };
+  auto store = [&](int t, int d, float v0, float v1) {
+    *reinterpret_cast<__nv_bfloat162*>(op + (long long)t * a.so[2] + d) = __floats2bfloat162_rn(v0, v1);
+  };
+
+  if (nsplit == 1) {  // one split: normalize, gate and store from registers
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + warp * 16 + g + 8 * r;
+      if (t >= a.Tq) continue;
+      const float inv = 1.f / lrow[r];
+#pragma unroll
+      for (int dn = 0; dn < DP / 8; ++dn) {
+        const int d = 8 * dn + 2 * t4;
+        if (d >= D) continue;
+        float v0 = o[dn][2 * r] * inv, v1 = o[dn][2 * r + 1] * inv;
+        gated(t, d, v0, v1);
+        store(t, d, v0, v1);
+      }
+    }
+    return;
   }
+
+  // several splits: each leaves (m, l, O) of its keys in its shared memory;
+  // rank r merges rows [r * 64 / nsplit, ...) of every split, in rank order:
+  // M = max m_j, w_j = exp(m_j - M) (0 for a split with no key, m_j = -inf),
+  // O = sum_j (w_j / sum_i w_i l_i) O_j
+  __syncthreads();  // the K/V tiles become the O partials
+  float* part = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int dn = 0; dn < DP / 8; ++dn)
+      *reinterpret_cast<float2*>(part + row * Lay::OST + 8 * dn + 2 * t4) = make_float2(o[dn][2 * r], o[dn][2 * r + 1]);
+    if (t4 == 0) {
+      m_s[row] = mrow[r];
+      l_s[row] = lrow[r];
+    }
+  }
+  cluster_sync();
+  const int rows_per = (FBQ + nsplit - 1) / nsplit, r0 = split * rows_per;
+  const int r1 = min(min(FBQ, r0 + rows_per), a.Tq - q0);
+  if (tid < r1 - r0) {
+    const int row = r0 + tid;
+    float mj[FMAXSPLIT], lj[FMAXSPLIT], mx = -INFINITY, L = 0.f;
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {  // every split's (m, l) loads in flight together
+      mj[j] = j < nsplit ? ld_cluster(m_s + row, j) : -INFINITY;
+      lj[j] = j < nsplit ? ld_cluster(l_s + row, j) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) mx = fmaxf(mx, mj[j]);
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {
+      mj[j] = mj[j] == -INFINITY ? 0.f : expf(mj[j] - mx);
+      L += mj[j] * lj[j];
+    }
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) w_s[tid * FMAXSPLIT + j] = mj[j] / L;
+  }
+  __syncthreads();
+  // a thread merges at most EPT column pairs: rows [r0, r1) x D / 2 pairs <= 32 x 64 at 2+ splits
+  constexpr int EPT = (FBQ / 2) * (DP / 2) / FNT;
+  const int hd = D / 2, n_el = (r1 - r0) * hd;
+  float2 res[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = tid + e * FNT, rr = idx / hd, d = 2 * (idx % hd), row = r0 + rr;
+    res[e] = make_float2(0.f, 0.f);
+    if (idx >= n_el) continue;
+    float2 pj[FMAXSPLIT];
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) pj[j] = j < nsplit ? ld_cluster2(part + row * Lay::OST + d, j) : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {
+      const float wj = w_s[rr * FMAXSPLIT + j];
+      res[e].x += wj * pj[j].x;
+      res[e].y += wj * pj[j].y;
+    }
+    gated(q0 + row, d, res[e].x, res[e].y);
+  }
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = tid + e * FNT;
+    if (idx < n_el) store(q0 + r0 + idx / hd, 2 * (idx % hd), res[e].x, res[e].y);
+  }
+  cluster_sync();  // no rank leaves while another reads its shared memory
 }
 
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+// splits <= 0: chosen from the shape. The keys are split where the (b, h, q
+// tile) blocks alone cannot fill the SMs (the DiT's 64 pairs at Tq <= 64),
+// up to about two blocks per SM, with no split left without a key tile.
 template <int DP>
-int launch_tc(const AttnArgs& a, int D, cudaStream_t stream) {
-  constexpr size_t smem = TcLayout<DP>::BYTES;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(attn_tc_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+int launch_mma(const AttnArgs& a, int D, int splits, cudaStream_t stream) {
+  using Lay = MmaLayout<DP>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const int nt = (a.S[0] + FBK - 1) / FBK + (a.S[1] + FBK - 1) / FBK;
+  const int qt = (a.Tq + FBQ - 1) / FBQ, base = qt * a.H * a.B, sms = sm_count();
+  if (splits > FMAXSPLIT) return (int)cudaErrorInvalidValue;
+  if (splits <= 0) {
+    splits = base >= sms ? 1 : std::max(1, std::min({FMAXSPLIT, nt, (2 * sms + base - 1) / base}));
+    const int per = (nt + splits - 1) / splits;
+    splits = per > 0 ? (nt + per - 1) / per : 1;
   }
-  dim3 grid((a.Tq + TBQ - 1) / TBQ, a.H, a.B);
-  attn_tc_kernel<DP><<<grid, TNT, smem, stream>>>(a, D);
-  return (int)cudaGetLastError();
+  const int per = std::max(1, (nt + splits - 1) / splits);
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(splits, qt, a.B * a.H);
+  cfg.blockDim = dim3(FNT);
+  cfg.dynamicSmemBytes = Lay::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = splits;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_mma_kernel<DP>, a, D, per);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
 // ptrs: q, k1, v1, m1, k2, v2, m2, gate, out (k2/v2/m2/gate may be null).
 // strides: (b, h, t) for q, k1, v1, k2, v2, gate, out, then the two mask batch
-// strides: 23 values. dims: B, H, Tq, S1, S2. dtype 0 = fp32, 1 = bf16.
+// strides: 23 values. dims: B, H, Tq, S1, S2, splits (bf16: key splits, 0 =
+// chosen from the shape). dtype 0 = fp32, 1 = bf16.
 extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* strides,
                             const int* dims, float scale, void* stream) {
   AttnArgs a;
@@ -418,14 +611,14 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
   if (a.S[1] > 0 && (!a.k[1] || !a.v[1] || !a.m[1])) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // fp32: the CUDA-core kernel; bf16: the tensor-core kernel (16-byte aligned
-  // rows are the wrapper's check)
+  // q/k/v rows and 4-byte aligned out pairs are the wrapper's check)
   switch (dtype * 1000 + D) {
     case 64: return launch<64>(a, s);
     case 120: return launch<120>(a, s);
     case 128: return launch<128>(a, s);
-    case 1064: return launch_tc<64>(a, D, s);
-    case 1120: return launch_tc<128>(a, D, s);
-    case 1128: return launch_tc<128>(a, D, s);
+    case 1064: return launch_mma<64>(a, D, dims[5], s);
+    case 1120: return launch_mma<128>(a, D, dims[5], s);
+    case 1128: return launch_mma<128>(a, D, dims[5], s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -21,39 +21,58 @@
 //   gemm  EPI_RESID  x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked)
 //
 // Numerics follow _block_core (smalltts_tpu/models/dit.py:371-382), the JAX
-// default path: w2 is ONE fp32 accumulation over K = 2400, not the Pallas
-// kernel's 4 row chunks summed in bf16 (block.py:418-427). Each linear's
-// result is rounded to bf16 where the JAX path rounds it (after the bias),
-// and the modulation / gating arithmetic is done in fp32 with one rounding.
-// Every kernel here takes bf16 tensors: the scan runs in bf16 on the card.
+// default path: each product is ONE fp32 accumulation per output (w2 over
+// K = 2400 too, not the Pallas kernel's 4 row chunks summed in bf16,
+// block.py:418-427), the bias added in fp32, the result rounded to bf16
+// where the JAX path rounds it, and the modulation / gating arithmetic done
+// in fp32 with one rounding. Every kernel here takes bf16 tensors.
 //
-// What bounds it on the H100: per denoise step the four products stream
-// 276 MB of bf16 weights (83 us at 3.35 TB/s) and do 88.5 GFLOP at B=8, T=40
-// (89 us at 989 TFLOP/s): at M = 320 rows the products sit at the ridge.
-// This first design is a plain tiled WMMA GEMM (bf16 16x16x16 fragments,
-// fp32 accumulation, 64x64 block tiles, BK=32, a 3-4 stage cp.async pipeline)
-// with fused epilogues, so no product result makes an extra round trip
-// through device memory. Measured on the H100 it takes about 4.5x cuBLAS's
-// time on the qkvg product, and deeper pipelining barely moved it; the likely
-// limit is that the small 64x64 tiles re-read A and W from L2 many times.
-// Bigger tiles, wgmma, TMA, split-K for the N=960 products and a persistent
-// multi-layer design are later work. The LayerNorm and RMSNorm passes are
-// bound by bytes (a few hundred KB each).
-//
+// The GEMM (gemm_wgmma_kernel). What bounds it on the H100: the four
+// products of a layer stream 22 MB of bf16 weights (6.6 us at 3.35 TB/s) and
+// do 7.4 GFLOP at M = B*T = 320 rows (7.5 us at 989 TFLOP/s): they sit at the
+// card's ridge, so the design must both read each weight byte from HBM once
+// and keep the tensor cores at their Hopper rate. The design:
+//  * one consumer warpgroup issues wgmma.mma_async m64nNk16 (bf16 in, fp32
+//    accumulators in registers) on 64-row tiles; A (activations, K-major) and
+//    W in its stored (K, N) row-major layout (MN-major: the transpose-B bit,
+//    no transposed copy) both come from shared memory in the 128-byte swizzle,
+//    with BK = 64 (128 bytes of bf16, the swizzle's width);
+//  * one TMA warp keeps a ring of 3-6 stages (100 KB) full with
+//    cp.async.bulk.tensor.2d, mbarrier completion, zero fill past the edges
+//    (M, N and K tails); the activation's tensor map is encoded per call in
+//    C, each weight's once and cached (its key is everything the map holds);
+//  * the tile width and a split of K are chosen per product on the host;
+//    two blocks fit on an SM. Where the tiles leave most SMs idle and K is
+//    long (w2 at M = 128) K is split: the K ranks of one output tile form a
+//    thread-block cluster, and rank 0 adds the others' fp32 partials through
+//    distributed shared memory in rank order and rounds once, in one launch,
+//    with no scratch and no atomics (deterministic);
+//  * the epilogues read the accumulator fragments in registers and store
+//    bf16x2: bias; SwiGLU from two accumulator sets (w1's and w3's columns
+//    n0..n0+63 land in the same thread), silu as JAX's op chain
+//    a * (1 / (1 + exp(-a))) rounded to bf16 at each of its four ops; the
+//    gated residual reads x, gate and row_mask and updates x in place.
 // int8 weights (the w8_stream serving option, smalltts_tpu/models/dit.py::
-// quantize_stream_weights): the same GEMM with W stored int8 (K, N) and an
-// fp32 per-column scale, which halves the 276 MB a denoise step streams to
-// 138 MB. The int8 tile is copied into shared memory by cp.async (16 columns
-// a copy, so N and the row stride must be multiples of 16), then each stage
-// is dequantized in shared memory to the bf16 tile the MMA reads, as the
-// JAX nn.linear dequantizes: bf16(bf16(q) * bf16(scale)), one rounding, the
-// scale applied to W and not in the epilogue. No bf16 copy of a weight is
-// ever written to device memory.
+// quantize_stream_weights): W is int8 (K, N) with an fp32 per-column scale,
+// half the bytes. The int8 tile lands by TMA; the consumer warpgroup turns
+// it into the swizzled bf16 tile wgmma reads, as the JAX nn.linear does,
+// bf16(bf16(q) * bf16(scale)), with the block's scales held in registers,
+// while the previous stage's wgmma runs; no bf16 copy of a weight is
+// written to device memory.
+// Measured times (H100 80GB HBM3, 700 W) and the grids each product gets are
+// in PERF.md section 6. The LayerNorm and RMSNorm passes are bound by bytes (a
+// few hundred KB each).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 using bf16 = __nv_bfloat16;
 
@@ -146,227 +165,483 @@ __global__ void qk_norm_rope_kernel(bf16* qkvg, long long ldq, int T_len, int he
 
 // ---------------------------------------------------------------------- gemm
 
-using namespace nvcuda;
-
-constexpr int GBM = 64, GBN = 64, GBK = 32, GNT = 128;
+constexpr int GBM = 64;        // rows per block: the consumer warpgroup's one m64 wgmma row
+constexpr int GBK = 64;        // k per stage: 128 bytes of bf16, the width of the 128-byte swizzle
+constexpr int GSUB = 64;       // columns per W sub-tile: one TMA box of 64 k rows x 128 bytes
+constexpr int GMAXSPLIT = 4;   // K ranks per output tile (the cluster's size)
 enum { EPI_BIAS = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
 
 struct GemmArgs {
-  const bf16* A;  // (M, K), row stride lda
-  long long lda;
-  const bf16* W;  // (K, cols), row stride ldw
-  long long ldw;
-  const signed char* Wq;  // int8 weights: (K, cols) at row stride ldw, in place of W
-  const float* wscale;    // int8 weights: (cols,) fp32 per-column scale
-  const bf16* bias;  // (cols,) or null
-  bf16* out;         // (M, N), row stride ldo; EPI_RESID: the residual, updated in place
+  const float* wscale;  // int8 W: (wcols,) fp32 per-column scale
+  const bf16* bias;     // (wcols,) or null
+  bf16* out;            // (M, N), row stride ldo; EPI_RESID: the residual, updated in place
   long long ldo;
   const bf16* gate;  // EPI_RESID: (B, N) rows at stride gate_sb
   long long gate_sb;
   const unsigned char* row_mask;  // EPI_RESID: (M,) or null
   int M, N, K, T;
-  int half;  // EPI_SWIGLU: column of W where the second (W3) half starts
+  int half;   // EPI_SWIGLU: column of W where the second (W3) half starts
+  int wcols;  // W's width
 };
 
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool ok) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  const int bytes = ok ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes));
+// BN: W columns a block multiplies per k step (SwiGLU: 64 of w1 and the same 64 of w3)
+template <int EPI, bool W8, int BN>
+struct GemmCfg {
+  static constexpr int NSUB = BN / GSUB;                     // W sub-tiles per stage
+  static constexpr int BNO = EPI == EPI_SWIGLU ? GSUB : BN;  // output columns per block
+  static constexpr int A_BYTES = GBM * GBK * 2;
+  static constexpr int SUB_BYTES = GBK * GSUB * 2;              // one bf16 W sub-tile
+  static constexpr int RAW_BYTES = W8 ? NSUB * GBK * GSUB : 0;  // int8 sub-tiles as TMA lands them
+  static constexpr int STAGE = A_BYTES + NSUB * SUB_BYTES + RAW_BYTES;
+  // as many stages as fit in 100 KB (3 to 6): two blocks per SM
+  static constexpr int STAGES = 100 * 1024 / STAGE < 6 ? 100 * 1024 / STAGE : 6;
+  static constexpr int BAR = STAGES * STAGE;                // mbarriers after the stages
+  static constexpr int SMEM = BAR + 2 * STAGES * 8 + 1024;  // + slack for the 1024-byte alignment
+  static constexpr int CONSUMERS = 128;
+  static constexpr int THREADS = CONSUMERS + 32;  // the consumer warpgroup, then the TMA warp
+  static constexpr int ACC = BN / 2;  // fp32 accumulators per consumer thread
+  static_assert(STAGE % 1024 == 0, "every tile keeps the 1024-byte alignment of the 128-byte swizzle");
+  static_assert(CONSUMERS * ACC * 4 <= BAR, "the split-K partials reuse the stages");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// wgmma descriptor of a shared-memory tile in the 128-byte swizzle (layout type 1).
+// K-major A: sbo = 1024 (8 rows of 128 bytes), lbo unused. MN-major W: sbo =
+// 1024 (8 k rows), lbo = the distance between 64-column sub-tiles.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving the accumulators across an asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-template <int EPI, bool W8>
-struct GemmShape {
-  static constexpr int BNW = EPI == EPI_SWIGLU ? 2 * GBN : GBN;  // columns computed per block
-  static constexpr int AST = GBK + 8, BST = BNW + 8, CST = BNW + 4;
-  static constexpr int QST = BNW + 16;  // int8 stage row stride (bytes), 16-byte aligned rows
-  static constexpr int NF = BNW / 32;  // 16-wide column fragments per warp
-  // tiles in flight: each k step waits only for the load started STAGES-1 steps earlier
-  static constexpr int STAGES = EPI == EPI_SWIGLU ? 3 : 4;
-  // bf16: STAGES x (A tile, W tile). int8: STAGES x (A tile, int8 W tile), one
-  // dequantized bf16 W tile and the block's column scales
-  static constexpr int PIPE = W8 ? STAGES * (GBM * AST * 2 + GBK * QST) + GBK * BST * 2 + BNW * 4
-                                 : STAGES * (GBM * AST + GBK * BST) * 2;
-  static constexpr int CBYTES = GBM * CST * 4;
-  static constexpr int SMEM = PIPE > CBYTES ? PIPE : CBYTES;
-};
+// d (64 x 64, fp32) += A (64 x 16, K-major) * B (16 x 64, MN-major), both from shared memory
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-template <int EPI, bool W8>
-__global__ void __launch_bounds__(GNT) gemm_kernel(const GemmArgs g) {
-  using S = GemmShape<EPI, W8>;
-  __shared__ __align__(128) unsigned char smem[S::SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);  // [STAGES][GBM][AST]
-  bf16* Bs = As + S::STAGES * GBM * S::AST;  // bf16: [STAGES][GBK][BST]
-  // int8: [STAGES][GBK][QST] int8 stages, then [GBK][BST] bf16, then [BNW] fp32 scales
-  signed char* Bq = reinterpret_cast<signed char*>(Bs);
-  bf16* Bc = reinterpret_cast<bf16*>(Bq + S::STAGES * GBK * S::QST);
-  float* Ss = reinterpret_cast<float*>(Bc + GBK * S::BST);
-  float* Cs = reinterpret_cast<float*>(smem);  // [GBM][CST], after the main loop
+// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128, MN-major), both from shared memory
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
 
-  const int m0 = blockIdx.y * GBM, n0 = blockIdx.x * GBN;
-  const int warp = threadIdx.x >> 5, wm = warp >> 1, wn = warp & 1;
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the 4 floats at `p` in the shared memory of cluster rank `rank`. No memory
+// clobber: the cluster barriers order these loads, and without one a run of
+// them is issued back to back instead of one round trip at a time.
+__device__ __forceinline__ float4 ld_cluster4(const float4* p, uint32_t rank) {
+  uint32_t remote;
+  float4 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
 
-  // warp (wm, wn) owns rows wm*32..+32 and, in each 64-column half, columns wn*32..+32
-  auto col_of = [&](int j) { return (j >> 1) * GBN + wn * 32 + (j & 1) * 16; };
+// JAX's silu(a) * b on the rounded [w1|w3] linear: a * (1 / (1 + exp(-a))),
+// each op rounded to bf16
+__device__ __forceinline__ float swiglu(float a, float b) {
+  a = rbf(a);
+  const float sig = rbf(1.f / rbf(1.f + rbf(expf(-a))));
+  return rbf(a * sig) * rbf(b);
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][S::NF];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < S::NF; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+// q * s for int8 q without I2F: byte b of u = q + 128 becomes the low
+// mantissa byte of f = 2^23 + q + 128, and f * s - (2^23 + 128) * s is one
+// FMA. Exact: s is a bf16 value, so (2^23 + 128) * s (`off`) fits in 24
+// bits, and the FMA rounds the exact q * s, which fits in 16.
+__device__ __forceinline__ float s8_scaled(uint32_t u, int b, float s, float off) {
+  return fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | b)), s, off);
+}
 
-  // the W column of block column c (c < BNW: the W3 half starts at g.half)
-  auto w_col = [&](int c) { return (long long)(c >= GBN ? g.half : 0) + n0 + (c % GBN); };
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* as = As + stage * GBM * S::AST;
-    for (int i = threadIdx.x; i < GBM * (GBK / 8); i += GNT) {
-      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
-      const int gm = m0 + r, gk = k0 + c;
-      const bool ok = gm < g.M && gk < g.K;
-      cp_async16(as + r * S::AST + c, ok ? g.A + (long long)gm * g.lda + gk : g.A, ok);
-    }
-    if constexpr (W8) {
-      signed char* bq = Bq + stage * GBK * S::QST;
-      constexpr int CPR = S::BNW / 16;
-      for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
-        const int r = i / CPR, c = (i % CPR) * 16;
-        const int gk = k0 + r;
-        const bool ok = gk < g.K && n0 + (c % GBN) < g.N;
-        cp_async16(bq + r * S::QST + c, ok ? g.Wq + (long long)gk * g.ldw + w_col(c) : g.Wq, ok);
-      }
-    } else {
-      bf16* bs = Bs + stage * GBK * S::BST;
-      constexpr int CPR = S::BNW / 8;
-      for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
-        const int r = i / CPR, c = (i % CPR) * 8;
-        const int gk = k0 + r;
-        const bool ok = gk < g.K && n0 + (c % GBN) < g.N;
-        cp_async16(bs + r * S::BST + c, ok ? g.W + (long long)gk * g.ldw + w_col(c) : g.W, ok);
-      }
-    }
+// two blocks per SM: a 150-block grid is resident in one wave
+template <int EPI, bool W8, int BN>
+__global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
+    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
+                      const GemmArgs g) {
+  using C = GemmCfg<EPI, W8, BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  auto a_tile = [&](int s) { return sm + s * C::STAGE; };
+  auto b_tile = [&](int s, int j) { return sm + s * C::STAGE + C::A_BYTES + j * C::SUB_BYTES; };
+  auto raw_tile = [&](int s, int j) {
+    return sm + s * C::STAGE + C::A_BYTES + C::NSUB * C::SUB_BYTES + j * GBK * GSUB;
   };
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR);  // the stage's TMA tiles have landed
+  uint64_t* empty = full + C::STAGES;                          // the consumers are done with it
 
-  // int8: stage -> the bf16 tile Bc, each value bf16(q * bf16(scale[col]))
-  auto dequant_stage = [&](int stage) {
-    const signed char* bq = Bq + stage * GBK * S::QST;
-    constexpr int CPR = S::BNW / 16;
-    for (int i = threadIdx.x; i < GBK * CPR; i += GNT) {
-      const int r = i / CPR, c = (i % CPR) * 16;
-      const uint4 raw = *reinterpret_cast<const uint4*>(bq + r * S::QST + c);
-      const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
-      unsigned packed[8];
-#pragma unroll
-      for (int j = 0; j < 16; j += 2) {
-        const float q0 = static_cast<float>(static_cast<signed char>((words[j >> 2] >> (8 * (j & 3))) & 0xffu));
-        const float q1 = static_cast<float>(static_cast<signed char>((words[j >> 2] >> (8 * (j & 3) + 8)) & 0xffu));
-        const __nv_bfloat162 h = __floats2bfloat162_rn(q0 * Ss[c + j], q1 * Ss[c + j + 1]);
-        packed[j >> 1] = *reinterpret_cast<const unsigned*>(&h);
-      }
-      uint4* dst = reinterpret_cast<uint4*>(Bc + r * S::BST + c);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-  };
-
-  if constexpr (W8) {
-    for (int c = threadIdx.x; c < S::BNW; c += GNT)
-      Ss[c] = n0 + (c % GBN) < g.N ? rbf(g.wscale[w_col(c)]) : 0.f;
-  }
-
-  // one commit group per k step (empty past the end) keeps the wait counts uniform
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // grid.x is the cluster: the K ranks of one output tile
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int n0 = blockIdx.y * C::BNO, m0 = blockIdx.z * GBM;
   const int nk = (g.K + GBK - 1) / GBK;
-#pragma unroll
-  for (int st = 0; st < S::STAGES - 1; ++st) {
-    if (st < nk) load_stage(st, st * GBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<S::STAGES - 2>();
-    __syncthreads();  // tile kt is visible, and every warp is done with tile kt-1's stage
-    const int pre = kt + S::STAGES - 1;
-    if (pre < nk) load_stage(pre % S::STAGES, pre * GBK);
-    cp_async_commit();
-    const bf16* as = As + (kt % S::STAGES) * GBM * S::AST;
-    const bf16* bs = Bs + (kt % S::STAGES) * GBK * S::BST;
-    if constexpr (W8) {
-      dequant_stage(kt % S::STAGES);  // Bc is free: every warp passed this step's barrier
-      __syncthreads();
-      bs = Bc;
-    }
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[S::NF];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], as + (wm * 32 + i * 16) * S::AST + kk, S::AST);
-#pragma unroll
-      for (int j = 0; j < S::NF; ++j)
-        wmma::load_matrix_sync(fb[j], bs + kk * S::BST + col_of(j), S::BST);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < S::NF; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the pipeline buffers become the epilogue's staging tile
+  const int kt0 = split * nk / nsplit, kt1 = (split + 1) * nk / nsplit;
+  // W column of sub-tile j's first column (SwiGLU: w1's, then w3's)
+  auto w_col = [&](int j) { return EPI == EPI_SWIGLU ? (j ? g.half : 0) + n0 : n0 + j * GSUB; };
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < S::NF; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * S::CST + col_of(j), acc[i][j], S::CST,
-                              wmma::mem_row_major);
+  if (tid == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < GBM * GBN; idx += GNT) {
-    const int r = idx / GBN, c = idx % GBN, m = m0 + r, n = n0 + c;
-    if (m >= g.M || n >= g.N) continue;
-    float v = Cs[r * S::CST + c];
-    bf16* o = g.out + (long long)m * g.ldo + n;
-    if (EPI == EPI_BIAS) {
-      if (g.bias) v += ld(g.bias + n);
-      st(o, v);
-    } else if (EPI == EPI_SWIGLU) {
-      // JAX rounds the [w1|w3] linear to bf16, then silu(a) * b, with silu the
-      // op chain of JAX's silu, a * (1 / (1 + exp(-a))), each op rounded to bf16
-      const float a = rbf(v + ld(g.bias + n));
-      const float bb = rbf(Cs[r * S::CST + GBN + c] + ld(g.bias + g.half + n));
-      const float sig = rbf(1.f / rbf(1.f + rbf(expf(-a))));
-      st(o, rbf(a * sig) * bb);
-    } else {
-      if (g.bias) v += ld(g.bias + n);
-      v = rbf(v);
-      if (g.row_mask && !g.row_mask[m]) v = 0.f;
-      const float gt = tanhf(ld(g.gate + (long long)(m / g.T) * g.gate_sb + n));
-      st(o, ld(o) + gt * v);
+  float acc[C::ACC];
+#pragma unroll
+  for (int i = 0; i < C::ACC; ++i) acc[i] = 0.f;
+
+  if (warp == C::THREADS / 32 - 1) {
+    // the TMA warp: one thread keeps the ring of stages full
+    if (lane == 0) {
+      for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+        const int s = i % C::STAGES, u = i / C::STAGES;
+        mbar_wait(&empty[s], (u & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::A_BYTES + (W8 ? C::RAW_BYTES : C::NSUB * C::SUB_BYTES));
+        tma_load_2d(a_tile(s), &tmA, kt * GBK, m0, &full[s]);
+#pragma unroll
+        for (int j = 0; j < C::NSUB; ++j)
+          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j), kt * GBK, &full[s]);
+      }
+    }
+    __syncwarp();
+  } else {
+    // the consumer warpgroup: 4 k16 wgmmas per stage, one group kept in
+    // flight. int8: before it issues, it turns the stage's int8 tile into the
+    // swizzled bf16 tile wgmma reads, each value bf16(q * bf16(scale[col])),
+    // while the previous stage's products run; a thread always handles the
+    // same 8 columns of each sub-tile, so it holds their scales in registers
+    const int c8 = tid & 7;
+    float sc[W8 ? C::NSUB : 1][8], off[W8 ? C::NSUB : 1][8];
+    if constexpr (W8) {
+#pragma unroll
+      for (int j = 0; j < C::NSUB; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int n = n0 + (EPI == EPI_SWIGLU ? 0 : j * GSUB) + 8 * c8 + e, col = w_col(j) + 8 * c8 + e;
+          sc[j][e] = n < g.N && col < g.wcols ? rbf(g.wscale[col]) : 0.f;
+          off[j][e] = -8388736.f * sc[j][e];
+        }
+    }
+    for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
+      const int s = i % C::STAGES, u = i / C::STAGES;
+      mbar_wait(&full[s], u & 1);
+      if constexpr (W8) {
+#pragma unroll
+        for (int it = 0; it < C::NSUB * 4; ++it) {
+          const int j = it / 4, r = (tid >> 3) + 16 * (it & 3);
+          const uint2 q = *reinterpret_cast<const uint2*>(raw_tile(s, j) + r * GSUB + 8 * c8);
+          const uint32_t qu[2] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u};
+          uint32_t pk[4];
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            const __nv_bfloat162 h = __floats2bfloat162_rn(s8_scaled(qu[e >> 2], e & 3, sc[j][e], off[j][e]),
+                                                           s8_scaled(qu[e >> 2], (e & 3) + 1, sc[j][e + 1], off[j][e + 1]));
+            pk[e >> 1] = *reinterpret_cast<const uint32_t*>(&h);
+          }
+          // 16-byte chunk c8 of k row r sits at chunk c8 ^ (r % 8): the 128-byte swizzle TMA would give
+          *reinterpret_cast<uint4*>(b_tile(s, j) + r * 128 + ((c8 ^ (r & 7)) << 4)) =
+              make_uint4(pk[0], pk[1], pk[2], pk[3]);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");  // the whole tile is written
+      }
+      fence_regs<C::ACC>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < GBK / 16; ++k) {
+        const uint64_t da = sw128_desc(a_tile(s) + 32 * k, 16, 1024);  // 16 k = 32 bytes along the row
+        const uint64_t db = sw128_desc(b_tile(s, 0) + 2048 * k, C::SUB_BYTES, 1024);  // 16 k rows
+        if constexpr (EPI == EPI_SWIGLU) {
+          wgmma_n64(acc, da, db);
+          wgmma_n64(acc + 32, da, sw128_desc(b_tile(s, 1) + 2048 * k, C::SUB_BYTES, 1024));
+        } else if constexpr (BN == 128) {
+          wgmma_n128(acc, da, db);
+        } else {
+          wgmma_n64(acc, da, db);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      fence_regs<C::ACC>(acc);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_regs<C::ACC>(acc);
+  }
+
+  if (nsplit > 1) {
+    // split K: ranks 1.. leave their fp32 partials in their own shared memory
+    // (fragment order, so each read below is coalesced); rank 0 adds them in
+    // rank order, then rounds once in the epilogue
+    float4* part = reinterpret_cast<float4*>(sm);
+    if (tid < C::CONSUMERS && split != 0) {
+#pragma unroll
+      for (int q = 0; q < C::ACC / 4; ++q)
+        part[q * C::CONSUMERS + tid] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+    }
+    __syncwarp();
+    cluster_sync();
+    if (tid < C::CONSUMERS && split == 0) {
+      for (int r = 1; r < nsplit; ++r)
+#pragma unroll
+        for (int h = 0; h < C::ACC / 4; h += 8) {  // 8 loads in flight, then their sums
+          float4 v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) v[q] = ld_cluster4(part + (h + q) * C::CONSUMERS + tid, r);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            acc[4 * (h + q)] += v[q].x;
+            acc[4 * (h + q) + 1] += v[q].y;
+            acc[4 * (h + q) + 2] += v[q].z;
+            acc[4 * (h + q) + 3] += v[q].w;
+          }
+        }
+    }
+    cluster_sync();  // no rank leaves while rank 0 reads its shared memory
+    if (split != 0) return;
+  }
+  if (tid >= C::CONSUMERS) return;
+
+  // epilogue from the accumulator fragments: thread (warp w, lane) holds rows
+  // 16w + lane/4 (+8) and, in each 8-column group j, columns 8j + 2(lane%4)
+  // (+1). Everything it reads is loaded before its first store: `out` may
+  // alias bias, gate and x for all the compiler knows, so a load after a
+  // store would wait for it, and the loads would run one round trip at a time.
+  constexpr int NJ = C::BNO / 8;
+  const int wr = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  float2 b1[NJ], b3[NJ];  // the bias at each column pair (SwiGLU: w1's, and w3's in b3)
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int n = n0 + 8 * j + cq;  // N is a multiple of 8, so n < N means n + 1 < N as well
+    const bool ok = n < g.N && g.bias;
+    b1[j] = ok ? make_float2(ld(g.bias + n), ld(g.bias + n + 1)) : make_float2(0.f, 0.f);
+    b3[j] = ok && EPI == EPI_SWIGLU ? make_float2(ld(g.bias + g.half + n), ld(g.bias + g.half + n + 1))
+                                    : make_float2(0.f, 0.f);
+  }
+  float2 gt[EPI == EPI_RESID ? 2 : 1][NJ], xin[EPI == EPI_RESID ? 2 : 1][NJ];  // tanh(gate), x
+  bool keep[2];
+  if constexpr (EPI == EPI_RESID) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + wr + 8 * hr;
+      keep[hr] = m < g.M && (!g.row_mask || g.row_mask[m]);
+      const bf16* grow = g.gate + (long long)(m / g.T) * g.gate_sb;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + 8 * j + cq;
+        const bool ok = m < g.M && n < g.N;
+        gt[hr][j] = ok ? make_float2(tanhf(ld(grow + n)), tanhf(ld(grow + n + 1))) : make_float2(0.f, 0.f);
+        xin[hr][j] = ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.out + (long long)m * g.ldo + n))
+                        : make_float2(0.f, 0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = m0 + wr + 8 * hr;
+    if (m >= g.M) continue;
+    bf16* orow = g.out + (long long)m * g.ldo;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + cq;
+      if (n >= g.N) continue;
+      float v0 = acc[4 * j + 2 * hr] + b1[j].x, v1 = acc[4 * j + 2 * hr + 1] + b1[j].y;
+      if constexpr (EPI == EPI_SWIGLU) {
+        v0 = swiglu(v0, acc[32 + 4 * j + 2 * hr] + b3[j].x);
+        v1 = swiglu(v1, acc[32 + 4 * j + 2 * hr + 1] + b3[j].y);
+      } else if constexpr (EPI == EPI_RESID) {
+        v0 = xin[hr][j].x + gt[hr][j].x * (keep[hr] ? rbf(v0) : 0.f);
+        v1 = xin[hr][j].y + gt[hr][j].y * (keep[hr] ? rbf(v1) : 0.f);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
-template <int EPI, bool W8>
-int launch_gemm(const GemmArgs& g, cudaStream_t s) {
-  dim3 grid((g.N + GBN - 1) / GBN, (g.M + GBM - 1) / GBM);
-  gemm_kernel<EPI, W8><<<grid, GNT, 0, s>>>(g);
-  return (int)cudaGetLastError();
+// ------------------------------------------------------------- gemm, host side
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, a driver entry point, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
 }
 
+// tensor map of a row-major (rows, cols) matrix at row stride ld elements, in
+// 64 x 64 boxes: bf16 in the 128-byte swizzle wgmma reads, int8 unswizzled
+// (the consumer warpgroup swizzles it as it dequantizes)
+bool encode_map(CUtensorMap* map, const void* base, bool int8, long long rows, long long cols, long long ld) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * (int8 ? 1 : 2))};
+  const cuuint32_t box[2] = {GSUB, GBK}, estr[2] = {1, 1};
+  return enc(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a weight's map, encoded once: the key is everything the map holds, so a
+// reused address with the same shape finds the same map
+bool weight_map(CUtensorMap* map, const void* base, bool int8, long long rows, long long cols, long long ld) {
+  using Key = std::tuple<const void*, bool, long long, long long, long long>;
+  static std::mutex mu;
+  static std::map<Key, CUtensorMap> cache;
+  const Key key{base, int8, rows, cols, ld};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return true;
+  }
+  if (!encode_map(map, base, int8, rows, cols, ld)) return false;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return true;
+}
+
+template <int EPI, bool W8, int BN>
+int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int split, cudaStream_t s) {
+  using C = GemmCfg<EPI, W8, BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8, BN>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(split, (g.N + C::BNO - 1) / C::BNO, (g.M + GBM - 1) / GBM);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = split;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8, BN>, ta, tw, g);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+// Tile width and K split per product: 128 columns where 64-row x 128-column
+// tiles already give most SMs a block (qkvg at M = 320), else 64. K is split
+// over a cluster of up to GMAXSPLIT ranks only where the tiles leave more
+// than half the SMs idle and each rank keeps 8 k tiles or more (w2 at M =
+// 128): the split's merge and cluster barriers cost a few us, measured on
+// the H100 (PERF.md section 6), more than the split gains elsewhere.
 template <bool W8>
-int dispatch_gemm(int epi, const GemmArgs& g, cudaStream_t s) {
+int dispatch_gemm(int epi, const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
+  const int sms = sm_count(), mt = (g.M + GBM - 1) / GBM, nk = (g.K + GBK - 1) / GBK;
+  const int tiles64 = mt * ((g.N + 63) / 64);
+  auto split_for = [&](int blocks) {
+    return blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
+  };
   switch (epi) {
-    case EPI_BIAS: return launch_gemm<EPI_BIAS, W8>(g, s);
+    case EPI_BIAS:
+      if (mt * ((g.N + 127) / 128) >= (3 * sms) / 4) return launch_gemm<EPI_BIAS, W8, 128>(ta, tw, g, 1, s);
+      return launch_gemm<EPI_BIAS, W8, 64>(ta, tw, g, split_for(tiles64), s);
     case EPI_SWIGLU:
       if (!g.bias) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_SWIGLU, W8>(g, s);
+      return launch_gemm<EPI_SWIGLU, W8, 128>(ta, tw, g, split_for(tiles64), s);
     case EPI_RESID:
       if (!g.gate || g.T <= 0) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_RESID, W8>(g, s);
+      return launch_gemm<EPI_RESID, W8, 64>(ta, tw, g, split_for(tiles64), s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -397,9 +672,9 @@ extern "C" int st_qk_norm_rope(void* qkvg, long long ldq, int M, int T, int head
 
 // GEMM out = epilogue(A @ W), A bf16 (M, K) at row stride lda. epi: 0 bias,
 // 1 swiglu, 2 gated residual. W (K, cols) at row stride ldw is bf16, or int8
-// where wscale, an fp32 scale per W column (cols,), is given. K, lda and ldo
-// must be multiples of 8 and A, W and out 16-byte aligned; N, ldw and half
-// multiples of 8 for bf16 W, of 16 for int8 W.
+// where wscale, an fp32 scale per W column (cols,), is given. TMA reads A and
+// W: K, lda and ldo must be multiples of 8 and A, W and out 16-byte aligned;
+// N, ldw and half multiples of 8 for bf16 W, of 16 for int8 W.
 extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, long long ldw,
                        const float* wscale, const void* bias, void* out, long long ldo,
                        const void* gate, long long gate_sb, const void* row_mask, int M, int N,
@@ -408,17 +683,20 @@ extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, lon
   if (((K | lda | ldo) & 7) || ((N | ldw | half) & wmul)) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
+  const int wcols = epi == EPI_SWIGLU ? half + N : N;
+  if (M <= 0 || N <= 0 || K <= 0 || wcols > ldw) return (int)cudaErrorInvalidValue;
+  CUtensorMap ta, tw;
+  if (!encode_map(&ta, A, false, M, K, lda) || !weight_map(&tw, W, wscale != nullptr, K, wcols, ldw))
+    return (int)cudaErrorInvalidValue;
   GemmArgs g{};
-  g.A = static_cast<const bf16*>(A); g.lda = lda;
-  g.W = static_cast<const bf16*>(W); g.Wq = static_cast<const signed char*>(W); g.ldw = ldw;
   g.wscale = wscale;
   g.bias = static_cast<const bf16*>(bias);
   g.out = static_cast<bf16*>(out); g.ldo = ldo;
   g.gate = static_cast<const bf16*>(gate); g.gate_sb = gate_sb;
   g.row_mask = static_cast<const unsigned char*>(row_mask);
-  g.M = M; g.N = N; g.K = K; g.T = T; g.half = half;
+  g.M = M; g.N = N; g.K = K; g.T = T; g.half = half; g.wcols = wcols;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return wscale ? dispatch_gemm<true>(epi, g, s) : dispatch_gemm<false>(epi, g, s);
+  return wscale ? dispatch_gemm<true>(epi, ta, tw, g, s) : dispatch_gemm<false>(epi, ta, tw, g, s);
 }
 
 extern "C" const char* st_dit_block_error(int e) {

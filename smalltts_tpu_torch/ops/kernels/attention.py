@@ -1,10 +1,16 @@
-"""Masked attention: wrapper of csrc/attention.cu and its plain version.
+"""Masked attention: wrapper of csrc/attention.cu and its plain versions.
 
 Port of the Pallas TPU kernel smalltts_tpu/ops/pallas/attention.py::fused_attention
 (see the source note in csrc/attention.cu for what bounds it on the H100 and
 how the design answers that). The optional second key/value source with its
 own key mask, and the sigmoid gate, carry the DiT's joint attention
 (smalltts_tpu/ops/pallas/block.py:344-377) without a per-step concatenation.
+
+On the card, bf16 runs a FlashAttention-2 kernel in registers (mma.sync)
+that splits the keys across a thread-block cluster where the (b, h, q tile)
+blocks alone cannot fill the SMs, and merges the splits by a log-sum-exp
+combine; `attention_split_plain` is that split and merge in plain PyTorch,
+for the tests. fp32 runs a CUDA-core kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from smalltts_tpu_torch.ops import kernels
 
 NAME = "attention"
 HEAD_DIMS = (64, 120, 128)
+KEY_TILE = 64  # keys per tile of the bf16 kernel
+MAX_SPLITS = 8  # key splits of one (b, h, q tile): the kernel's cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -40,6 +48,46 @@ def attention_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=No
     return out.to(q.dtype)
 
 
+def attention_split_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=None, *, splits):
+    """The bf16 kernel's key split and merge in plain PyTorch (tests only).
+
+    The keys are cut into tiles of KEY_TILE, the first source's and then the
+    second's, and split r takes tiles [r * per, (r + 1) * per) with per =
+    ceil(tiles / splits). Each split runs the online softmax over its tiles
+    in order and keeps its own fp32 (m, l, O); a split may hold no tile (m =
+    -inf, l = 0). The splits merge in rank order: M = max_j m_j, w_j =
+    exp(m_j - M) (0 where m_j = -inf), O = sum_j (w_j / sum_i w_i l_i) O_j,
+    then times sigmoid(gate). Output in q's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float()
+    tiles = [(kk[:, :, j:j + KEY_TILE].float(), vv[:, :, j:j + KEY_TILE].float(), mm[:, j:j + KEY_TILE])
+             for kk, vv, mm in ((k, v, key_mask), (k2, v2, key_mask2)) if kk is not None
+             for j in range(0, kk.shape[2], KEY_TILE)]
+    per = max(1, -(-len(tiles) // splits))
+    B, H, Tq, D = q.shape
+    parts = []
+    for r in range(splits):
+        m = torch.full((B, H, Tq, 1), -math.inf, device=q.device)
+        l = torch.zeros((B, H, Tq, 1), device=q.device)
+        o = torch.zeros((B, H, Tq, D), device=q.device)
+        for kt, vt, mt in tiles[r * per:(r + 1) * per]:
+            s = torch.where(mt[:, None, None, :], torch.matmul(qf, kt.transpose(-1, -2)) * scale, -1e9)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + torch.matmul(p, vt)
+            m = m_new
+        parts.append((m, l, o))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    w = [torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - mx)) for m, _, _ in parts]
+    total = sum(wj * l for wj, (_, l, _) in zip(w, parts))
+    out = sum((wj / total) * o for wj, (_, _, o) in zip(w, parts))
+    if gate is not None:
+        out = out * torch.sigmoid(gate.float())
+    return out.to(q.dtype)
+
+
 def _strides(t: torch.Tensor, name: str):
     if t.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim must be contiguous")
@@ -56,12 +104,15 @@ def fused_attention(
     key_mask2: Optional[torch.Tensor] = None,
     gate: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked attention (B,H,Tq,D) over one or two key sources, optionally
     gated. Tensors may be strided views with a contiguous head dim. `out`, a
     (B,H,Tq,D) view, receives the result; without it the result is a
     (B,H,Tq,D) view of a (B,Tq,H,D) buffer. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. `splits` (bf16 on the
+    card, tests only) sets the kernel's key split, 1 to MAX_SPLITS; by default
+    the kernel chooses it from the shape."""
     if kernels.use_plain(q):
         res = attention_plain(q, k, v, key_mask, k2, v2, key_mask2, gate)
         if out is None:
@@ -93,6 +144,10 @@ def fused_attention(
         for t in [q, k, v] + ([k2, v2] if two else []):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError("attention: bf16 q/k/v need 16-byte aligned rows (strides of 8)")
+        if out.data_ptr() % 4 or any(st % 2 for st in out.stride()[:3]):  # it stores bf16 pairs
+            raise ValueError("attention: bf16 out needs 4-byte aligned pairs (even strides)")
+    if splits is not None and not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"attention: splits must be 1..{MAX_SPLITS}, got {splits}")
     m1 = key_mask.to(torch.bool).contiguous()
     m2 = key_mask2.to(torch.bool).contiguous() if two else None
     none = [0, 0, 0]
@@ -107,7 +162,7 @@ def fused_attention(
     lib = kernels.load("attention")
     status = lib.st_attention(
         _DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
-        (ctypes.c_int * 5)(B, H, Tq, S1, S2), 1.0 / math.sqrt(D),
+        (ctypes.c_int * 6)(B, H, Tq, S1, S2, splits or 0), 1.0 / math.sqrt(D),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     kernels.check(lib, "attention", status, "attention kernel")
     kernels.count_launch(NAME)

@@ -11,7 +11,10 @@ and what the design does about that):
 
 Each wrapper takes its plain version for CPU tensors (and under the
 test-only `kernels.force_plain()`), and otherwise launches its kernel or
-raises. The products go to the port's own GEMM kernel, never to cuBLAS.
+raises. The products go to the port's own GEMM kernel, never to cuBLAS: a
+Hopper wgmma kernel fed by TMA, with the tile width and a split of K over a
+thread-block cluster chosen per product in C, and the bias / SwiGLU / gated
+residual epilogues applied to the accumulators in registers.
 
 With int8 stream weights (models/dit.py::quantize_stream_weights) a
 product's leaf holds `w_q` (K, N) int8 and `scale` (1, N) fp32 in place of
@@ -170,7 +173,7 @@ def _gemm(name, epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1,
         raise ValueError("gemm: operands must be contiguous")
     if w.shape[0] != K or K % 8 or n_out % 8 or w.shape[1] % 8:
         raise ValueError(f"gemm: K={K}, N={n_out} and W's width must be multiples of 8")
-    # 16-byte cp.async copies of every operand, int8 W included
+    # TMA reads a and w (16-byte aligned bases and row strides), int8 W included
     if any(t.data_ptr() % 16 for t in (a, w, out)):
         raise ValueError("gemm: a, w and out must be 16-byte aligned")
     for t in (bias, gate):

@@ -285,3 +285,103 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
         torch.cuda.set_sync_debug_mode("default")
     assert out.is_cuda and out.dtype == torch.int16 and out.shape == (2, 1, 40 * 3200)
     assert int(out.abs().max()) > 0
+
+
+# the DiT's four products: K, W's width, epilogue
+PRODUCTS = {"qkvg": (960, 3840, "bias"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
+            "w2": (2400, 960, "resid")}
+
+
+def run_product(dev, epi, B, T, K_, N, w8, seed):
+    """One GEMM epilogue on the card against its plain version; bf16 or
+    int8 W ((1, N) scales, as a layer of the stream weights)."""
+    g = gen(dev, seed)
+    a = randn((B, T, K_), g, dev, torch.bfloat16)
+    w = randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_))
+    if w8:
+        w, scale = W.quantize_w8(w)
+        scale = scale[None]
+    else:
+        w, scale = w.to(torch.bfloat16), None
+    b = randn((N,), g, dev, torch.bfloat16, 0.1)
+    name = {"bias": "gemm_bias", "swiglu": "gemm_swiglu"}.get(epi, "gemm_residual") + ("_w8" if w8 else "")
+    n0 = kernels.LAUNCHES.get(name, 0)
+    if epi == "bias":
+        got, want = K.gemm_bias(a, w, b, w_scale=scale), K.gemm_bias_plain(a, w, b, w_scale=scale)
+    elif epi == "swiglu":
+        got, want = K.gemm_swiglu(a, w, b, w_scale=scale), K.gemm_swiglu_plain(a, w, b, w_scale=scale)
+    else:
+        x = randn((B, T, N), g, dev, torch.bfloat16)
+        gate = randn((B, N), g, dev, torch.bfloat16)
+        mask, bias = (key_mask(B, T, g, dev), None) if epi == "resid_masked" else (None, b)
+        want = K.gemm_residual_plain(a, w, bias, x.clone(), gate, mask, w_scale=scale)
+        got = K.gemm_residual(a, w, bias, x.clone(), gate, mask, w_scale=scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 1
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("M", [40, 128, 200, 320])
+@pytest.mark.parametrize("product", list(PRODUCTS))
+def test_gemm_products_at_served_rows(dev, product, M, w8):
+    """Every product of a layer, bf16 and int8 W, at M = B*T rows: 40 and
+    200 are ragged (not multiples of the 64-row tile); w13's output (2400)
+    and w2's K (2400) end in half tiles. w2 at M = 40, 128 and 200 splits K
+    over a cluster of 4, 4 and 3 ranks (the merge through distributed shared
+    memory); the other products run one rank per tile."""
+    K_, N, epi = PRODUCTS[product]
+    run_product(dev, epi, 8, M // 8, K_, N, w8, seed=M + K_ + N)
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("epi", ["bias", "swiglu", "resid", "resid_masked"])
+def test_gemm_ragged_tails(dev, epi, w8):
+    """N = 208 and K = 72: the last column tile and the last k tile are
+    mostly past the edge (TMA zero fill, masked stores); one row block."""
+    run_product(dev, epi, 2, 9, 72, 416 if epi == "swiglu" else 208, w8, seed=99)
+
+
+@pytest.mark.parametrize("two", [False, True])
+@pytest.mark.parametrize("Tq", [1, 16, 40, 384])
+def test_attention_query_lengths(dev, Tq, two):
+    """bf16 at Tq 1 / 16 / 40 (the DiT's buckets, keys split across a
+    cluster) and 384 (the text encoder), with and without the second key
+    source (448 cross keys, D 120, gated)."""
+    B, H = 8, 8 if two else 4
+    D = 120 if two else 128
+    g = gen(dev, Tq + two)
+    q, k, v = (randn((B, H, Tq, D), g, dev, torch.bfloat16) for _ in range(3))
+    m = key_mask(B, Tq, g, dev)
+    extra = dict(k2=randn((B, H, 448, D), g, dev, torch.bfloat16), v2=randn((B, H, 448, D), g, dev, torch.bfloat16),
+                 key_mask2=key_mask(B, 448, g, dev), gate=randn((B, H, Tq, D), g, dev, torch.bfloat16)) if two else {}
+    got = A.fused_attention(q, k, v, m, **extra)
+    assert rel(got, A.attention_plain(q, k, v, m, **extra)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
+def test_attention_forced_splits(dev, splits):
+    """The cluster merge against the plain versions, with the split forced:
+    4 key tiles (self 40 | cross 150), the cross source's second tile masked
+    in every row (a split of only -1e9 keys at 4 splits), 8 splits leaving
+    splits with no key at all (m = -inf, l = 0); batch row 1 has keys only in
+    the second source, the last row none (a uniform average). The result
+    goes to a strided (B, T, H*D) view, as the DiT writes it."""
+    B, H, T, S2, D = 4, 8, 40, 150, 120
+    g = gen(dev, 21)
+    q, k, v, gate = (randn((B, H, T, D), g, dev, torch.bfloat16) for _ in range(4))
+    k2, v2 = randn((B, H, S2, D), g, dev, torch.bfloat16), randn((B, H, S2, D), g, dev, torch.bfloat16)
+    m1, m2 = key_mask(B, T, g, dev), key_mask(B, S2, g, dev)
+    m1[1] = False
+    m2[1, :9] = True
+    m2[:, A.KEY_TILE:2 * A.KEY_TILE] = False
+    m2[-1] = False
+    buf = torch.zeros((B, T, H * D), device=dev, dtype=torch.bfloat16)
+    out = buf.unflatten(-1, (H, D)).transpose(1, 2)
+    A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate, out=out, splits=splits)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(buf).all())
+    want = A.attention_plain(q, k, v, m1, k2, v2, m2, gate=gate)
+    assert rel(out, want) <= TOL[torch.bfloat16]
+    assert rel(out, A.attention_split_plain(q, k, v, m1, k2, v2, m2, gate=gate, splits=splits)) <= TOL[torch.bfloat16]
