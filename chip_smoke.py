@@ -31,10 +31,17 @@
 Exits non-zero, printing no result, without a CUDA card or without the
 package beside this script; any failed check raises.
 
-    python3 chip_smoke.py --host-ms-of DIR
+    python3 chip_smoke.py --compare DIR
 
-builds the kernels of the package in DIR (another checkout) and prints only
-its wrappers' host time per call, to compare two trees in one run.
+compares the package in DIR (another checkout, for example a `git archive`
+of the parent commit) with this one on the card. Each turn is a worker
+process of its own with the full-width bf16 model, and the turns alternate
+DIR, this, this, DIR, three times. It prints the served batch's host
+dispatch and wall time (synthesize_padded(fetch=False), then the waveform
+to the host) and the GEMM and attention wrappers' host time per call, each
+tree's median, its turns' medians and the change's minus the parent's in
+each adjacent pair of turns. A turn is
+`python3 chip_smoke.py --worker DIR`.
 """
 
 from __future__ import annotations
@@ -107,8 +114,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    # --host-ms-of DIR: only the wrappers' host time per call, of the package in DIR (another checkout)
-    other = sys.argv[sys.argv.index("--host-ms-of") + 1] if "--host-ms-of" in sys.argv else None
+    # --worker DIR: one side of --compare, the package in DIR
+    other = _arg("--worker")
     sys.path.insert(0, os.path.abspath(other) if other else os.path.dirname(os.path.abspath(__file__)))
     try:
         import smalltts_tpu_torch  # noqa: F401
@@ -116,12 +123,9 @@ def main() -> int:
         print("chip_smoke: the smalltts_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
     if other:
-        from smalltts_tpu_torch.ops import kernels
-
-        kernels.build_all()
-        print(json.dumps({"package": os.path.dirname(os.path.abspath(smalltts_tpu_torch.__file__)),
-                          "card": card_line(), "wrapper_host_ms": wrapper_host_ms(torch, torch.device("cuda"))}))
-        return 0
+        return worker(torch)
+    if "--compare" in sys.argv:
+        return compare(_arg("--compare"))
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -147,30 +151,38 @@ def main() -> int:
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / iters
 
-    def device_ms(fn, iters=10, match=None):
+    def device_ms(fn, iters=10, match=None, launches=1):
         """Device time per call from torch.profiler: the kernels whose names
         hold one of `match` (every kernel when None), summed over `iters`
-        calls. None when the profiler reports no device time."""
+        calls, each of which launches at least `launches` of them. A trace
+        with fewer launches lost records, and is taken again (3 tries). None
+        when the profiler reports no device time, or lost records each try."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evts = prof.key_averages()
-        if sum(_dev_us(e) for e in evts) == 0:
-            return None  # the profiler sees no device time at all
-        total = sum(_dev_us(e) for e in evts if match is None or any(m in e.key for m in match))
-        check(total > 0, f"no profiled kernel matches {match}")
-        return total / 1e3 / iters
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
+            if not evts:
+                return None  # the profiler sees no device time at all
+            hits = [e for e in evts if match is None or any(m in e.key for m in match)]
+            check(bool(hits), f"no profiled kernel matches {match}")
+            seen = sum(e.count for e in hits)
+            if seen >= iters * launches:
+                return sum(_dev_us(e) for e in hits) / 1e3 / iters
+            print(f"  (profiler trace holds {seen} of at least {iters * launches} launches: taken again)", flush=True)
+        return None
 
     def timed(fn, iters, match=None, per=1):
-        """(ms, wall ms, clock) per launch: ms is profiler device time, or the
-        event-timed wall time (clock "wall") where the profiler saw none."""
+        """(ms, wall ms, clock) per launch, `per` launches a call: ms is
+        profiler device time, or the event-timed wall time (clock "wall")
+        where the profiler saw none or lost records."""
         wall = time_ms(fn, iters=iters) / per
-        dev_t = device_ms(fn, iters=iters, match=match)
+        dev_t = device_ms(fn, iters=iters, match=match, launches=per)
         return (wall, wall, "wall") if dev_t is None else (dev_t / per, wall, "device")
 
     def err(got, want):
@@ -495,26 +507,18 @@ def main() -> int:
     # --------------------------------------------------------- serving phases
     import numpy as np
 
-    from smalltts_tpu_torch.data.bucketing import HOP_SIZE, SAMPLE_RATE, frames_for_duration
-    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.data.bucketing import HOP_SIZE, frames_for_duration
     from smalltts_tpu_torch.infer.sampler import sample_latents
-    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
     from smalltts_tpu_torch.serving.batcher import Batcher, pad_group, Request
 
-    rs = np.random.RandomState(0)
-    durations = [2.0, 5.0] * 5
-    waves = [(0.1 * rs.randn(int(rs.uniform(2.0, 6.0) * SAMPLE_RATE))).astype(np.float32) for _ in durations]
-    ids = [rs.randint(1, 198, size=int(rs.randint(40, 201))).tolist() for _ in durations]
+    durations, waves, ids = serve_requests()
 
     def build(label, **opts):
         """SmallTTS at full width on the same seeded weights for every phase."""
         print(f"phase serve {label}: SmallTTS(pcm16_out=True{''.join(f', {k}=True' for k in opts)}), "
               "default BackboneConfig/CodecConfig, bf16, seed 0")
         t_init = time.perf_counter()
-        gb = torch.Generator(device=dev).manual_seed(0)
-        params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
-        tts = SmallTTS(params, pcm16_out=True, seed=0, **opts)
-        del params
+        tts = full_width_tts(torch, dev, **opts)
         n_params = sum(t.numel() for t in _leaves(tts.params))
         print(f"  built in {time.perf_counter() - t_init:.2f} s: {n_params / 1e6:.1f}M backbone params "
               f"({tts.dtype}), codec fp32, {tts.num_steps} steps", flush=True)
@@ -611,14 +615,7 @@ def main() -> int:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         print("  synthesize_padded(fetch=False) queued a batch with no synchronizing call", flush=True)
-        # dispatch: host time to queue the batch; wall: until its waveform is on the host
-        walls, dispatch = [], []
-        for _ in range(5):
-            t_b = time.perf_counter()
-            audio = one_batch(fetch=False)
-            dispatch.append((time.perf_counter() - t_b) * 1e3)
-            audio.cpu()
-            walls.append((time.perf_counter() - t_b) * 1e3)
+        dispatch, walls = batch_host_ms(one_batch, 5)
         kernels.reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             one_batch()
@@ -710,11 +707,119 @@ def main() -> int:
     return 0
 
 
+def _arg(flag):
+    return sys.argv[sys.argv.index(flag) + 1] if flag in sys.argv else None
+
+
+def serve_requests():
+    """The serve phases' 10 requests, from seed 0: (durations, waveforms,
+    phoneme ids)."""
+    import numpy as np
+
+    from smalltts_tpu_torch.data.bucketing import SAMPLE_RATE
+
+    rs = np.random.RandomState(0)
+    durations = [2.0, 5.0] * 5
+    waves = [(0.1 * rs.randn(int(rs.uniform(2.0, 6.0) * SAMPLE_RATE))).astype(np.float32) for _ in durations]
+    ids = [rs.randint(1, 198, size=int(rs.randint(40, 201))).tolist() for _ in durations]
+    return durations, waves, ids
+
+
+def full_width_tts(torch, dev, **opts):
+    """SmallTTS at full width (default BackboneConfig / CodecConfig, bf16) on
+    weights drawn from seed 0."""
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+
+    gb = torch.Generator(device=dev).manual_seed(0)
+    params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
+    return SmallTTS(params, pcm16_out=True, seed=0, **opts)
+
+
+def batch_host_ms(one_batch, n):
+    """(dispatch, wall) ms of `n` batches: dispatch is the host time to queue
+    a batch (one_batch(fetch=False)), wall the time until its waveform is on
+    the host."""
+    dispatch, walls = [], []
+    for _ in range(n):
+        t_b = time.perf_counter()
+        audio = one_batch(fetch=False)
+        dispatch.append((time.perf_counter() - t_b) * 1e3)
+        audio.cpu()
+        walls.append((time.perf_counter() - t_b) * 1e3)
+    return dispatch, walls
+
+
+def worker(torch, batches=5):
+    """One turn of --compare, in a process of its own: builds the kernels and
+    the full-width bf16 model of the package on sys.path, then prints one
+    JSON line: the host dispatch and wall ms of `batches` padded batches of 8
+    (t 40, ref 64, phoneme 384) and the wrappers' host ms per call."""
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.serving.batcher import pad_group, Request
+
+    dev = torch.device("cuda")
+    kernels.build_all()
+    tts = full_width_tts(torch, dev)
+    durations, waves, ids = serve_requests()
+    group = [Request(tts.encode_reference(w), tok, d) for w, tok, d in zip(waves[:8], ids[:8], durations[:8])]
+    args = pad_group(group, 8)[:6]
+
+    def one_batch(fetch=True):
+        return tts.synthesize_padded(*args, fetch=fetch)
+
+    for _ in range(2):  # warm-up: cuDNN picks its algorithms, the tables are made
+        one_batch()
+    dispatch, walls = batch_host_ms(one_batch, batches)
+    print(json.dumps({"buckets": [args[5], args[0].shape[1], args[2].shape[1]], "dispatch_ms": dispatch,
+                      "wall_ms": walls, "wrapper_host_ms": wrapper_host_ms(torch, dev)}), flush=True)
+    return 0
+
+
+def compare(other, blocks=3):
+    """--compare DIR: see the module docstring. `blocks` runs of the turns
+    DIR, this, this, DIR; every turn is a fresh worker process, so what one
+    process's placement on the host costs is spread over the turns."""
+    trees = {"parent": os.path.abspath(other), "change": os.path.dirname(os.path.abspath(__file__))}
+    print(f"card: {card_line()}", flush=True)
+    res = {n: [] for n in trees}
+    for _ in range(blocks):
+        for name in ("parent", "change", "change", "parent"):
+            p = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[name]],
+                               capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                raise RuntimeError(f"compare: the {name} worker failed (exit {p.returncode}):\n{p.stderr[-3000:]}")
+            res[name].append(json.loads(lines[-1]))
+            print(f"turn {name}: {lines[-1]}", flush=True)
+    # each adjacent pair of turns (parent, change or change, parent) ran at nearly one host speed
+    pairs = [(res["change"][i]["dispatch_ms"], res["parent"][i]["dispatch_ms"], res["change"][i]["wall_ms"],
+              res["parent"][i]["wall_ms"]) for i in range(2 * blocks)]
+    summary = {"change_minus_parent_ms": {
+        "dispatch_pairs": [_median(c) - _median(p) for c, p, _, _ in pairs],
+        "wall_pairs": [_median(c) - _median(p) for _, _, c, p in pairs]}}
+    for name, turns in res.items():
+        summary[name] = {
+            "batches": sum(len(t["wall_ms"]) for t in turns),
+            "dispatch_ms_median": _median([x for t in turns for x in t["dispatch_ms"]]),
+            "wall_ms_median": _median([x for t in turns for x in t["wall_ms"]]),
+            "dispatch_ms_turn_medians": [_median(t["dispatch_ms"]) for t in turns],
+            "wall_ms_turn_medians": [_median(t["wall_ms"]) for t in turns],
+            "wrapper_host_ms": {k: [t["wrapper_host_ms"][k] for t in turns] for k in turns[0]["wrapper_host_ms"]}}
+    print(json.dumps({"compare": summary}))
+    return 0
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
+
+
 def wrapper_host_ms(torch, dev, calls=1000):
     """Host time per call (ms, median of `calls`) of the GEMM and attention
-    wrappers at served shapes: the Python checks, the ctypes call and the C
-    launch code. The device runs behind; it is drained every 50 calls,
-    outside the timed calls."""
+    wrappers at served shapes, and of adaln_modulate's as a control: the
+    Python checks, the ctypes call and the C launch code. The device runs
+    behind; it is drained every 50 calls, outside the timed calls."""
     from smalltts_tpu_torch.ops.kernels import attention as A
     from smalltts_tpu_torch.ops.kernels import dit_block as K
 
@@ -728,8 +833,10 @@ def wrapper_host_ms(torch, dev, calls=1000):
         r(8, 8, 448, 120), r(8, 8, 448, 120)
     m1, m2 = torch.ones((8, 40), dtype=torch.bool, device=dev), torch.ones((8, 448), dtype=torch.bool, device=dev)
     res = {}
+    shift = r(8, 960)
     for name, fn in (("gemm_bias M=320 K=960 N=3840", lambda: K.gemm_bias(a, w, b)),
-                     ("attention dit T=40 + Sc=448", lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate))):
+                     ("attention dit T=40 + Sc=448", lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate)),
+                     ("adaln_modulate M=320", lambda: K.adaln_modulate(a, shift, shift))):
         for _ in range(20):
             fn()
         torch.cuda.synchronize()

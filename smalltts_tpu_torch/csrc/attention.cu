@@ -45,6 +45,8 @@
 
 #include <algorithm>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int BQ = 16;   // query rows per block
@@ -222,9 +224,6 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * DP + ((c ^ (r & 7)) << 3);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool ok) {
   const int bytes = ok ? 16 : 0;  // 0 source bytes: the 16 destination bytes are zero-filled
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem_dst)), "l"(src), "r"(bytes));
@@ -261,14 +260,6 @@ __device__ __forceinline__ void hi_lo(float x0, float x1, uint32_t& hi, uint32_t
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
-  return remote;
-}
 // the float (pair) at `p` in the shared memory of cluster rank `rank`. No
 // memory clobber: the cluster barriers order these loads, and without one a
 // run of them is issued back to back instead of one round trip at a time.
@@ -472,8 +463,9 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
 
   // several splits: each leaves (m, l, O) of its keys in its shared memory;
   // rank r merges rows [r * 64 / nsplit, ...) of every split, in rank order:
-  // M = max m_j, w_j = exp(m_j - M) (0 for a split with no key, m_j = -inf),
-  // O = sum_j (w_j / sum_i w_i l_i) O_j
+  // M = max m_j, w_j = exp(m_j - M), O = sum_j (w_j / sum_i w_i l_i) O_j.
+  // w_j is 0 where m_j = -inf: the slots past nsplit, or a split with no
+  // key tile, which launch_mma never makes (a guard, so no NaN can arise)
   __syncthreads();  // the K/V tiles become the O partials
   float* part = reinterpret_cast<float*>(sm);
 #pragma unroll
@@ -537,34 +529,21 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
   cluster_sync();  // no rank leaves while another reads its shared memory
 }
 
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      v = 132;
-    return v;
-  }();
-  return n;
-}
-
-// splits <= 0: chosen from the shape. The keys are split where the (b, h, q
-// tile) blocks alone cannot fill the SMs (the DiT's 64 pairs at Tq <= 64),
-// up to about two blocks per SM, with no split left without a key tile.
+// The key split is chosen from the shape: the keys are split where the (b,
+// h, q tile) blocks alone cannot fill the SMs (the DiT's 64 pairs at Tq <=
+// 64), up to about two blocks per SM and FMAXSPLIT, with every split given
+// at least one key tile.
 template <int DP>
-int launch_mma(const AttnArgs& a, int D, int splits, cudaStream_t stream) {
+int launch_mma(const AttnArgs& a, int D, cudaStream_t stream) {
   using Lay = MmaLayout<DP>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(attn_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
   if (attr != cudaSuccess) return (int)attr;
   const int nt = (a.S[0] + FBK - 1) / FBK + (a.S[1] + FBK - 1) / FBK;
   const int qt = (a.Tq + FBQ - 1) / FBQ, base = qt * a.H * a.B, sms = sm_count();
-  if (splits > FMAXSPLIT) return (int)cudaErrorInvalidValue;
-  if (splits <= 0) {
-    splits = base >= sms ? 1 : std::max(1, std::min({FMAXSPLIT, nt, (2 * sms + base - 1) / base}));
-    const int per = (nt + splits - 1) / splits;
-    splits = per > 0 ? (nt + per - 1) / per : 1;
-  }
+  int splits = base >= sms ? 1 : std::max(1, std::min({FMAXSPLIT, nt, (2 * sms + base - 1) / base}));
   const int per = std::max(1, (nt + splits - 1) / splits);
+  splits = std::max(1, (nt + per - 1) / per);
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(splits, qt, a.B * a.H);
   cfg.blockDim = dim3(FNT);
@@ -585,8 +564,7 @@ int launch_mma(const AttnArgs& a, int D, int splits, cudaStream_t stream) {
 
 // ptrs: q, k1, v1, m1, k2, v2, m2, gate, out (k2/v2/m2/gate may be null).
 // strides: (b, h, t) for q, k1, v1, k2, v2, gate, out, then the two mask batch
-// strides: 23 values. dims: B, H, Tq, S1, S2, splits (bf16: key splits, 0 =
-// chosen from the shape). dtype 0 = fp32, 1 = bf16.
+// strides: 23 values. dims: B, H, Tq, S1, S2. dtype 0 = fp32, 1 = bf16.
 extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* strides,
                             const int* dims, float scale, void* stream) {
   AttnArgs a;
@@ -616,9 +594,9 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
     case 64: return launch<64>(a, s);
     case 120: return launch<120>(a, s);
     case 128: return launch<128>(a, s);
-    case 1064: return launch_mma<64>(a, D, dims[5], s);
-    case 1120: return launch_mma<128>(a, D, dims[5], s);
-    case 1128: return launch_mma<128>(a, D, dims[5], s);
+    case 1064: return launch_mma<64>(a, D, s);
+    case 1120: return launch_mma<128>(a, D, s);
+    case 1128: return launch_mma<128>(a, D, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

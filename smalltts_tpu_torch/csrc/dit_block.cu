@@ -74,6 +74,8 @@
 #include <mutex>
 #include <tuple>
 
+#include "sm90_common.cuh"
+
 using bf16 = __nv_bfloat16;
 
 namespace {
@@ -204,10 +206,6 @@ struct GemmCfg {
   static_assert(CONSUMERS * ACC * 4 <= BAR, "the split-K partials reuse the stages");
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // wgmma descriptor of a shared-memory tile in the 128-byte swizzle (layout type 1).
 // K-major A: sbo = 1024 (8 rows of 128 bytes), lbo unused. MN-major W: sbo =
 // 1024 (8 k rows), lbo = the distance between 64-column sub-tiles.
@@ -294,19 +292,14 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 // the 4 floats at `p` in the shared memory of cluster rank `rank`. No memory
 // clobber: the cluster barriers order these loads, and without one a run of
 // them is issued back to back instead of one round trip at a time.
 __device__ __forceinline__ float4 ld_cluster4(const float4* p, uint32_t rank) {
-  uint32_t remote;
   float4 v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(remote));
+               : "r"(cluster_addr(p, rank)));
   return v;
 }
 
@@ -607,16 +600,6 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8, BN>, ta, tw, g);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
-}
-
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 132;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      v = 132;
-    return v;
-  }();
-  return n;
 }
 
 // Tile width and K split per product: 128 columns where 64-row x 128-column

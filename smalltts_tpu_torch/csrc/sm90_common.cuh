@@ -1,0 +1,42 @@
+// Device and host helpers shared by the Hopper kernels of attention.cu and
+// dit_block.cu: shared-memory addresses, the thread-block cluster barrier and
+// distributed shared memory addressing, and the card's SM count.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+// the 32-bit shared-memory address of a generic pointer into shared memory
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// every thread of every block of the cluster arrives and waits; the shared
+// memory each wrote before is visible to the others after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of `p`, a location in this block's shared memory, in the
+// shared memory of cluster rank `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+// SMs of the current device (132 on an H100 SXM), read once
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 132;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      v = 132;
+    return v;
+  }();
+  return n;
+}
+
+}  // namespace

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels, their build, launch counts and plain versions.
 
 Each kernel lives in `smalltts_tpu_torch/csrc/<name>.cu` with a plain C
-interface. It is compiled with nvcc for sm_90a at first use (never at import)
+interface; helpers that several sources share are in `csrc/*.cuh`. It is compiled with nvcc for sm_90a at first use (never at import)
 into `ops/kernels/build/`, under a file lock, and loaded with ctypes.
 
 Every wrapper takes its plain PyTorch version only for tensors on the CPU;
@@ -76,8 +76,11 @@ def _nvcc() -> str:
 
 def _build(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(path, "rb") as f:  # the source and every header it may include
+            h.update(f.read())
+    digest = h.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     with open(os.path.join(BUILD_DIR, f"{name}.lock"), "w") as lockf:

@@ -26,7 +26,6 @@ from smalltts_tpu_torch.ops import kernels
 NAME = "attention"
 HEAD_DIMS = (64, 120, 128)
 KEY_TILE = 64  # keys per tile of the bf16 kernel
-MAX_SPLITS = 8  # key splits of one (b, h, q tile): the kernel's cluster size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -54,10 +53,12 @@ def attention_split_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, g
     The keys are cut into tiles of KEY_TILE, the first source's and then the
     second's, and split r takes tiles [r * per, (r + 1) * per) with per =
     ceil(tiles / splits). Each split runs the online softmax over its tiles
-    in order and keeps its own fp32 (m, l, O); a split may hold no tile (m =
-    -inf, l = 0). The splits merge in rank order: M = max_j m_j, w_j =
-    exp(m_j - M) (0 where m_j = -inf), O = sum_j (w_j / sum_i w_i l_i) O_j,
-    then times sigmoid(gate). Output in q's dtype."""
+    in order and keeps its own fp32 (m, l, O). The kernel picks the split
+    count from the shape and gives every split a tile; here any count may be
+    given, so a split may hold none (m = -inf, l = 0). The splits merge in
+    rank order: M = max_j m_j, w_j = exp(m_j - M) (0 where m_j = -inf), O =
+    sum_j (w_j / sum_i w_i l_i) O_j, then times sigmoid(gate). Output in
+    q's dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q.float()
     tiles = [(kk[:, :, j:j + KEY_TILE].float(), vv[:, :, j:j + KEY_TILE].float(), mm[:, j:j + KEY_TILE])
@@ -104,15 +105,13 @@ def fused_attention(
     key_mask2: Optional[torch.Tensor] = None,
     gate: Optional[torch.Tensor] = None,
     out: Optional[torch.Tensor] = None,
-    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Masked attention (B,H,Tq,D) over one or two key sources, optionally
     gated. Tensors may be strided views with a contiguous head dim. `out`, a
     (B,H,Tq,D) view, receives the result; without it the result is a
     (B,H,Tq,D) view of a (B,Tq,H,D) buffer. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise. `splits` (bf16 on the
-    card, tests only) sets the kernel's key split, 1 to MAX_SPLITS; by default
-    the kernel chooses it from the shape."""
+    version; CUDA tensors launch the kernel or raise. In bf16 the kernel
+    chooses its key split from the shape."""
     if kernels.use_plain(q):
         res = attention_plain(q, k, v, key_mask, k2, v2, key_mask2, gate)
         if out is None:
@@ -146,8 +145,6 @@ def fused_attention(
                 raise ValueError("attention: bf16 q/k/v need 16-byte aligned rows (strides of 8)")
         if out.data_ptr() % 4 or any(st % 2 for st in out.stride()[:3]):  # it stores bf16 pairs
             raise ValueError("attention: bf16 out needs 4-byte aligned pairs (even strides)")
-    if splits is not None and not 1 <= splits <= MAX_SPLITS:
-        raise ValueError(f"attention: splits must be 1..{MAX_SPLITS}, got {splits}")
     m1 = key_mask.to(torch.bool).contiguous()
     m2 = key_mask2.to(torch.bool).contiguous() if two else None
     none = [0, 0, 0]
@@ -162,7 +159,7 @@ def fused_attention(
     lib = kernels.load("attention")
     status = lib.st_attention(
         _DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
-        (ctypes.c_int * 6)(B, H, Tq, S1, S2, splits or 0), 1.0 / math.sqrt(D),
+        (ctypes.c_int * 5)(B, H, Tq, S1, S2), 1.0 / math.sqrt(D),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     kernels.check(lib, "attention", status, "attention kernel")
     kernels.count_launch(NAME)

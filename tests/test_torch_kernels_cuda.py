@@ -360,28 +360,32 @@ def test_attention_query_lengths(dev, Tq, two):
     assert rel(got, A.attention_plain(q, k, v, m, **extra)) <= TOL[torch.bfloat16]
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8])
-def test_attention_forced_splits(dev, splits):
-    """The cluster merge against the plain versions, with the split forced:
-    4 key tiles (self 40 | cross 150), the cross source's second tile masked
-    in every row (a split of only -1e9 keys at 4 splits), 8 splits leaving
-    splits with no key at all (m = -inf, l = 0); batch row 1 has keys only in
-    the second source, the last row none (a uniform average). The result
-    goes to a strided (B, T, H*D) view, as the DiT writes it."""
-    B, H, T, S2, D = 4, 8, 40, 150, 120
-    g = gen(dev, 21)
-    q, k, v, gate = (randn((B, H, T, D), g, dev, torch.bfloat16) for _ in range(4))
+@pytest.mark.parametrize("B,Tq,S2,splits", [(8, 16, 60, 2), (8, 40, 150, 4), (8, 16, 150, 4), (8, 40, 448, 4),
+                                            (4, 16, 420, 8), (4, 40, 448, 8)])
+def test_attention_split_merge(dev, B, Tq, S2, splits):
+    """The cluster merge against the plain versions, at shapes where the
+    kernel itself splits the keys: (b, h) x q tiles below the SM count, so
+    `splits` is the split a 132-SM H100 chooses (2, 4 or 8 ranks; 448 cross
+    keys at B 8 give 4 ranks of 2 tiles, the served shape). The cross
+    source's second tile is masked in every row (a split of only -1e9 keys
+    at one tile per rank); batch row 1 has keys only in the second source,
+    the last row none (a uniform average). The result goes to a strided
+    (B, T, H*D) view, as the DiT writes it."""
+    H, D = 8, 120
+    g = gen(dev, 21 + S2)
+    q, k, v, gate = (randn((B, H, Tq, D), g, dev, torch.bfloat16) for _ in range(4))
     k2, v2 = randn((B, H, S2, D), g, dev, torch.bfloat16), randn((B, H, S2, D), g, dev, torch.bfloat16)
-    m1, m2 = key_mask(B, T, g, dev), key_mask(B, S2, g, dev)
+    m1, m2 = key_mask(B, Tq, g, dev), key_mask(B, S2, g, dev)
     m1[1] = False
     m2[1, :9] = True
     m2[:, A.KEY_TILE:2 * A.KEY_TILE] = False
     m2[-1] = False
-    buf = torch.zeros((B, T, H * D), device=dev, dtype=torch.bfloat16)
+    buf = torch.zeros((B, Tq, H * D), device=dev, dtype=torch.bfloat16)
     out = buf.unflatten(-1, (H, D)).transpose(1, 2)
-    A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate, out=out, splits=splits)
+    n0 = kernels.LAUNCHES.get("attention", 0)
+    A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate, out=out)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["attention"] == n0 + 1
     assert bool(torch.isfinite(buf).all())
-    want = A.attention_plain(q, k, v, m1, k2, v2, m2, gate=gate)
-    assert rel(out, want) <= TOL[torch.bfloat16]
+    assert rel(out, A.attention_plain(q, k, v, m1, k2, v2, m2, gate=gate)) <= TOL[torch.bfloat16]
     assert rel(out, A.attention_split_plain(q, k, v, m1, k2, v2, m2, gate=gate, splits=splits)) <= TOL[torch.bfloat16]
