@@ -11,8 +11,10 @@
    the served DiT shapes (T 16 and 40, cross Sc 448) among them; B: the DiT
    block scan's kernels, bf16 and int8-weight, with the four GEMM products
    at M = 320 and M = 128 rows, and the 12-layer scan on bf16 and on int8
-   stream weights; C: the three w8 products. Then the GEMM and attention
-   wrappers' host time per call (median of 1000).
+   stream weights; C: the three w8 products, each shape on the kernel its
+   route names (tensor cores wherever TMA can read the operands), timed on
+   the device clock or the run fails. Then the GEMM and attention wrappers'
+   host time per call (median of 1000).
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
@@ -65,6 +67,7 @@ W8_SRC = "smalltts_tpu_torch/csrc/w8.cu"
 W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmul": "smalltts_tpu/ops/pallas/w8.py:80",
           "w8_matmul_stacked": "smalltts_tpu/ops/pallas/w8.py:117"}
 W8_TOL = 1e-2  # one bf16 rounding (2^-8 of a value) that fp32 sums in another order may flip
+W8_TC, W8_STREAM = "w8_wgmma_kernel", "w8_stream_kernel"  # profiler names: tensor cores; CUDA cores
 GEMMS = ("gemm_bias", "gemm_swiglu", "gemm_residual")
 SCAN_KERNELS = ("adaln_modulate", "qk_norm_rope") + GEMMS
 # profiler names of the GEMM instances: demangled, or mangled (gemm_wgmma_kernel<EPI, W8, BN>)
@@ -435,25 +438,30 @@ def main() -> int:
         wq, sc = W8.quantize_w8(w)
         return wq, sc, w.to(torch.bfloat16)
 
-    def w8_row(label, n, kfn, pfn, lfn, nbytes_, flops_, per):
-        """Check the first launch against plain, then time launches over the n weights."""
+    def w8_row(label, n, kfn, pfn, lfn, nbytes_, flops_, per, earlier_ms=None, kernel=W8_TC):
+        """Check the first launch against plain, then time launches over the n
+        weights: device time of `kernel`, the one this shape's route must
+        launch (a run that launches another finds no match and fails, and so
+        does one the profiler cannot time). `earlier_ms`: the time of the
+        design this one replaced, same card and power limit."""
         over = lambda fn: (lambda: [fn(i) for i in range(n)])  # noqa: E731
         got_k, want_k = kfn(0), pfn(0)
         abs_e, rel_e = err(got_k, want_k)
         check(rel_e <= W8_TOL, f"w8 {label}: rel err {rel_e:.3e}")
-        ms, wall, clock = timed(over(kfn), 5, ("w8_kernel",), per=per)
+        ms, wall, clock = timed(over(kfn), 5, (kernel,), per=per)
+        check(clock == "device", f"w8 {label}: the profiler gave no device time for {kernel}")
         pms = timed(over(pfn), 5, per=per)[0]
         lms = timed(over(lfn), 5, per=per)[0]
         b_ms, b_by = bound(nbytes_, flops_, "bf16")
-        row = dict(shape=label, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=pms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lms)
+        row = dict(shape=label, kernel=kernel, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock,
+                   plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms, earlier_ms=earlier_ms)
         print("  " + json.dumps(row), flush=True)
         return row
 
     def w8_entry(name, rows, head, **extra):
         entries.append(dict(name=name, route="cuda", source=W8_SRC, replaces=W8_TPU[name],
                             **{k: rows[head][k] for k in ("max_abs_err", "ms", "wall_ms", "clock", "plain_ms",
-                                                          "bound_ms", "bound_by", "library_ms")},
+                                                          "bound_ms", "bound_by", "library_ms", "earlier_ms")},
                             shape=rows[head]["shape"], shapes=rows, **extra))
 
     # the main path's shape: the 4 steps' time embeddings x every layer's modulation weights (66 MB int8)
@@ -463,38 +471,46 @@ def main() -> int:
     x4e = x4.expand(Lm, M4, H).contiguous()
     row = w8_row(f"M={M4} K={H} N={6 * H} L={Lm}", 1, lambda i: W8.w8_matmul_all_layers(x4, wq, sc),
                  lambda i: W8.w8_matmul_ref(x4, wq, sc), lambda i: torch.bmm(x4e, wbf, out_dtype=torch.float32),
-                 nbytes(x4, wq, sc) + Lm * M4 * 6 * H * 2, 2.0 * Lm * M4 * H * 6 * H, 1)
+                 nbytes(x4, wq, sc) + Lm * M4 * 6 * H * 2, 2.0 * Lm * M4 * H * 6 * H, 1, earlier_ms=0.0436)
     w8_entry("w8_matmul_all_layers", [row], 0, library_of="torch.bmm, bf16 weights, fp32 result",
              on_main_path=True)
     del wq, sc, wbf
 
-    # the JAX package's test shapes, each over enough weights (>= 128 MB of int8) to stream from HBM
+    # the JAX package's test shapes, then a row count just above the 8-row tile and one that is no
+    # multiple of the 64-row tile, each over enough weights (>= 128 MB of int8) to stream from HBM;
+    # last a view that TMA cannot read (N a multiple of 8 only), which the streaming kernel takes
     rows = []
-    for M_, K_, N_ in ((320, 960, 2880), (40, 2400, 960), (8, 960, 5760)):
-        n = -(-128_000_000 // (K_ * N_))
+    for M_, K_, N_, was in ((320, 960, 2880, 0.0907), (40, 2400, 960, 0.0485), (8, 960, 5760, 0.0224),
+                            (16, 960, 5760, None), (200, 960, 2880, None), (5, 96, 136, None)):
+        n = -(-128_000_000 // (K_ * N_)) if N_ % 16 == 0 else 12
         xm = randn((M_, K_))
         wq, sc, wbf = w8_stack(n, K_, N_)
         rows.append(w8_row(f"M={M_} K={K_} N={N_} (over {n} weights)", n,
                            lambda i: W8.w8_matmul(xm, wq[i], sc[i]), lambda i: W8.w8_matmul_ref(xm, wq[i], sc[i]),
                            lambda i: torch.mm(xm, wbf[i], out_dtype=torch.float32),
-                           nbytes(xm, wq[0], sc[0]) + M_ * N_ * 2, 2.0 * M_ * K_ * N_, n))
+                           nbytes(xm, wq[0], sc[0]) + M_ * N_ * 2, 2.0 * M_ * K_ * N_, n, earlier_ms=was,
+                           kernel=W8_TC if N_ % 16 == 0 else W8_STREAM))
         del wq, sc, wbf
     w8_entry("w8_matmul", rows, 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
 
-    # the stacked form: the index is a device int32 that the kernel reads; every layer of a 12-layer stack
-    Ms, Ns = 8, 4 * H
-    xs = randn((Ms, H))
+    # the stacked form: the index is a device int32 that the kernel reads; every layer of a 12-layer
+    # stack, at the few-rows and at a many-rows M
+    Ns = 4 * H
     wq, sc, wbf = w8_stack(Lm, H, Ns)
     idx = [torch.full((1,), i, dtype=torch.int32, device=dev) for i in range(Lm)]
-    for i in (0, 5, 11):
-        e_abs, e_rel = err(W8.w8_matmul_stacked(xs, wq, sc, idx[i]), W8.w8_matmul_ref(xs, wq[i], sc[i]))
-        check(e_rel <= W8_TOL, f"w8_matmul_stacked idx {i}: rel err {e_rel:.3e}")
-        print(f"  w8_matmul_stacked, device index {i}: rel err {e_rel:.3e}")
-    row = w8_row(f"M={Ms} K={H} N={Ns}, index in a device int32, over the {Lm} layers", Lm,
-                 lambda i: W8.w8_matmul_stacked(xs, wq, sc, idx[i]), lambda i: W8.w8_matmul_ref(xs, wq[i], sc[i]),
-                 lambda i: torch.mm(xs, wbf[i], out_dtype=torch.float32),
-                 nbytes(xs, wq[0], sc[0], idx[0]) + Ms * Ns * 2, 2.0 * Ms * H * Ns, Lm)
-    w8_entry("w8_matmul_stacked", [row], 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
+    rows = []
+    for Ms, was in ((8, 0.0226), (320, None)):
+        xs = randn((Ms, H))
+        for i in (0, 5, 11):
+            e_abs, e_rel = err(W8.w8_matmul_stacked(xs, wq, sc, idx[i]), W8.w8_matmul_ref(xs, wq[i], sc[i]))
+            check(e_rel <= W8_TOL, f"w8_matmul_stacked M {Ms} idx {i}: rel err {e_rel:.3e}")
+            print(f"  w8_matmul_stacked M={Ms}, device index {i}: rel err {e_rel:.3e}")
+        rows.append(w8_row(f"M={Ms} K={H} N={Ns}, index in a device int32, over the {Lm} layers", Lm,
+                           lambda i: W8.w8_matmul_stacked(xs, wq, sc, idx[i]),
+                           lambda i: W8.w8_matmul_ref(xs, wq[i], sc[i]),
+                           lambda i: torch.mm(xs, wbf[i], out_dtype=torch.float32),
+                           nbytes(xs, wq[0], sc[0], idx[0]) + Ms * Ns * 2, 2.0 * Ms * H * Ns, Lm, earlier_ms=was))
+    w8_entry("w8_matmul_stacked", rows, 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
     del wq, sc, wbf
     torch.cuda.empty_cache()
 
@@ -625,7 +641,7 @@ def main() -> int:
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in kern)
         ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
-                                                                              "gemm_wgmma_kernel", "w8_kernel")))
+                                                                              "gemm_wgmma_kernel", W8_TC, W8_STREAM)))
 
         def seen(match):  # launches the profiler saw of kernels whose names hold one of `match`
             return sum(c for k, _, c in kern if any(m in k for m in match))
@@ -634,7 +650,7 @@ def main() -> int:
         check(not lib_att, f"library attention kernels ran in the served batch: {lib_att}")
         check(seen(ATTN_KERNELS[1:]) == counted.get("attention", 0) > 0,
               f"bf16 attention kernels seen {seen(ATTN_KERNELS[1:])}, counted {counted.get('attention', 0)}")
-        for n, match in GEMM_NAMES.items():
+        for n, match in {**GEMM_NAMES, "w8_matmul_all_layers": (W8_TC,)}.items():
             check(seen(match) == counted.get(n, 0), f"{n}: the profiler saw {seen(match)}, the counter {counted.get(n, 0)}")
         print(f"  profiled batch: every counted launch seen on the port's kernels ({json.dumps(counted)}), "
               "no library attention kernel", flush=True)

@@ -63,18 +63,12 @@
 // in PERF.md section 6. The LayerNorm and RMSNorm passes are bound by bytes (a
 // few hundred KB each).
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <tuple>
 
-#include "sm90_common.cuh"
+#include "sm90_wgmma.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -206,56 +200,6 @@ struct GemmCfg {
   static_assert(CONSUMERS * ACC * 4 <= BAR, "the split-K partials reuse the stages");
 };
 
-// wgmma descriptor of a shared-memory tile in the 128-byte swizzle (layout type 1).
-// K-major A: sbo = 1024 (8 rows of 128 bytes), lbo unused. MN-major W: sbo =
-// 1024 (8 k rows), lbo = the distance between 64-column sub-tiles.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving the accumulators across an asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 // d (64 x 64, fp32) += A (64 x 16, K-major) * B (16 x 64, MN-major), both from shared memory
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
   asm volatile(
@@ -290,17 +234,6 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-// the 4 floats at `p` in the shared memory of cluster rank `rank`. No memory
-// clobber: the cluster barriers order these loads, and without one a run of
-// them is issued back to back instead of one round trip at a time.
-__device__ __forceinline__ float4 ld_cluster4(const float4* p, uint32_t rank) {
-  float4 v;
-  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-               : "r"(cluster_addr(p, rank)));
-  return v;
 }
 
 // JAX's silu(a) * b on the rounded [w1|w3] linear: a * (1 / (1 + exp(-a))),
@@ -527,59 +460,6 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
 
 // ------------------------------------------------------------- gemm, host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver entry point, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// tensor map of a row-major (rows, cols) matrix at row stride ld elements, in
-// 64 x 64 boxes: bf16 in the 128-byte swizzle wgmma reads, int8 unswizzled
-// (the consumer warpgroup swizzles it as it dequantizes)
-bool encode_map(CUtensorMap* map, const void* base, bool int8, long long rows, long long cols, long long ld) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld * (int8 ? 1 : 2))};
-  const cuuint32_t box[2] = {GSUB, GBK}, estr[2] = {1, 1};
-  return enc(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// a weight's map, encoded once: the key is everything the map holds, so a
-// reused address with the same shape finds the same map
-bool weight_map(CUtensorMap* map, const void* base, bool int8, long long rows, long long cols, long long ld) {
-  using Key = std::tuple<const void*, bool, long long, long long, long long>;
-  static std::mutex mu;
-  static std::map<Key, CUtensorMap> cache;
-  const Key key{base, int8, rows, cols, ld};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return true;
-  }
-  if (!encode_map(map, base, int8, rows, cols, ld)) return false;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return true;
-}
-
 template <int EPI, bool W8, int BN>
 int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int split, cudaStream_t s) {
   using C = GemmCfg<EPI, W8, BN>;
@@ -668,8 +548,11 @@ extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, lon
     return (int)cudaErrorMisalignedAddress;
   const int wcols = epi == EPI_SWIGLU ? half + N : N;
   if (M <= 0 || N <= 0 || K <= 0 || wcols > ldw) return (int)cudaErrorInvalidValue;
+  // 64 x 64 boxes: bf16 in the 128-byte swizzle wgmma reads, int8 unswizzled
+  // (the consumer warpgroup swizzles it as it dequantizes)
   CUtensorMap ta, tw;
-  if (!encode_map(&ta, A, false, M, K, lda) || !weight_map(&tw, W, wscale != nullptr, K, wcols, ldw))
+  if (!encode_map(&ta, MapSpec{A, false, M, K, lda, GBK, GBM, true}) ||
+      !weight_map(&tw, MapSpec{W, wscale != nullptr, K, wcols, ldw, GSUB, GBK, wscale == nullptr}))
     return (int)cudaErrorInvalidValue;
   GemmArgs g{};
   g.wscale = wscale;

@@ -6,8 +6,9 @@ Weights are stored int8 with a symmetric per-output-channel fp32 scale
 times the scale, rounded once to x's dtype. int8 values convert to bf16
 exactly, so the only error against the float product is the weight rounding.
 
-Three entry points, one kernel (csrc/w8.cu has the source note: what bounds
-it, and what the design does about that):
+Three entry points, one C entry (csrc/w8.cu has the source note: what bounds
+the product on the card, and what the two kernels behind the entry do about
+that; the kernel is chosen there, from the shape and the alignment alone):
 
 - `w8_matmul(x, w_q, scale)`: (M, K) x (K, N) -> (M, N);
 - `w8_matmul_stacked(x, w_q, scale, idx)`: layer `idx` of (L, K, N), the
@@ -44,6 +45,24 @@ def w8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> to
     """The plain version: x (M, K) x w_q (..., K, N) -> (..., M, N), fp32 sum
     of x times the int8 values, times scale (..., N) in fp32, one rounding."""
     acc = torch.matmul(x.float(), w_q.float())
+    return (acc * scale.float().unsqueeze(-2)).to(x.dtype)
+
+
+W8_K_TILE = 64  # k per stage of the tensor-core kernel: the unit K is split in
+
+
+def w8_split_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, splits: int) -> torch.Tensor:
+    """The plain version of the tensor-core kernel's K split and merge: the
+    K tiles of 64 are shared out over `splits` ranks, rank r taking tiles
+    [r * tiles // splits, (r + 1) * tiles // splits) (none where tiles are
+    fewer than ranks); each rank sums its part in fp32, and the partial sums
+    are added in rank order before the scale and the one rounding."""
+    K = x.shape[-1]
+    tiles = -(-K // W8_K_TILE)
+    acc = torch.zeros((*w_q.shape[:-2], x.shape[0], w_q.shape[-1]), dtype=torch.float32, device=x.device)
+    for r in range(splits):
+        k0, k1 = r * tiles // splits * W8_K_TILE, min((r + 1) * tiles // splits * W8_K_TILE, K)
+        acc = acc + torch.matmul(x[:, k0:k1].float(), w_q[..., k0:k1, :].float())
     return (acc * scale.float().unsqueeze(-2)).to(x.dtype)
 
 

@@ -125,41 +125,86 @@ def test_gemm_ragged_rows(dev):
     assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
 
 
-@pytest.mark.parametrize("M,K_,N,L", [(4, 960, 5760, 12), (320, 960, 2880, 1), (40, 2400, 960, 1),
-                                     (8, 960, 5760, 1), (5, 96, 136, 2)])
+W8_ROWS = (1, 8, 9, 16, 40, 64, 65, 200, 320)  # around the 8-, 32- and 64-row tiles of the tensor-core kernel
+W8_KN = ((960, 2880), (2400, 960), (960, 5760), (96, 136), (200, 144))  # N = 136: no TMA, the streaming kernel
+
+
+@pytest.mark.parametrize("M,K_,N,L", [(4, 960, 5760, 12), (5, 96, 136, 2), (5, 96, 144, 3)]
+                         + [(M, K_, N, 1) for K_, N in W8_KN for M in W8_ROWS])
 def test_w8_kernels(dev, M, K_, N, L):
-    """All layers (L > 1) or one (K, N) weight; (5, 96, 136): rows past the
-    8-row block and a ragged 128-column tile."""
+    """All layers (L > 1) or one (K, N) weight, every int8 value in it: rows
+    past a row tile, K past a 64-k tile, ragged 128-column tiles, K split over
+    a cluster where the tiles are few. The call launches its kernel, and two
+    calls give the same bits (the K ranks are merged in rank order)."""
     g = gen(dev, M + N)
     x = randn((M, K_), g, dev, torch.bfloat16)
-    w_q, scale = W.quantize_w8(randn((L, K_, N), g, dev, torch.float32, 0.02))
-    if L == 1:
-        got, want = W.w8_matmul(x, w_q[0], scale[0]), W.w8_matmul_ref(x, w_q[0], scale[0])
-    else:
-        n0 = kernels.LAUNCHES.get("w8_matmul_all_layers", 0)
-        got, want = W.w8_matmul_all_layers(x, w_q, scale), W.w8_matmul_ref(x, w_q, scale)
-        assert kernels.LAUNCHES["w8_matmul_all_layers"] == n0 + 1
+    w_q = torch.randint(-128, 128, (L, K_, N), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+    scale = 0.001 + 0.01 * torch.rand((L, N), generator=g, device=dev)
+    name = "w8_matmul" if L == 1 else "w8_matmul_all_layers"
+    run = (lambda: W.w8_matmul(x, w_q[0], scale[0])) if L == 1 else (lambda: W.w8_matmul_all_layers(x, w_q, scale))
+    want = W.w8_matmul_ref(x, w_q[0], scale[0]) if L == 1 else W.w8_matmul_ref(x, w_q, scale)
+    n0 = kernels.LAUNCHES.get(name, 0)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == n0 + 2
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert rel(got, want) <= W8_TOL
+    assert torch.equal(got, again)
 
 
-def test_w8_stacked_reads_a_device_index_without_a_sync(dev):
+def test_w8_quantized_weights(dev):
+    """On weights as `quantize_w8` makes them, at the JAX package's shapes."""
+    g = gen(dev, 17)
+    for M, K_, N in ((320, 960, 2880), (40, 2400, 960), (8, 960, 5760)):
+        x = randn((M, K_), g, dev, torch.bfloat16)
+        w_q, scale = W.quantize_w8(randn((K_, N), g, dev, torch.float32, 0.02))
+        assert rel(W.w8_matmul(x, w_q, scale), W.w8_matmul_ref(x, w_q, scale)) <= W8_TOL
+
+
+@pytest.mark.parametrize("N", [136, 144])
+def test_w8_view_that_tma_cannot_read(dev, N):
+    """A weight view 8 but not 16 bytes into its buffer runs on the streaming
+    kernel: it neither raises nor goes to the plain version."""
+    g = gen(dev, N)
+    M, K_ = 9, 200
+    x = randn((M, K_), g, dev, torch.bfloat16)
+    buf = torch.randint(-128, 128, (K_ * N + 8,), generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+    w_q = buf[8:].view(K_, N)
+    assert w_q.data_ptr() % 16 == 8 and w_q.is_contiguous()
+    scale = 0.001 + 0.01 * torch.rand((N,), generator=g, device=dev)
+    n0 = kernels.LAUNCHES.get("w8_matmul", 0)
+    got = W.w8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["w8_matmul"] == n0 + 1
+    assert rel(got, W.w8_matmul_ref(x, w_q, scale)) <= W8_TOL
+    assert torch.equal(got, W.w8_matmul(x, w_q, scale))
+
+
+@pytest.mark.parametrize("M", [8, 320])
+def test_w8_stacked_reads_a_device_index_without_a_sync(dev, M):
     """The layer index stays on the card: PyTorch raises on any
-    synchronizing call in "error" sync-debug mode."""
+    synchronizing call in "error" sync-debug mode. An index outside the
+    stack is clamped."""
     g = gen(dev, 13)
-    x = randn((8, 960), g, dev, torch.bfloat16)
+    x = randn((M, 960), g, dev, torch.bfloat16)
     w_q, scale = W.quantize_w8(randn((12, 960, 3840), g, dev, torch.float32, 0.02))
-    idxs = [torch.tensor([i], dtype=torch.int32, device=dev) for i in (0, 5, 11)]
+    layers = (0, 5, 11, 40, -2)
+    idxs = [torch.tensor([i], dtype=torch.int32, device=dev) for i in layers]
     W.w8_matmul_stacked(x, w_q, scale, idxs[0])  # builds the kernel
     torch.cuda.synchronize()
+    n0 = kernels.LAUNCHES["w8_matmul_stacked"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = [W.w8_matmul_stacked(x, w_q, scale, i) for i in idxs]
         got.append(W.w8_matmul_stacked(x, w_q, scale, 7))  # a Python int becomes a fill on the card
+        again = W.w8_matmul_stacked(x, w_q, scale, idxs[1])
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    for out, i in zip(got, (0, 5, 11, 7)):
+    assert kernels.LAUNCHES["w8_matmul_stacked"] == n0 + len(layers) + 2
+    for out, i in zip(got, layers + (7,)):
+        i = min(max(i, 0), 11)
         assert rel(out, W.w8_matmul_ref(x, w_q[i], scale[i])) <= W8_TOL
+    assert torch.equal(again, got[1])
 
 
 @pytest.mark.parametrize("K_,N", [(960, 3840), (960, 4800), (960, 960), (2400, 960)])

@@ -91,7 +91,13 @@ def _operands(rs, m, k, n, lead=()):
     return x, np.asarray(w_q), np.asarray(scale)
 
 
-@pytest.mark.parametrize("m,k,n", [(40, 96, 80), (8, 64, 48), (3, 32, 16)])
+# the shapes on which the card's routes branch: rows around the 8-, 32- and
+# 64-row tiles, K that is no multiple of the 64-k tile, N a multiple of 8 only
+# (136: no TMA) and of 16 (144)
+ROUTE_SHAPES = [(m, k, n) for m in (1, 8, 9, 16, 65) for k in (96, 200) for n in (136, 144)]
+
+
+@pytest.mark.parametrize("m,k,n", [(40, 96, 80), (8, 64, 48), (3, 32, 16)] + ROUTE_SHAPES)
 def test_w8_matmul_matches_pallas(m, k, n):
     x, w_q, scale = _operands(np.random.RandomState(m), m, k, n)
     want = np.asarray(JW.w8_matmul(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale), interpret=True))
@@ -100,10 +106,11 @@ def test_w8_matmul_matches_pallas(m, k, n):
     assert rel_err(got.numpy(), want) < RTOL
 
 
-def test_w8_matmul_stacked_matches_pallas():
+@pytest.mark.parametrize("m,k,n", [(16, 64, 48)] + [s for s in ROUTE_SHAPES if (s[1], s[2]) in ((96, 136), (200, 144))])
+def test_w8_matmul_stacked_matches_pallas(m, k, n):
     L = 5
-    x, w_q, scale = _operands(np.random.RandomState(4), 16, 64, 48, lead=(L,))
-    for idx in (0, 2, 4):
+    x, w_q, scale = _operands(np.random.RandomState(4), m, k, n, lead=(L,))
+    for idx in (0, 2, L - 1):  # the first and the last layer of the stack among them
         want = np.asarray(JW.w8_matmul_stacked(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale),
                                                jnp.int32(idx), interpret=True))
         for i in (idx, torch.tensor(idx, dtype=torch.int32), torch.tensor([idx])):
@@ -122,10 +129,11 @@ def test_w8_matmul_all_layers_matches_pallas():
     assert rel_err(got.numpy(), want) < RTOL
 
 
-def test_w8_products_bf16_match_ref():
+@pytest.mark.parametrize("m,k,n", [(8, 96, 80), (1, 200, 144), (9, 200, 136), (16, 96, 136), (65, 96, 144)])
+def test_w8_products_bf16_match_ref(m, k, n):
     """bf16 x: the fp32 sum of x times the int8 values, times the scale, one
     rounding to bf16, as w8_matmul_ref computes it in bf16."""
-    x, w_q, scale = _operands(np.random.RandomState(6), 8, 96, 80, lead=(3,))
+    x, w_q, scale = _operands(np.random.RandomState(6), m, k, n, lead=(3,))
     xj = jnp.asarray(x).astype(jnp.bfloat16)
     xt = t_of(x, torch.bfloat16)
     for l in range(3):
@@ -134,6 +142,27 @@ def test_w8_products_bf16_match_ref():
         assert got.dtype == torch.bfloat16 and within_one_bf16_ulp(got.float().numpy(), want)
         assert within_one_bf16_ulp(W.w8_matmul_stacked(xt, t_of(w_q), t_of(scale), l).float().numpy(), want)
         assert within_one_bf16_ulp(W.w8_matmul_all_layers(xt, t_of(w_q), t_of(scale))[l].float().numpy(), want)
+
+
+@pytest.mark.parametrize("k", [96, 200])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_w8_split_plain_matches_ref(splits, k):
+    """The K split and merge of the tensor-core kernel, in plain PyTorch:
+    the 64-k tiles shared out over 1-4 ranks (K = 96 has 2 tiles, so ranks
+    stay empty), partial sums added in rank order. fp32 to RTOL of the
+    unsplit product and of the Pallas kernel; bf16 within one ulp."""
+    x, w_q, scale = _operands(np.random.RandomState(12 + splits), 9, k, 144, lead=(2,))
+    got = W.w8_split_plain(t_of(x), t_of(w_q), t_of(scale), splits)
+    assert got.shape == (2, 9, 144)
+    assert rel_err(got.numpy(), W.w8_matmul_ref(t_of(x), t_of(w_q), t_of(scale)).numpy()) < RTOL
+    want = np.asarray(JW.w8_matmul_all_layers(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale), interpret=True))
+    assert rel_err(got.numpy(), want) < RTOL
+    if splits == 1:
+        assert torch.equal(got, W.w8_matmul_ref(t_of(x), t_of(w_q), t_of(scale)))
+    xb = t_of(x, torch.bfloat16)
+    got16 = W.w8_split_plain(xb, t_of(w_q[0]), t_of(scale[0]), splits)
+    assert got16.dtype == torch.bfloat16
+    assert within_one_bf16_ulp(got16.float().numpy(), W.w8_matmul_ref(xb, t_of(w_q[0]), t_of(scale[0])).float().numpy())
 
 
 # ------------------------------------------------- (c) quantize_stream_weights
