@@ -438,13 +438,11 @@ def main() -> int:
         wq, sc = W8.quantize_w8(w)
         return wq, sc, w.to(torch.bfloat16)
 
-    def w8_row(label, n, kfn, pfn, lfn, nbytes_, flops_, per, earlier_ms=None, kernel=W8_TC):
+    def w8_row(label, n, kfn, pfn, lfn, nbytes_, flops_, per, kernel=W8_TC):
         """Check the first launch against plain, then time launches over the n
         weights: device time of `kernel`, the one this shape's route must
         launch (a run that launches another finds no match and fails, and so
-        does one the profiler cannot time). `earlier_ms`: the time of the
-        design this one replaced (the CUDA-core streaming kernel alone), as
-        measured on an NVIDIA H100 80GB HBM3 at its 700 W power limit."""
+        does one the profiler cannot time)."""
         over = lambda fn: (lambda: [fn(i) for i in range(n)])  # noqa: E731
         got_k, want_k = kfn(0), pfn(0)
         abs_e, rel_e = err(got_k, want_k)
@@ -455,14 +453,14 @@ def main() -> int:
         lms = timed(over(lfn), 5, per=per)[0]
         b_ms, b_by = bound(nbytes_, flops_, "bf16")
         row = dict(shape=label, kernel=kernel, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock,
-                   plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms, earlier_ms=earlier_ms)
+                   plain_ms=pms, bound_ms=b_ms, bound_by=b_by, library_ms=lms)
         print("  " + json.dumps(row), flush=True)
         return row
 
     def w8_entry(name, rows, head, **extra):
         entries.append(dict(name=name, route="cuda", source=W8_SRC, replaces=W8_TPU[name],
                             **{k: rows[head][k] for k in ("max_abs_err", "ms", "wall_ms", "clock", "plain_ms",
-                                                          "bound_ms", "bound_by", "library_ms", "earlier_ms")},
+                                                          "bound_ms", "bound_by", "library_ms")},
                             shape=rows[head]["shape"], shapes=rows, **extra))
 
     # the main path's shape: the 4 steps' time embeddings x every layer's modulation weights (66 MB int8)
@@ -472,7 +470,7 @@ def main() -> int:
     x4e = x4.expand(Lm, M4, H).contiguous()
     row = w8_row(f"M={M4} K={H} N={6 * H} L={Lm}", 1, lambda i: W8.w8_matmul_all_layers(x4, wq, sc),
                  lambda i: W8.w8_matmul_ref(x4, wq, sc), lambda i: torch.bmm(x4e, wbf, out_dtype=torch.float32),
-                 nbytes(x4, wq, sc) + Lm * M4 * 6 * H * 2, 2.0 * Lm * M4 * H * 6 * H, 1, earlier_ms=0.0436)
+                 nbytes(x4, wq, sc) + Lm * M4 * 6 * H * 2, 2.0 * Lm * M4 * H * 6 * H, 1)
     w8_entry("w8_matmul_all_layers", [row], 0, library_of="torch.bmm, bf16 weights, fp32 result",
              on_main_path=True)
     del wq, sc, wbf
@@ -481,15 +479,15 @@ def main() -> int:
     # multiple of the 64-row tile, each over enough weights (>= 128 MB of int8) to stream from HBM;
     # last a view that TMA cannot read (N a multiple of 8 only), which the streaming kernel takes
     rows = []
-    for M_, K_, N_, was in ((320, 960, 2880, 0.0907), (40, 2400, 960, 0.0485), (8, 960, 5760, 0.0224),
-                            (16, 960, 5760, None), (200, 960, 2880, None), (5, 96, 136, None)):
+    for M_, K_, N_ in ((320, 960, 2880), (40, 2400, 960), (8, 960, 5760),
+                       (16, 960, 5760), (200, 960, 2880), (5, 96, 136)):
         n = -(-128_000_000 // (K_ * N_)) if N_ % 16 == 0 else 12
         xm = randn((M_, K_))
         wq, sc, wbf = w8_stack(n, K_, N_)
         rows.append(w8_row(f"M={M_} K={K_} N={N_} (over {n} weights)", n,
                            lambda i: W8.w8_matmul(xm, wq[i], sc[i]), lambda i: W8.w8_matmul_ref(xm, wq[i], sc[i]),
                            lambda i: torch.mm(xm, wbf[i], out_dtype=torch.float32),
-                           nbytes(xm, wq[0], sc[0]) + M_ * N_ * 2, 2.0 * M_ * K_ * N_, n, earlier_ms=was,
+                           nbytes(xm, wq[0], sc[0]) + M_ * N_ * 2, 2.0 * M_ * K_ * N_, n,
                            kernel=W8_TC if N_ % 16 == 0 else W8_STREAM))
         del wq, sc, wbf
     w8_entry("w8_matmul", rows, 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
@@ -500,7 +498,7 @@ def main() -> int:
     wq, sc, wbf = w8_stack(Lm, H, Ns)
     idx = [torch.full((1,), i, dtype=torch.int32, device=dev) for i in range(Lm)]
     rows = []
-    for Ms, was in ((8, 0.0226), (320, None)):
+    for Ms in (8, 320):
         xs = randn((Ms, H))
         for i in (0, 5, 11):
             e_abs, e_rel = err(W8.w8_matmul_stacked(xs, wq, sc, idx[i]), W8.w8_matmul_ref(xs, wq[i], sc[i]))
@@ -510,7 +508,7 @@ def main() -> int:
                            lambda i: W8.w8_matmul_stacked(xs, wq, sc, idx[i]),
                            lambda i: W8.w8_matmul_ref(xs, wq[i], sc[i]),
                            lambda i: torch.mm(xs, wbf[i], out_dtype=torch.float32),
-                           nbytes(xs, wq[0], sc[0], idx[0]) + Ms * Ns * 2, 2.0 * Ms * H * Ns, Lm, earlier_ms=was))
+                           nbytes(xs, wq[0], sc[0], idx[0]) + Ms * Ns * 2, 2.0 * Ms * H * Ns, Lm))
     w8_entry("w8_matmul_stacked", rows, 0, library_of="torch.mm, bf16 weights, fp32 result", on_main_path=False)
     del wq, sc, wbf
     torch.cuda.empty_cache()

@@ -1,6 +1,7 @@
-// Device and host helpers shared by the Hopper kernels of attention.cu and
-// dit_block.cu: shared-memory addresses, the thread-block cluster barrier and
-// distributed shared memory addressing, and the card's SM count.
+// Device and host helpers shared by the Hopper kernels of attention.cu,
+// dit_block.cu and w8.cu (the last two through sm90_wgmma.cuh):
+// shared-memory addresses, the thread-block cluster barrier and distributed
+// shared memory addressing, and the card's SM count.
 
 #pragma once
 
@@ -18,6 +19,17 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // memory each wrote before is visible to the others after
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the two halves of a cluster barrier that orders no memory: a block that
+// arrives when it starts and waits just before its first access to another
+// block's shared memory knows that every block of the cluster has started,
+// which such an access requires. Every thread executes both.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // the address of `p`, a location in this block's shared memory, in the

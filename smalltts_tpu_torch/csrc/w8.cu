@@ -327,6 +327,9 @@ __global__ void __launch_bounds__(W8Cfg<NM>::THREADS, 2)
     for (int i = 0; i < min(TSTAGES, kt1 - kt0); ++i) load_stage(i);
   }
   __syncthreads();
+  // a rank may store into another's shared memory only once that block has
+  // started: arrive here, wait before the first such store (long passed by then)
+  if (nsplit > 1) cluster_arrive_relaxed();
 
   // the block's part of out^T: weight columns are wgmma's rows. acc[0, NM/2)
   // is the m64 tile of columns 4g and 4g + 1 of each thread's 4, acc[NM/2,
@@ -439,6 +442,7 @@ __global__ void __launch_bounds__(W8Cfg<NM>::THREADS, 2)
   // ring, so a rank may still be reading its stages while others store.
   float4* part = reinterpret_cast<float4*>(sm + C::PART);
   auto slot = [&](int t, int r) { return part + (t * nsplit + r) * (C::SLOT / 16) + tid; };  // t: the owner's t-th unit
+  cluster_wait();  // every rank of the cluster has started (the arrive at the top)
   if (tid < C::CONSUMERS) {
 #pragma unroll
     for (int u = 0; u < C::UNITS; ++u)

@@ -48,24 +48,6 @@ def w8_matmul_ref(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> to
     return (acc * scale.float().unsqueeze(-2)).to(x.dtype)
 
 
-W8_K_TILE = 64  # k per stage of the tensor-core kernel: the unit K is split in
-
-
-def w8_split_plain(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, splits: int) -> torch.Tensor:
-    """The plain version of the tensor-core kernel's K split and merge: the
-    K tiles of 64 are shared out over `splits` ranks, rank r taking tiles
-    [r * tiles // splits, (r + 1) * tiles // splits) (none where tiles are
-    fewer than ranks); each rank sums its part in fp32, and the partial sums
-    are added in rank order before the scale and the one rounding."""
-    K = x.shape[-1]
-    tiles = -(-K // W8_K_TILE)
-    acc = torch.zeros((*w_q.shape[:-2], x.shape[0], w_q.shape[-1]), dtype=torch.float32, device=x.device)
-    for r in range(splits):
-        k0, k1 = r * tiles // splits * W8_K_TILE, min((r + 1) * tiles // splits * W8_K_TILE, K)
-        acc = acc + torch.matmul(x[:, k0:k1].float(), w_q[..., k0:k1, :].float())
-    return (acc * scale.float().unsqueeze(-2)).to(x.dtype)
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

@@ -144,15 +144,35 @@ def test_w8_products_bf16_match_ref(m, k, n):
         assert within_one_bf16_ulp(W.w8_matmul_all_layers(xt, t_of(w_q), t_of(scale))[l].float().numpy(), want)
 
 
-@pytest.mark.parametrize("k", [96, 200])
-@pytest.mark.parametrize("splits", [1, 2, 3, 4])
-def test_w8_split_plain_matches_ref(splits, k):
-    """The K split and merge of the tensor-core kernel, in plain PyTorch:
-    the 64-k tiles shared out over 1-4 ranks (K = 96 has 2 tiles, so ranks
-    stay empty), partial sums added in rank order. fp32 to RTOL of the
-    unsplit product and of the Pallas kernel; bf16 within one ulp."""
+W8_K_TILE = 64  # k per stage of the tensor-core kernel: the unit its K is split in
+
+
+def w8_split_plain(x, w_q, scale, splits):
+    """The tensor-core kernel's K split and merge in plain PyTorch: the K
+    tiles of 64 are shared out over `splits` ranks, rank r taking tiles
+    [r * tiles // splits, (r + 1) * tiles // splits); each rank sums its part
+    in fp32, and the partial sums are added in rank order before the scale
+    and the one rounding."""
+    K = x.shape[-1]
+    tiles = -(-K // W8_K_TILE)
+    acc = torch.zeros((*w_q.shape[:-2], x.shape[0], w_q.shape[-1]), dtype=torch.float32)
+    for r in range(splits):
+        k0, k1 = r * tiles // splits * W8_K_TILE, min((r + 1) * tiles // splits * W8_K_TILE, K)
+        acc = acc + torch.matmul(x[:, k0:k1].float(), w_q[..., k0:k1, :].float())
+    return (acc * scale.float().unsqueeze(-2)).to(x.dtype)
+
+
+@pytest.mark.parametrize("tail", [0, 72])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_w8_split_plain_matches_ref(splits, tail):
+    """The K split and merge of the tensor-core kernel, in plain PyTorch, at
+    the splits the kernel's launcher can choose (a power of two up to 8 with
+    2 k tiles or more a rank), K a multiple of the 64-k tile or with a ragged
+    last tile: partial sums added in rank order. fp32 to RTOL of the unsplit
+    product and of the Pallas kernel; bf16 within one ulp."""
+    k = 2 * W8_K_TILE * splits + tail
     x, w_q, scale = _operands(np.random.RandomState(12 + splits), 9, k, 144, lead=(2,))
-    got = W.w8_split_plain(t_of(x), t_of(w_q), t_of(scale), splits)
+    got = w8_split_plain(t_of(x), t_of(w_q), t_of(scale), splits)
     assert got.shape == (2, 9, 144)
     assert rel_err(got.numpy(), W.w8_matmul_ref(t_of(x), t_of(w_q), t_of(scale)).numpy()) < RTOL
     want = np.asarray(JW.w8_matmul_all_layers(jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale), interpret=True))
@@ -160,7 +180,7 @@ def test_w8_split_plain_matches_ref(splits, k):
     if splits == 1:
         assert torch.equal(got, W.w8_matmul_ref(t_of(x), t_of(w_q), t_of(scale)))
     xb = t_of(x, torch.bfloat16)
-    got16 = W.w8_split_plain(xb, t_of(w_q[0]), t_of(scale[0]), splits)
+    got16 = w8_split_plain(xb, t_of(w_q[0]), t_of(scale[0]), splits)
     assert got16.dtype == torch.bfloat16
     assert within_one_bf16_ulp(got16.float().numpy(), W.w8_matmul_ref(xb, t_of(w_q[0]), t_of(scale[0])).float().numpy())
 
