@@ -4,43 +4,65 @@
 // The TPU kernel keeps the whole (B, T, 960) residual and a 2 MB weight window
 // resident in VMEM across all 12 layers. An SM has 227 KB of shared memory, so
 // here the scan is a host loop over layers (ops/kernels/dit_block.py) and each
-// layer is 8 launches of the kernels in this file plus the attention kernel
-// (attention.cu):
+// layer is 4 launches of the GEMM in this file plus the attention kernel
+// (attention.cu); the scan adds one launch before its first layer:
 //
-//   adaln_modulate  LN(x) (fp32, eps 1e-6) * (1 + scale[b]) + shift[b]
-//   gemm  EPI_BIAS   [q|k|v|gate] = h @ W_qkvg + b
-//   qk_norm_rope     per-head RMSNorm (fp32, eps 1e-6) * scale, then
-//                    interleaved RoPE on lanes [0, rot) in fp32, IN PLACE on
-//                    the q and k columns of the qkvg buffer (the attention
-//                    kernel reads q/k/v/gate from that buffer by strides, so
-//                    no split copy is made)
+//   row_stats   (once a scan) x copied to the scan's working buffer, with
+//               each row's (mean, M2) over every 64-column tile: the
+//               "partials" the next adaLN reads
+//   gemm EPI_QKVG    [q|k|v|gate] = adaLN_msa(x) @ W_qkvg + b, then per-head
+//                    RMSNorm * scale and interleaved RoPE on q and k
 //   attention        self keys + cross [ref|text] keys, one softmax, * sigmoid(gate)
-//   gemm  EPI_RESID  x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask
-//   adaln_modulate
-//   gemm  EPI_SWIGLU ff = silu(h @ W1 + b1) * (h @ W3 + b3)   (W13 = [W1 | W3])
-//   gemm  EPI_RESID  x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked)
+//   gemm EPI_RESID   x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask, + partials
+//   gemm EPI_SWIGLU  ff = silu(h W1 + b1) * (h W3 + b3), h = adaLN_mlp(x)  (W13 = [W1 | W3])
+//   gemm EPI_RESID   x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked), + partials
 //
 // Numerics follow _block_core (smalltts_tpu/models/dit.py:371-382), the JAX
-// default path: each product is ONE fp32 accumulation per output (w2 over
-// K = 2400 too, not the Pallas kernel's 4 row chunks summed in bf16,
-// block.py:418-427), the bias added in fp32, the result rounded to bf16
-// where the JAX path rounds it, and the modulation / gating arithmetic done
-// in fp32 with one rounding. Every kernel here takes bf16 tensors.
+// default path, rounding to bf16 where its bf16 ops round: each product is
+// ONE fp32 accumulation per output (w2 over K = 2400 too, not the Pallas
+// kernel's 4 row chunks summed in bf16, block.py:418-427), the bias added in
+// fp32 and rounded once. The adaLN (nn.layernorm_noaffine, then * (1 + scale)
+// + shift in bf16) rounds at four points: n = bf16((x - mean) * rstd) with
+// mean and var in fp32, s = bf16(1 + scale), p = bf16(n * s), h = bf16(p +
+// shift). The gated residual rounds at four: v = bf16(acc + bias), t =
+// bf16(tanh(gate)), p = bf16(t * v) (0 on a masked row), x' = bf16(x + p).
+// The q/k norm rounds after the RMSNorm and after the fp32 RoPE; SwiGLU after
+// each of silu's four ops. Every kernel here takes bf16 tensors. The plain
+// versions (ops/kernels/dit_block.py) do the same arithmetic.
 //
 // The GEMM (gemm_wgmma_kernel). What bounds it on the H100: the four
 // products of a layer stream 22 MB of bf16 weights (6.6 us at 3.35 TB/s) and
 // do 7.4 GFLOP at M = B*T = 320 rows (7.5 us at 989 TFLOP/s): they sit at the
 // card's ridge, so the design must both read each weight byte from HBM once
-// and keep the tensor cores at their Hopper rate. The design:
+// and keep the tensor cores at their Hopper rate; and the norms between the
+// products, each a few hundred KB, are bound by a launch's fixed cost unless
+// they ride along in a product. The design:
 //  * one consumer warpgroup issues wgmma.mma_async m64nNk16 (bf16 in, fp32
-//    accumulators in registers) on 64-row tiles; A (activations, K-major) and
-//    W in its stored (K, N) row-major layout (MN-major: the transpose-B bit,
-//    no transposed copy) both come from shared memory in the 128-byte swizzle,
-//    with BK = 64 (128 bytes of bf16, the swizzle's width);
+//    accumulators in registers) on 64-row tiles; W in its stored (K, N)
+//    row-major layout (MN-major: the transpose-B bit, no transposed copy)
+//    comes from shared memory in the 128-byte swizzle, with BK = 64 (128
+//    bytes of bf16, the swizzle's width);
 //  * one TMA warp keeps a ring of 3-6 stages (100 KB) full with
 //    cp.async.bulk.tensor.2d, mbarrier completion, zero fill past the edges
 //    (M, N and K tails); the activation's tensor map is encoded per call in
 //    C, each weight's once and cached (its key is everything the map holds);
+//  * the adaLN rides in the A path of the two products that read it (qkvg,
+//    w13): x lands by TMA as it is, each consumer thread reads its wgmma A
+//    fragments with ldmatrix from the swizzled tile, applies the four
+//    rounding points with its rows' mean and rstd and the row's batch's
+//    (1 + scale) and shift, and issues wgmma with A in registers, four k16
+//    register sets in flight (wgmma.wait_group 3), so the next step's A is
+//    made while the previous products run; no normalized tile is written
+//    anywhere. A row's mean and rstd come from the partials the kernel that
+//    last wrote x left behind (row_stats, or the residual epilogue's two
+//    quad reductions of its 64 new values a row), merged in tile order
+//    (Chan et al.), so no pass over x precedes the product;
+//  * qkvg runs one block per head (120 columns, wgmma n = 128 over a W box
+//    that starts at column 120 j; the last 8 columns are discarded): a row's
+//    120 values of a head lie in the 4 threads of a quad, so the q/k RMSNorm
+//    is two shuffles and RoPE's pairs (d, d ^ 1) are the two adjacent columns
+//    one thread holds: the norm and the rotation are done in registers, and
+//    v / gate heads keep the plain bias epilogue (uniform per block);
 //  * the tile width and a split of K are chosen per product on the host;
 //    two blocks fit on an SM. Where the tiles leave most SMs idle and K is
 //    long (w2 at M = 128) K is split: the K ranks of one output tile form a
@@ -48,10 +70,10 @@
 //    distributed shared memory in rank order and rounds once, in one launch,
 //    with no scratch and no atomics (deterministic);
 //  * the epilogues read the accumulator fragments in registers and store
-//    bf16x2: bias; SwiGLU from two accumulator sets (w1's and w3's columns
-//    n0..n0+63 land in the same thread), silu as JAX's op chain
-//    a * (1 / (1 + exp(-a))) rounded to bf16 at each of its four ops; the
-//    gated residual reads x, gate and row_mask and updates x in place.
+//    bf16x2: SwiGLU from two accumulator sets (w1's and w3's columns
+//    n0..n0+63 land in the same thread), silu as JAX's op chain; the gated
+//    residual reads x, gate and row_mask, updates x in place and writes the
+//    row partials of its tile.
 // int8 weights (the w8_stream serving option, smalltts_tpu/models/dit.py::
 // quantize_stream_weights): W is int8 (K, N) with an fp32 per-column scale,
 // half the bytes. The int8 tile lands by TMA; the consumer warpgroup turns
@@ -60,8 +82,7 @@
 // while the previous stage's wgmma runs; no bf16 copy of a weight is
 // written to device memory.
 // Measured times (H100 80GB HBM3, 700 W) and the grids each product gets are
-// in PERF.md section 6. The LayerNorm and RMSNorm passes are bound by bytes (a
-// few hundred KB each).
+// in PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -74,88 +95,111 @@ using bf16 = __nv_bfloat16;
 
 namespace {
 
+constexpr float EPS = 1e-6f;  // the adaLN LayerNorm and the q/k RMSNorm (_block_core)
+constexpr int ST = 64;        // columns a row partial (mean, M2) covers
+
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void st(bf16* p, float v) { *p = __float2bfloat16(v); }
 // the value `v` takes once stored in bf16 (rounding points of the JAX path)
 __device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
+__device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) { return *reinterpret_cast<const __nv_bfloat162*>(&v); }
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) { return __ldg(reinterpret_cast<const unsigned int*>(p)); }
+// 1 / sqrt(v), both correctly rounded: torch.rsqrt's arithmetic, which the plain versions use
+__device__ __forceinline__ float rsqrt_rn(float v) { return __fdiv_rn(1.f, __fsqrt_rn(v)); }
+// the sum over the 4 threads of a quad, in one order
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
-__device__ __forceinline__ float warp_sum(float v) {
+// A row's mean and 1 / sqrt(var + eps) from its (mean, M2) partials over the
+// 64-column tiles of a width-H row, merged in tile order (Chan et al.): with
+// counts n and nb, d = mean_b - mean, mean += d * (nb / (n + nb)), M2 += M2_b
+// + d^2 * (n * nb / (n + nb)). row_moments_plain does these ops in this order.
+__device__ void row_moments(const float2* st, int H, float& mu, float& rstd) {
+  constexpr int BATCH = 16;  // partials loaded together, then merged
+  float n = 0.f, mean = 0.f, m2 = 0.f;
+  for (int t0 = 0; t0 * ST < H; t0 += BATCH) {
+    float2 p[BATCH];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// sum over a block of blockDim.x (a multiple of 32, <= 1024) threads
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  for (int i = 0; i < nw; ++i) s += red[i];
-  return s;
-}
-
-// ------------------------------------------------------------ adaln_modulate
-
-__global__ void adaln_kernel(const bf16* x, bf16* out, const bf16* shift, const bf16* scale,
-                             long long mod_sb, int T_len, int H, float eps) {
-  __shared__ float red[32];
-  const int m = blockIdx.x, b = m / T_len;
-  const bf16* xr = x + (long long)m * H;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) s += ld(xr + i);
-  const float mean = block_sum(s, red) / H;
-  float v = 0.f;
-  for (int i = threadIdx.x; i < H; i += blockDim.x) {
-    const float d = ld(xr + i) - mean;
-    v += d * d;
-  }
-  const float rstd = rsqrtf(block_sum(v, red) / H + eps);
-  const bf16* sh = shift + b * mod_sb;
-  const bf16* sc = scale + b * mod_sb;
-  bf16* o = out + (long long)m * H;
-  for (int i = threadIdx.x; i < H; i += blockDim.x)
-    st(o + i, (ld(xr + i) - mean) * rstd * (1.f + ld(sc + i)) + ld(sh + i));
-}
-
-// -------------------------------------------------------------- qk_norm_rope
-
-constexpr int QK_WARPS = 8;
-constexpr int QK_DMAX = 256;
-
-__global__ void qk_norm_rope_kernel(bf16* qkvg, long long ldq, int T_len, int heads, int D, int rot,
-                                    const bf16* q_scale, const bf16* k_scale, const float* cos_t,
-                                    const float* sin_t, float eps) {
-  __shared__ float buf[QK_WARPS][QK_DMAX];
-  const int m = blockIdx.x, which = blockIdx.y, t = m % T_len;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bf16* row = qkvg + (long long)m * ldq + (long long)which * heads * D;
-  const bf16* scl = which ? k_scale : q_scale;
-  const float* ct = cos_t + (long long)t * rot;
-  const float* stb = sin_t + (long long)t * rot;
-  float* y = buf[warp];
-  for (int h = warp; h < heads; h += QK_WARPS) {
-    bf16* xh = row + h * D;
-    float ss = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float x = ld(xh + d);
-      y[d] = x;
-      ss += x * x;
-    }
-    const float inv = rsqrtf(warp_sum(ss) / D + eps);
-    for (int d = lane; d < D; d += 32) y[d] = rbf(y[d] * inv * ld(scl + h * D + d));
-    __syncwarp();
-    for (int d = lane; d < D; d += 32) {
-      float o = y[d];
-      if (d < rot) {
-        const float p = y[d ^ 1];
-        o = (d & 1) ? o * ct[d] + p * stb[d] : o * ct[d] - p * stb[d];
+    for (int i = 0; i < BATCH; ++i) p[i] = (t0 + i) * ST < H ? st[t0 + i] : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int c0 = (t0 + i) * ST;
+      if (c0 >= H) break;
+      const float nb = static_cast<float>(min(ST, H - c0));
+      if (c0 == 0) {
+        n = nb, mean = p[i].x, m2 = p[i].y;
+        continue;
       }
-      st(xh + d, o);
+      const float nn = __fadd_rn(n, nb), d = __fsub_rn(p[i].x, mean);
+      mean = __fadd_rn(mean, __fmul_rn(d, __fdiv_rn(nb, nn)));
+      m2 = __fadd_rn(__fadd_rn(m2, p[i].y), __fmul_rn(__fmul_rn(d, d), __fdiv_rn(__fmul_rn(n, nb), nn)));
+      n = nn;
     }
-    __syncwarp();
+  }
+  mu = mean;
+  rstd = rsqrt_rn(__fadd_rn(__fdiv_rn(m2, static_cast<float>(H)), EPS));
+}
+
+// the adaLN of two bf16 values of one row (a wgmma A register): n = bf16((x -
+// mu) * rstd), then bf16(bf16(n * bf16(1 + scale)) + shift). The bf16x2 ops
+// round once from the exact result, which equals fp32 arithmetic rounded to
+// bf16 for a sum or a product of two bf16 values (24 >= 2 * 8 + 2 bits); the
+// _rn forms keep the compiler from contracting the product and the sum into
+// one FMA, which would round once where JAX rounds twice.
+__device__ __forceinline__ uint32_t adaln2(uint32_t xv, float mu, float rstd, uint32_t scale, uint32_t shift) {
+  const __nv_bfloat162 nv = __floats2bfloat162_rn(__fmul_rn(__fsub_rn(bf_lo(xv), mu), rstd),
+                                                  __fmul_rn(__fsub_rn(bf_hi(xv), mu), rstd));
+  const __nv_bfloat162 s = __hadd2_rn(__float2bfloat162_rn(1.f), as_bf2(scale));
+  return as_u32(__hadd2_rn(__hmul2_rn(nv, s), as_bf2(shift)));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// ----------------------------------------------------------------- row_stats
+
+// The scan's input copied to its working buffer with the partials of every
+// 64-column tile: one warp a row, 16 bytes (8 columns) a lane, 8 lanes a tile.
+__global__ void row_stats_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, float2* __restrict__ stats,
+                                 int M, int H) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (row >= M) return;  // the whole warp
+  const int nt = (H + ST - 1) / ST;
+  const bf16* xr = x + (long long)row * H;
+  bf16* orow = out + (long long)row * H;
+  for (int t0 = 0; t0 < nt; t0 += 4) {
+    const int t = t0 + (lane >> 3), col = t * ST + 8 * (lane & 7);
+    const bool ok = t < nt && col < H;  // H is a multiple of 8
+    const uint4 v = ok ? *reinterpret_cast<const uint4*>(xr + col) : make_uint4(0u, 0u, 0u, 0u);
+    if (ok) *reinterpret_cast<uint4*>(orow + col) = v;
+    const float f[8] = {bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y),
+                        bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w)};
+    float s = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += f[e];
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = __fdiv_rn(s, static_cast<float>(max(1, min(ST, H - t * ST))));
+    float m2 = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = f[e] - mean;
+      m2 += ok ? d * d : 0.f;
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+    if ((lane & 7) == 0 && t < nt) stats[(long long)row * nt + t] = make_float2(mean, m2);
   }
 }
 
@@ -165,26 +209,37 @@ constexpr int GBM = 64;        // rows per block: the consumer warpgroup's one m
 constexpr int GBK = 64;        // k per stage: 128 bytes of bf16, the width of the 128-byte swizzle
 constexpr int GSUB = 64;       // columns per W sub-tile: one TMA box of 64 k rows x 128 bytes
 constexpr int GMAXSPLIT = 4;   // K ranks per output tile (the cluster's size)
-enum { EPI_BIAS = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
+constexpr int QK_DMAX = 128;   // the widest head one qkvg block holds (wgmma n = 128)
+enum { EPI_QKVG = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
 
 struct GemmArgs {
   const float* wscale;  // int8 W: (wcols,) fp32 per-column scale
   const bf16* bias;     // (wcols,) or null
   bf16* out;            // (M, N), row stride ldo; EPI_RESID: the residual, updated in place
   long long ldo;
+  float2* stats;  // QKVG / SWIGLU: (M, ceil(K/64)) partials of A, read; RESID: (M, ceil(N/64)) written, or null
+  const bf16* shift;  // QKVG / SWIGLU: the adaLN's (B, K) shift and scale rows at stride mod_sb
+  const bf16* scale;
+  long long mod_sb;
   const bf16* gate;  // EPI_RESID: (B, N) rows at stride gate_sb
   long long gate_sb;
   const unsigned char* row_mask;  // EPI_RESID: (M,) or null
+  const bf16* q_scale;            // EPI_QKVG: (heads, D) RMSNorm scales of q and k
+  const bf16* k_scale;
+  const float* cos_t;  // EPI_QKVG: (T, rot) fp32 RoPE tables
+  const float* sin_t;
+  int heads, D, rot;
   int M, N, K, T;
   int half;   // EPI_SWIGLU: column of W where the second (W3) half starts
   int wcols;  // W's width
 };
 
-// BN: W columns a block multiplies per k step (SwiGLU: 64 of w1 and the same 64 of w3)
-template <int EPI, bool W8, int BN>
+template <int EPI, bool W8>
 struct GemmCfg {
+  static constexpr bool AREG = EPI != EPI_RESID;             // the adaLN in the A path, A from registers
+  static constexpr int BN = EPI == EPI_RESID ? 64 : 128;     // W columns a block multiplies per k step
   static constexpr int NSUB = BN / GSUB;                     // W sub-tiles per stage
-  static constexpr int BNO = EPI == EPI_SWIGLU ? GSUB : BN;  // output columns per block
+  static constexpr int BNO = EPI == EPI_RESID || EPI == EPI_SWIGLU ? GSUB : BN;  // output tile (QKVG: a head)
   static constexpr int A_BYTES = GBM * GBK * 2;
   static constexpr int SUB_BYTES = GBK * GSUB * 2;              // one bf16 W sub-tile
   static constexpr int RAW_BYTES = W8 ? NSUB * GBK * GSUB : 0;  // int8 sub-tiles as TMA lands them
@@ -215,27 +270,6 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128, MN-major), both from shared memory
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // JAX's silu(a) * b on the rounded [w1|w3] linear: a * (1 / (1 + exp(-a))),
 // each op rounded to bf16
 __device__ __forceinline__ float swiglu(float a, float b) {
@@ -252,12 +286,12 @@ __device__ __forceinline__ float s8_scaled(uint32_t u, int b, float s, float off
   return fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | b)), s, off);
 }
 
-// two blocks per SM: a 150-block grid is resident in one wave
-template <int EPI, bool W8, int BN>
-__global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
+// two blocks per SM: a 160-block grid is resident in one wave
+template <int EPI, bool W8>
+__global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                       const GemmArgs g) {
-  using C = GemmCfg<EPI, W8, BN>;
+  using C = GemmCfg<EPI, W8>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   auto a_tile = [&](int s) { return sm + s * C::STAGE; };
@@ -271,11 +305,16 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // grid.x is the cluster: the K ranks of one output tile
   const int split = blockIdx.x, nsplit = gridDim.x;
-  const int n0 = blockIdx.y * C::BNO, m0 = blockIdx.z * GBM;
+  // the output columns' start: QKVG a head of D columns, else a tile of BNO
+  const int n0 = blockIdx.y * (EPI == EPI_QKVG ? g.D : C::BNO), m0 = blockIdx.z * GBM;
   const int nk = (g.K + GBK - 1) / GBK;
   const int kt0 = split * nk / nsplit, kt1 = (split + 1) * nk / nsplit;
   // W column of sub-tile j's first column (SwiGLU: w1's, then w3's)
   auto w_col = [&](int j) { return EPI == EPI_SWIGLU ? (j ? g.half : 0) + n0 : n0 + j * GSUB; };
+  // a TMA box starts on a 16-byte boundary: an int8 head tile (column 120 j)
+  // is loaded from the boundary below it, `wshift` (0 or 8) columns early,
+  // and the consumers read it shifted back as they dequantize
+  const int wshift = W8 && EPI == EPI_QKVG ? n0 & 15 : 0;
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -300,44 +339,86 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
         tma_load_2d(a_tile(s), &tmA, kt * GBK, m0, &full[s]);
 #pragma unroll
         for (int j = 0; j < C::NSUB; ++j)
-          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j), kt * GBK, &full[s]);
+          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j) - wshift, kt * GBK, &full[s]);
       }
     }
     __syncwarp();
   } else {
-    // the consumer warpgroup: 4 k16 wgmmas per stage, one group kept in
-    // flight. int8: before it issues, it turns the stage's int8 tile into the
-    // swizzled bf16 tile wgmma reads, each value bf16(q * bf16(scale[col])),
-    // while the previous stage's products run; a thread always handles the
-    // same 8 columns of each sub-tile, so it holds their scales in registers
+    // the consumer warpgroup. int8: before it issues, it turns the stage's
+    // int8 tile into the swizzled bf16 tile wgmma reads, each value bf16(q *
+    // bf16(scale[col])), while the previous stage's products run; a thread
+    // always handles the same 8 columns of each sub-tile, so it holds their
+    // scales in registers
     const int c8 = tid & 7;
     float sc[W8 ? C::NSUB : 1][8], off[W8 ? C::NSUB : 1][8];
+    int raw[W8 ? C::NSUB : 1];  // the int8 bytes of columns 64 j + 8 c8 .. + 7 in the stage's raw tiles, or -1
+#pragma unroll
+    for (int j = 0; j < (W8 ? C::NSUB : 1); ++j) {
+      const int rc = GSUB * j + 8 * c8 + wshift;
+      raw[j] = rc < C::NSUB * GSUB ? (rc / GSUB) * GBK * GSUB + rc % GSUB : -1;
+    }
     if constexpr (W8) {
 #pragma unroll
       for (int j = 0; j < C::NSUB; ++j)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int n = n0 + (EPI == EPI_SWIGLU ? 0 : j * GSUB) + 8 * c8 + e, col = w_col(j) + 8 * c8 + e;
-          sc[j][e] = n < g.N && col < g.wcols ? rbf(g.wscale[col]) : 0.f;
+          const int col = w_col(j) + 8 * c8 + e;
+          sc[j][e] = col < g.wcols ? rbf(g.wscale[col]) : 0.f;
           off[j][e] = -8388736.f * sc[j][e];
         }
     }
+    // the adaLN: this thread's A rows are 16 warp + lane / 4 (+ 8) of the
+    // tile, its k pairs 2c and 2c + 8 of each k16 step
+    const int c = lane & 3;
+    float mu[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
+    const bf16* shp[2] = {g.shift, g.shift};
+    const bf16* scp[2] = {g.scale, g.scale};
+    if constexpr (C::AREG) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int m = m0 + warp * 16 + (lane >> 2) + 8 * hr;
+        if (m < g.M) row_moments(g.stats + (long long)m * ((g.K + ST - 1) / ST), g.K, mu[hr], rstd[hr]);
+        const long long b = min(m, g.M - 1) / g.T;
+        shp[hr] = g.shift + b * g.mod_sb;
+        scp[hr] = g.scale + b * g.mod_sb;
+      }
+    }
+    // ldmatrix: lane l addresses row (l % 8) + 8 ((l / 8) % 2) of the warp's
+    // 16 and 16-byte chunk l / 16 of the k16 step; matrices 0-3 are then the
+    // A registers (row g, k 2c), (g + 8, 2c), (g, 2c + 8), (g + 8, 2c + 8)
+    const int lrow = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = lane >> 4;
+    uint32_t a[GBK / 16][4];  // the A registers of the stage's 4 k16 steps
+
     for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
       const int s = i % C::STAGES, u = i / C::STAGES;
+      // the stage's shift and scale pairs, requested before the wait
+      uint32_t shv[C::AREG ? 2 : 1][GBK / 16][2], scv[C::AREG ? 2 : 1][GBK / 16][2];
+      if constexpr (C::AREG) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+#pragma unroll
+          for (int j = 0; j < GBK / 16; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int col = kt * GBK + 16 * j + 2 * c + 8 * h;
+              const bool ok = col < g.K;  // K is a multiple of 8: both columns or neither
+              shv[hr][j][h] = ok ? ld_u32(shp[hr] + col) : 0u;
+              scv[hr][j][h] = ok ? ld_u32(scp[hr] + col) : 0u;
+            }
+      }
       mbar_wait(&full[s], u & 1);
       if constexpr (W8) {
 #pragma unroll
         for (int it = 0; it < C::NSUB * 4; ++it) {
           const int j = it / 4, r = (tid >> 3) + 16 * (it & 3);
-          const uint2 q = *reinterpret_cast<const uint2*>(raw_tile(s, j) + r * GSUB + 8 * c8);
+          const uint2 q = raw[j] < 0 ? make_uint2(0u, 0u)  // columns past the head: discarded
+                                     : *reinterpret_cast<const uint2*>(raw_tile(s, 0) + raw[j] + r * GSUB);
           const uint32_t qu[2] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u};
           uint32_t pk[4];
 #pragma unroll
-          for (int e = 0; e < 8; e += 2) {
-            const __nv_bfloat162 h = __floats2bfloat162_rn(s8_scaled(qu[e >> 2], e & 3, sc[j][e], off[j][e]),
-                                                           s8_scaled(qu[e >> 2], (e & 3) + 1, sc[j][e + 1], off[j][e + 1]));
-            pk[e >> 1] = *reinterpret_cast<const uint32_t*>(&h);
-          }
+          for (int e = 0; e < 8; e += 2)
+            pk[e >> 1] = pack_bf16x2(s8_scaled(qu[e >> 2], e & 3, sc[j][e], off[j][e]),
+                                     s8_scaled(qu[e >> 2], (e & 3) + 1, sc[j][e + 1], off[j][e + 1]));
           // 16-byte chunk c8 of k row r sits at chunk c8 ^ (r % 8): the 128-byte swizzle TMA would give
           *reinterpret_cast<uint4*>(b_tile(s, j) + r * 128 + ((c8 ^ (r & 7)) << 4)) =
               make_uint4(pk[0], pk[1], pk[2], pk[3]);
@@ -345,25 +426,43 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
         asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");  // the whole tile is written
       }
-      fence_regs<C::ACC>(acc);
-      wgmma_fence();
+      if constexpr (C::AREG) {
 #pragma unroll
-      for (int k = 0; k < GBK / 16; ++k) {
-        const uint64_t da = sw128_desc(a_tile(s) + 32 * k, 16, 1024);  // 16 k = 32 bytes along the row
-        const uint64_t db = sw128_desc(b_tile(s, 0) + 2048 * k, C::SUB_BYTES, 1024);  // 16 k rows
-        if constexpr (EPI == EPI_SWIGLU) {
-          wgmma_n64(acc, da, db);
-          wgmma_n64(acc + 32, da, sw128_desc(b_tile(s, 1) + 2048 * k, C::SUB_BYTES, 1024));
-        } else if constexpr (BN == 128) {
-          wgmma_n128(acc, da, db);
-        } else {
-          wgmma_n64(acc, da, db);
+        for (int j = 0; j < GBK / 16; ++j) {
+          // 4 groups stay in flight; the one that read a[j] a stage ago is done
+          wgmma_wait<GBK / 16 - 1>();
+          if (j == GBK / 16 - 1 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);  // and so is that stage
+          uint32_t xv[4];
+          const int ch = 2 * j + lchunk;  // 16-byte chunk ch of row r sits at chunk ch ^ (r % 8)
+          ldsm_x4(xv, a_tile(s) + lrow * 128 + ((ch ^ (lrow & 7)) << 4));
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            a[j][q] = adaln2(xv[q], mu[q & 1], rstd[q & 1], scv[q & 1][j][q >> 1], shv[q & 1][j][q >> 1]);
+          fence_regs<C::ACC>(acc);
+          wgmma_fence();
+          const uint64_t db = sw128_desc(b_tile(s, 0) + 2048 * j, C::SUB_BYTES, 1024);  // 16 k rows
+          if constexpr (EPI == EPI_SWIGLU) {
+            wgmma_rs_n64<1>(acc, a[j], db);
+            wgmma_rs_n64<1>(acc + 32, a[j], sw128_desc(b_tile(s, 1) + 2048 * j, C::SUB_BYTES, 1024));
+          } else {
+            wgmma_rs_n128<1>(acc, a[j], db);
+          }
+          wgmma_commit();
         }
+      } else {
+        // A from shared memory: 4 k16 wgmmas per stage, one group kept in flight
+        fence_regs<C::ACC>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < GBK / 16; ++k) {
+          const uint64_t da = sw128_desc(a_tile(s) + 32 * k, 16, 1024);  // 16 k = 32 bytes along the row
+          wgmma_n64(acc, da, sw128_desc(b_tile(s, 0) + 2048 * k, C::SUB_BYTES, 1024));
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: release it
+        fence_regs<C::ACC>(acc);
+        if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
       }
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous stage's products are done: release it
-      fence_regs<C::ACC>(acc);
-      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
     }
     wgmma_wait<0>();
     fence_regs<C::ACC>(acc);
@@ -409,65 +508,162 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
   // store would wait for it, and the loads would run one round trip at a time.
   constexpr int NJ = C::BNO / 8;
   const int wr = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
-  float2 b1[NJ], b3[NJ];  // the bias at each column pair (SwiGLU: w1's, and w3's in b3)
+  auto acc_at = [&](int j, int hr) { return make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]); };
+  auto bias_at = [&](int col) {  // N is a multiple of 8, so col < N means col + 1 < N as well
+    return col < g.wcols && g.bias ? make_float2(ld(g.bias + col), ld(g.bias + col + 1)) : make_float2(0.f, 0.f);
+  };
+
+  if constexpr (EPI == EPI_QKVG) {
+    // a head of D columns: v = bf16(acc + b); q and k heads then
+    // bf16(v * rsqrt(mean(v^2) + eps) * scale[d]) and, on d < rot, the fp32
+    // rotation of the pair (d, d + 1), rounded again
+    const int head = blockIdx.y;
+    const bool qk = head < 2 * g.heads;  // uniform per block
+    const bf16* nscale = !qk ? g.q_scale : head < g.heads ? g.q_scale + head * g.D : g.k_scale + (head - g.heads) * g.D;
+    float2 v[2][NJ];
+    float ss[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = n0 + 8 * j + cq;  // N is a multiple of 8, so n < N means n + 1 < N as well
-    const bool ok = n < g.N && g.bias;
-    b1[j] = ok ? make_float2(ld(g.bias + n), ld(g.bias + n + 1)) : make_float2(0.f, 0.f);
-    b3[j] = ok && EPI == EPI_SWIGLU ? make_float2(ld(g.bias + g.half + n), ld(g.bias + g.half + n + 1))
-                                    : make_float2(0.f, 0.f);
-  }
-  float2 gt[EPI == EPI_RESID ? 2 : 1][NJ], xin[EPI == EPI_RESID ? 2 : 1][NJ];  // tanh(gate), x
-  bool keep[2];
-  if constexpr (EPI == EPI_RESID) {
+    for (int j = 0; j < NJ; ++j) {
+      const int d = 8 * j + cq;
+      const float2 b = d < g.D ? bias_at(n0 + d) : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float2 t = acc_at(j, hr);
+        v[hr][j] = d < g.D ? make_float2(rbf(t.x + b.x), rbf(t.y + b.y)) : make_float2(0.f, 0.f);
+        ss[hr] += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
+      }
+    }
+    if (qk) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(quad_sum(ss[hr]), static_cast<float>(g.D)), EPS));
+        const int t = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
+        const float* ct = g.cos_t + (long long)t * g.rot;
+        const float* stb = g.sin_t + (long long)t * g.rot;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int d = 8 * j + cq;
+          if (d >= g.D) continue;
+          const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, inv), ld(nscale + d)));
+          const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, inv), ld(nscale + d + 1)));
+          if (d < g.rot) {  // rot is even: the pair rotates together
+            const float2 cs = *reinterpret_cast<const float2*>(ct + d), sn = *reinterpret_cast<const float2*>(stb + d);
+            v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs.x), __fmul_rn(y1, sn.x))),
+                                   rbf(__fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y))));
+          } else {
+            v[hr][j] = make_float2(y0, y1);
+          }
+        }
+      }
+    }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int m = m0 + wr + 8 * hr;
-      keep[hr] = m < g.M && (!g.row_mask || g.row_mask[m]);
-      const bf16* grow = g.gate + (long long)(m / g.T) * g.gate_sb;
+      if (m >= g.M) continue;
+      bf16* orow = g.out + (long long)m * g.ldo + n0;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int d = 8 * j + cq;
+        if (d < g.D) *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16x2(v[hr][j].x, v[hr][j].y);
+      }
+    }
+  } else if constexpr (EPI == EPI_SWIGLU) {
+    float2 b1[NJ], b3[NJ];  // the bias at each column pair: w1's, and w3's
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + cq;
+      b1[j] = n < g.N ? bias_at(n) : make_float2(0.f, 0.f);
+      b3[j] = n < g.N ? bias_at(g.half + n) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + wr + 8 * hr;
+      if (m >= g.M) continue;
+      bf16* orow = g.out + (long long)m * g.ldo;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = n0 + 8 * j + cq;
-        const bool ok = m < g.M && n < g.N;
-        gt[hr][j] = ok ? make_float2(tanhf(ld(grow + n)), tanhf(ld(grow + n + 1))) : make_float2(0.f, 0.f);
+        if (n >= g.N) continue;
+        const float2 a1 = acc_at(j, hr), a3 = acc_at(NJ + j, hr);
+        *reinterpret_cast<uint32_t*>(orow + n) =
+            pack_bf16x2(swiglu(a1.x + b1[j].x, a3.x + b3[j].x), swiglu(a1.y + b1[j].y, a3.y + b3[j].y));
+      }
+    }
+  } else {
+    // the gated residual, x' = bf16(x + bf16(bf16(tanh(gate)) * bf16(acc + b))),
+    // then the row partials of the tile's new values
+    float2 b1[NJ], gt[2][NJ], xin[2][NJ], o[2][NJ];
+    bool keep[2], mok[2];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + cq;
+      b1[j] = n < g.N ? bias_at(n) : make_float2(0.f, 0.f);
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int m = m0 + wr + 8 * hr;
+      mok[hr] = m < g.M;
+      keep[hr] = mok[hr] && (!g.row_mask || g.row_mask[m]);
+      const bf16* grow = g.gate + (long long)(min(m, g.M - 1) / g.T) * g.gate_sb;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + 8 * j + cq;
+        const bool ok = mok[hr] && n < g.N;
+        gt[hr][j] = ok ? make_float2(rbf(tanhf(ld(grow + n))), rbf(tanhf(ld(grow + n + 1)))) : make_float2(0.f, 0.f);
         xin[hr][j] = ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.out + (long long)m * g.ldo + n))
                         : make_float2(0.f, 0.f);
       }
     }
-  }
+    const int ncol = min(ST, g.N - n0);  // the tile's valid columns
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int m = m0 + wr + 8 * hr;
-    if (m >= g.M) continue;
-    bf16* orow = g.out + (long long)m * g.ldo;
+    for (int hr = 0; hr < 2; ++hr) {
+      float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + cq;
-      if (n >= g.N) continue;
-      float v0 = acc[4 * j + 2 * hr] + b1[j].x, v1 = acc[4 * j + 2 * hr + 1] + b1[j].y;
-      if constexpr (EPI == EPI_SWIGLU) {
-        v0 = swiglu(v0, acc[32 + 4 * j + 2 * hr] + b3[j].x);
-        v1 = swiglu(v1, acc[32 + 4 * j + 2 * hr + 1] + b3[j].y);
-      } else if constexpr (EPI == EPI_RESID) {
-        v0 = xin[hr][j].x + gt[hr][j].x * (keep[hr] ? rbf(v0) : 0.f);
-        v1 = xin[hr][j].y + gt[hr][j].y * (keep[hr] ? rbf(v1) : 0.f);
+      for (int j = 0; j < NJ; ++j) {
+        const float2 t = acc_at(j, hr);
+        const float p0 = keep[hr] ? rbf(gt[hr][j].x * rbf(t.x + b1[j].x)) : 0.f;
+        const float p1 = keep[hr] ? rbf(gt[hr][j].y * rbf(t.y + b1[j].y)) : 0.f;
+        o[hr][j] = make_float2(rbf(xin[hr][j].x + p0), rbf(xin[hr][j].y + p1));
+        if (8 * j + cq < ncol) sum += o[hr][j].x + o[hr][j].y;
       }
-      *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
+      if (g.stats) {  // uniform per launch
+        const float mean = __fdiv_rn(quad_sum(sum), static_cast<float>(ncol));
+        float m2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          if (8 * j + cq < ncol) {
+            const float d0 = o[hr][j].x - mean, d1 = o[hr][j].y - mean;
+            m2 += d0 * d0 + d1 * d1;
+          }
+        m2 = quad_sum(m2);
+        if ((lane & 3) == 0 && mok[hr])
+          g.stats[(long long)(m0 + wr + 8 * hr) * ((g.N + ST - 1) / ST) + n0 / ST] = make_float2(mean, m2);
+      }
+    }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      if (!mok[hr]) continue;
+      bf16* orow = g.out + (long long)(m0 + wr + 8 * hr) * g.ldo;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int n = n0 + 8 * j + cq;
+        if (n < g.N) *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(o[hr][j].x, o[hr][j].y);
+      }
     }
   }
 }
 
 // ------------------------------------------------------------- gemm, host side
 
-template <int EPI, bool W8, int BN>
-int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int split, cudaStream_t s) {
-  using C = GemmCfg<EPI, W8, BN>;
-  static const cudaError_t attr = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8, BN>,
-                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+template <int EPI, bool W8>
+int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int tiles, int split,
+                cudaStream_t s) {
+  using C = GemmCfg<EPI, W8>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(split, (g.N + C::BNO - 1) / C::BNO, (g.M + GBM - 1) / GBM);
+  cfg.gridDim = dim3(split, tiles, (g.M + GBM - 1) / GBM);
   cfg.blockDim = dim3(C::THREADS);
   cfg.dynamicSmemBytes = C::SMEM;
   cfg.stream = s;
@@ -478,91 +674,130 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g,
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8, BN>, ta, tw, g);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8>, ta, tw, g);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// Tile width and K split per product: 128 columns where 64-row x 128-column
-// tiles already give most SMs a block (qkvg at M = 320), else 64. K is split
-// over a cluster of up to GMAXSPLIT ranks only where the tiles leave more
-// than half the SMs idle and each rank keeps 8 k tiles or more (w2 at M =
-// 128): the split's merge and cluster barriers cost a few us, measured on
-// the H100 (PERF.md section 6), more than the split gains elsewhere.
-template <bool W8>
-int dispatch_gemm(int epi, const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
+// K split per product: K is split over a cluster of up to GMAXSPLIT ranks
+// only where the 64-column tiles leave more than half the SMs idle and each
+// rank keeps 8 k tiles or more (w2 at M = 128): the split's merge and
+// cluster barriers cost a few us, measured on the H100 (PERF.md section 6),
+// more than the split gains elsewhere. qkvg (one head a block) is not split.
+template <int EPI, bool W8>
+int dispatch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
   const int sms = sm_count(), mt = (g.M + GBM - 1) / GBM, nk = (g.K + GBK - 1) / GBK;
-  const int tiles64 = mt * ((g.N + 63) / 64);
-  auto split_for = [&](int blocks) {
-    return blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
-  };
-  switch (epi) {
-    case EPI_BIAS:
-      if (mt * ((g.N + 127) / 128) >= (3 * sms) / 4) return launch_gemm<EPI_BIAS, W8, 128>(ta, tw, g, 1, s);
-      return launch_gemm<EPI_BIAS, W8, 64>(ta, tw, g, split_for(tiles64), s);
-    case EPI_SWIGLU:
-      if (!g.bias) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_SWIGLU, W8, 128>(ta, tw, g, split_for(tiles64), s);
-    case EPI_RESID:
-      if (!g.gate || g.T <= 0) return (int)cudaErrorInvalidValue;
-      return launch_gemm<EPI_RESID, W8, 64>(ta, tw, g, split_for(tiles64), s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (EPI == EPI_QKVG) return launch_gemm<EPI, W8>(ta, tw, g, g.N / g.D, 1, s);
+  const int tiles = (g.N + GSUB - 1) / GSUB, blocks = mt * tiles;
+  const int split = blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
+  return launch_gemm<EPI, W8>(ta, tw, g, tiles, split, s);
+}
+
+// What every product takes: A bf16 (M, K) contiguous, W (K, wcols) at row
+// stride ldw, bf16 or int8 with an fp32 scale per column. TMA reads A and W:
+// K and wcols multiples of 8 (16 for int8 W, and ldw too), A and W 16-byte
+// aligned. Encodes both tensor maps: 64 x 64 boxes, bf16 in the 128-byte
+// swizzle wgmma reads, int8 unswizzled (the consumers swizzle it as they
+// dequantize).
+int prepare(GemmArgs& g, const void* A, const void* W, long long ldw, const float* wscale, const void* out,
+            int M, int N, int K, int wcols, CUtensorMap& ta, CUtensorMap& tw) {
+  const long long wmul = wscale ? 15 : 7;
+  if ((K & 7) || ((N | wcols | ldw) & wmul) || M <= 0 || N <= 0 || K <= 0 || wcols > ldw)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  if (!encode_map(&ta, MapSpec{A, false, M, K, K, GBK, GBM, true}) ||
+      !weight_map(&tw, MapSpec{W, wscale != nullptr, K, wcols, ldw, GSUB, GBK, wscale == nullptr}))
+    return (int)cudaErrorInvalidValue;
+  g.wscale = wscale;
+  g.M = M; g.N = N; g.K = K; g.wcols = wcols;
+  return 0;
+}
+
+// the adaLN's operands: (B, K) shift / scale rows at stride mod_sb, read 4 bytes at a time
+int set_adaln(GemmArgs& g, const void* stats, const void* shift, const void* scale, long long mod_sb, int T) {
+  if (!stats || T <= 0 || (mod_sb & 1) || ((reinterpret_cast<size_t>(shift) | reinterpret_cast<size_t>(scale)) & 3))
+    return (int)cudaErrorInvalidValue;
+  g.stats = static_cast<float2*>(const_cast<void*>(stats));
+  g.shift = static_cast<const bf16*>(shift); g.scale = static_cast<const bf16*>(scale); g.mod_sb = mod_sb;
+  g.T = T;
+  return 0;
 }
 
 }  // namespace
 
-// bf16. x / out (M, H) contiguous; shift / scale rows of H at batch stride
-// mod_sb (0 when one modulation serves the whole batch).
-extern "C" int st_adaln_modulate(const void* x, void* out, const void* shift, const void* scale,
-                                 long long mod_sb, int M, int T, int H, float eps, void* stream) {
-  adaln_kernel<<<M, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<const bf16*>(shift),
-      static_cast<const bf16*>(scale), mod_sb, T, H, eps);
+// bf16 x (M, H) contiguous -> out (a copy) and stats (M, ceil(H/64)) fp32
+// (mean, M2) pairs; H a multiple of 8, x and out 16-byte aligned.
+extern "C" int st_row_stats(const void* x, void* out, void* stats, int M, int H, void* stream) {
+  if (M <= 0 || H <= 0 || (H & 7) || ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out)) & 15))
+    return (int)cudaErrorInvalidValue;
+  row_stats_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<float2*>(stats), M, H);
   return (int)cudaGetLastError();
 }
 
-// bf16 qkvg (M, ldq): q at column 0, k at column heads*D, each (heads, D) per
-// row. cos/sin (T, rot) fp32 tables; q_scale / k_scale (heads, D) bf16.
-extern "C" int st_qk_norm_rope(void* qkvg, long long ldq, int M, int T, int heads, int D, int rot,
-                               const void* q_scale, const void* k_scale, const float* cos_t,
-                               const float* sin_t, float eps, void* stream) {
-  if (D > QK_DMAX || rot > D || (rot & 1)) return (int)cudaErrorInvalidValue;
-  qk_norm_rope_kernel<<<dim3(M, 2), 32 * QK_WARPS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<bf16*>(qkvg), ldq, T, heads, D, rot, static_cast<const bf16*>(q_scale),
-      static_cast<const bf16*>(k_scale), cos_t, sin_t, eps);
-  return (int)cudaGetLastError();
-}
-
-// GEMM out = epilogue(A @ W), A bf16 (M, K) at row stride lda. epi: 0 bias,
-// 1 swiglu, 2 gated residual. W (K, cols) at row stride ldw is bf16, or int8
-// where wscale, an fp32 scale per W column (cols,), is given. TMA reads A and
-// W: K, lda and ldo must be multiples of 8 and A, W and out 16-byte aligned;
-// N, ldw and half multiples of 8 for bf16 W, of 16 for int8 W.
-extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, long long ldw,
-                       const float* wscale, const void* bias, void* out, long long ldo,
-                       const void* gate, long long gate_sb, const void* row_mask, int M, int N,
-                       int K, int T, int half, void* stream) {
-  const long long wmul = wscale ? 15 : 7;
-  if (((K | lda | ldo) & 7) || ((N | ldw | half) & wmul)) return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
-    return (int)cudaErrorMisalignedAddress;
-  const int wcols = epi == EPI_SWIGLU ? half + N : N;
-  if (M <= 0 || N <= 0 || K <= 0 || wcols > ldw) return (int)cudaErrorInvalidValue;
-  // 64 x 64 boxes: bf16 in the 128-byte swizzle wgmma reads, int8 unswizzled
-  // (the consumer warpgroup swizzles it as it dequantizes)
-  CUtensorMap ta, tw;
-  if (!encode_map(&ta, MapSpec{A, false, M, K, lda, GBK, GBM, true}) ||
-      !weight_map(&tw, MapSpec{W, wscale != nullptr, K, wcols, ldw, GSUB, GBK, wscale == nullptr}))
+// qkvg (M, N) = adaLN(x) @ W + bias, N = 4 heads D ([q | k | v | gate]), then
+// the q/k RMSNorm (q_scale / k_scale (heads, D) bf16) and RoPE on lanes [0,
+// rot) (cos / sin (T, rot) fp32) on the first 2 heads D columns. x (M, K) bf16
+// with its partials `stats`; shift / scale (B, K) at batch stride mod_sb.
+extern "C" int st_gemm_qkvg(const void* x, const void* W, long long ldw, const float* wscale, const void* bias,
+                            void* out, const void* stats, const void* shift, const void* scale, long long mod_sb,
+                            const void* q_scale, const void* k_scale, const float* cos_t, const float* sin_t,
+                            int M, int N, int K, int T, int heads, int D, int rot, void* stream) {
+  if (D <= 0 || D > QK_DMAX || (D & 7) || heads <= 0 || N != 4 * heads * D || rot < 0 || rot > D || (rot & 1) ||
+      !q_scale || !k_scale || ((reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 7) ||
+      (rot && (!cos_t || !sin_t)))
     return (int)cudaErrorInvalidValue;
   GemmArgs g{};
-  g.wscale = wscale;
+  CUtensorMap ta, tw;
+  int e = prepare(g, x, W, ldw, wscale, out, M, N, K, N, ta, tw);
+  if (!e) e = set_adaln(g, stats, shift, scale, mod_sb, T);
+  if (e) return e;
   g.bias = static_cast<const bf16*>(bias);
-  g.out = static_cast<bf16*>(out); g.ldo = ldo;
+  g.out = static_cast<bf16*>(out); g.ldo = N;
+  g.q_scale = static_cast<const bf16*>(q_scale); g.k_scale = static_cast<const bf16*>(k_scale);
+  g.cos_t = cos_t; g.sin_t = sin_t;
+  g.heads = heads; g.D = D; g.rot = rot;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return wscale ? dispatch_gemm<EPI_QKVG, true>(ta, tw, g, s) : dispatch_gemm<EPI_QKVG, false>(ta, tw, g, s);
+}
+
+// out (M, F) = silu(h W1 + b1) * (h W3 + b3), h = adaLN(x), W13 = [W1 | W3]
+// (K, 2F) with bias (2F,); x, stats, shift, scale as for st_gemm_qkvg.
+extern "C" int st_gemm_swiglu(const void* x, const void* W, long long ldw, const float* wscale, const void* bias,
+                              void* out, const void* stats, const void* shift, const void* scale,
+                              long long mod_sb, int M, int F, int K, int T, void* stream) {
+  if (!bias || (F & (wscale ? 15 : 7))) return (int)cudaErrorInvalidValue;
+  GemmArgs g{};
+  CUtensorMap ta, tw;
+  int e = prepare(g, x, W, ldw, wscale, out, M, F, K, 2 * F, ta, tw);
+  if (!e) e = set_adaln(g, stats, shift, scale, mod_sb, T);
+  if (e) return e;
+  g.bias = static_cast<const bf16*>(bias);
+  g.out = static_cast<bf16*>(out); g.ldo = F;
+  g.half = F;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return wscale ? dispatch_gemm<EPI_SWIGLU, true>(ta, tw, g, s) : dispatch_gemm<EPI_SWIGLU, false>(ta, tw, g, s);
+}
+
+// x (M, N) += tanh(gate[m / T]) * (A @ W + bias) [* row_mask[m]], in place,
+// A (M, K); gate (B, N) rows at stride gate_sb; bias and row_mask may be
+// null. Where stats is given, each row's (mean, M2) of its new values over
+// each 64-column tile is written there, (M, ceil(N/64)) fp32 pairs.
+extern "C" int st_gemm_residual(const void* A, const void* W, long long ldw, const float* wscale, const void* bias,
+                                void* x, const void* gate, long long gate_sb, const void* row_mask, void* stats,
+                                int M, int N, int K, int T, void* stream) {
+  if (!gate || T <= 0) return (int)cudaErrorInvalidValue;
+  GemmArgs g{};
+  CUtensorMap ta, tw;
+  if (const int e = prepare(g, A, W, ldw, wscale, x, M, N, K, N, ta, tw)) return e;
+  g.bias = static_cast<const bf16*>(bias);
+  g.out = static_cast<bf16*>(x); g.ldo = N;
   g.gate = static_cast<const bf16*>(gate); g.gate_sb = gate_sb;
   g.row_mask = static_cast<const unsigned char*>(row_mask);
-  g.M = M; g.N = N; g.K = K; g.T = T; g.half = half; g.wcols = wcols;
+  g.stats = static_cast<float2*>(stats);
+  g.T = T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return wscale ? dispatch_gemm<true>(epi, ta, tw, g, s) : dispatch_gemm<false>(epi, ta, tw, g, s);
+  return wscale ? dispatch_gemm<EPI_RESID, true>(ta, tw, g, s) : dispatch_gemm<EPI_RESID, false>(ta, tw, g, s);
 }
 
 extern "C" const char* st_dit_block_error(int e) {

@@ -9,6 +9,10 @@ another order); 2e-2 in bf16 (a few bf16 roundings of 2^-8 taken at other
 points; the plain version rounds where PyTorch's bf16 ops do); 1e-2 for the
 w8 products, whose one bf16 rounding may fall on the other side of a
 boundary when the fp32 sum is taken in another order (2^-8 of a value).
+The DiT GEMM's adaLN, q/k norm + RoPE and gated residual are also held bit
+for bit through an identity weight, where the product is exact: at most
+1e-4 of elements may differ, by one bf16 ulp (fp32 sums of squares in
+another order, and the card's rsqrt in the plain version).
 """
 
 import math
@@ -20,6 +24,7 @@ from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.kernels import attention as A
 from smalltts_tpu_torch.ops.kernels import dit_block as K
 from smalltts_tpu_torch.ops.kernels import w8 as W
+from smalltts_tpu_torch.ops.rope import interleaved_cos_sin
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -80,34 +85,38 @@ def test_attention_two_sources_gate(dev, dtype):
     assert rel(out.unflatten(-1, (H, D)).transpose(1, 2), want) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16])
-def test_adaln_and_qk_norm_rope_kernels(dev, dtype):
-    B, T, H, heads, D, rot = 8, 40, 960, 8, 120, 64
-    g = gen(dev, 2)
-    x = randn((B, T, H), g, dev, dtype, 3.0)
-    mod = randn((6 * H,), g, dev, dtype, 0.5)[None].expand(B, -1)  # one modulation for the batch
-    got = K.adaln_modulate(x, mod[:, :H], mod[:, H:2 * H])
-    assert rel(got, K.adaln_modulate_plain(x, mod[:, :H], mod[:, H:2 * H])) <= TOL[dtype]
-    qkvg = randn((B, T, 4 * H), g, dev, dtype)
-    qs, ks = randn((heads, D), g, dev, dtype), randn((heads, D), g, dev, dtype)
-    ang = torch.arange(T, device=dev)[:, None] * torch.rand((rot,), generator=g, device=dev)[None]
-    cos, sin = torch.cos(ang), torch.sin(ang)
-    want = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos, sin)
-    got = K.qk_norm_rope(qkvg, qs, ks, cos, sin)
-    assert rel(got, want) <= TOL[dtype]
+def adaln_inputs(g, dev, B, T, K_):
+    """x (B, T, K_) bf16 ~ N(0, 4) through the row_stats kernel (the working
+    copy and its partials), and a modulation's shift and scale (B, K_) rows
+    at a batch stride of 6 K_, as the scan slices them."""
+    x, stats = K.row_stats(randn((B, T, K_), g, dev, torch.bfloat16, 2.0))
+    mod = randn((B, 6 * K_), g, dev, torch.bfloat16, 0.5)
+    return x, stats, mod[:, :K_], mod[:, K_:2 * K_]
+
+
+def qk_tables(g, dev, heads, D, T, rot):
+    """RMSNorm scales of q and k (heads, D) bf16 near 1, RoPE tables (T, rot) fp32."""
+    qs, ks = (1 + randn((heads, D), g, dev, torch.float32, 0.2) for _ in range(2))
+    cos, sin = interleaved_cos_sin(T, rot, dev)
+    return qs.to(torch.bfloat16), ks.to(torch.bfloat16), cos, sin
 
 
 @pytest.mark.parametrize("K_,N", [(960, 3840), (960, 4800), (960, 960), (2400, 960)])
 def test_gemm_kernels(dev, K_, N):
     B, T = 8, 40
     g = gen(dev, N + K_)
-    a = randn((B, T, K_), g, dev, torch.bfloat16)
     w = randn((K_, N), g, dev, torch.bfloat16, 1 / math.sqrt(K_))
     b = randn((N,), g, dev, torch.bfloat16, 0.1)
     if N == 4800:
-        assert rel(K.gemm_swiglu(a, w, b), K.gemm_swiglu_plain(a, w, b)) <= 2e-2
+        x, st, sh, sc = adaln_inputs(g, dev, B, T, K_)
+        assert rel(K.adaln_gemm_swiglu(x, st, sh, sc, w, b), K.adaln_gemm_swiglu_plain(x, st, sh, sc, w, b)) <= 2e-2
         return
-    assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
+    if N == 3840:
+        x, st, sh, sc = adaln_inputs(g, dev, B, T, K_)
+        qk = qk_tables(g, dev, 8, 120, T, 64)
+        assert rel(K.adaln_gemm_qkvg(x, st, sh, sc, w, b, *qk), K.adaln_gemm_qkvg_plain(x, st, sh, sc, w, b, *qk)) <= 2e-2
+        return
+    a = randn((B, T, K_), g, dev, torch.bfloat16)
     x = randn((B, T, N), g, dev, torch.bfloat16)
     gate = randn((B, N), g, dev, torch.bfloat16)
     mask = key_mask(B, T, g, dev)
@@ -119,10 +128,11 @@ def test_gemm_kernels(dev, K_, N):
 def test_gemm_ragged_rows(dev):
     """M = 8 * 15 rows is not a multiple of the 64-row tile."""
     g = gen(dev, 7)
-    a = randn((8, 15, 960), g, dev, torch.bfloat16)
+    x, st, sh, sc = adaln_inputs(g, dev, 8, 15, 960)
     w = randn((960, 3840), g, dev, torch.bfloat16, 0.03)
     b = randn((3840,), g, dev, torch.bfloat16)
-    assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
+    qk = qk_tables(g, dev, 8, 120, 15, 64)
+    assert rel(K.adaln_gemm_qkvg(x, st, sh, sc, w, b, *qk), K.adaln_gemm_qkvg_plain(x, st, sh, sc, w, b, *qk)) <= 2e-2
 
 
 W8_ROWS = (1, 8, 9, 16, 40, 64, 65, 200, 320)  # around the 8-, 32- and 64-row tiles of the tensor-core kernel
@@ -209,21 +219,28 @@ def test_w8_stacked_reads_a_device_index_without_a_sync(dev, M):
 
 @pytest.mark.parametrize("K_,N", [(960, 3840), (960, 4800), (960, 960), (2400, 960)])
 def test_int8_gemm_kernels(dev, K_, N):
-    """The int8-weight GEMM, each epilogue, against its plain version: the
+    """The int8-weight GEMM, each form, against its plain version: the
     weight dequantized as bf16(bf16(q) * bf16(scale)) before the product."""
     B, T = 8, 40
     g = gen(dev, 3 * N + K_)
-    a = randn((B, T, K_), g, dev, torch.bfloat16)
     w_q, scale = W.quantize_w8(randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_)))
     scale = scale[None]  # (1, N), as a layer of the (L, 1, N) stream scales
     b = randn((N,), g, dev, torch.bfloat16, 0.1)
-    if N == 4800:
-        n0 = kernels.LAUNCHES.get("gemm_swiglu_w8", 0)
-        got = K.gemm_swiglu(a, w_q, b, w_scale=scale)
-        assert kernels.LAUNCHES["gemm_swiglu_w8"] == n0 + 1
-        assert rel(got, K.gemm_swiglu_plain(a, w_q, b, w_scale=scale)) <= 2e-2
+    if N in (3840, 4800):
+        x, st, sh, sc = adaln_inputs(g, dev, B, T, K_)
+        name = "adaln_gemm_swiglu_w8" if N == 4800 else "adaln_gemm_qkvg_w8"
+        qk = qk_tables(g, dev, 8, 120, T, 64)
+        n0 = kernels.LAUNCHES.get(name, 0)
+        if N == 4800:
+            got = K.adaln_gemm_swiglu(x, st, sh, sc, w_q, b, w_scale=scale)
+            want = K.adaln_gemm_swiglu_plain(x, st, sh, sc, w_q, b, w_scale=scale)
+        else:
+            got = K.adaln_gemm_qkvg(x, st, sh, sc, w_q, b, *qk, w_scale=scale)
+            want = K.adaln_gemm_qkvg_plain(x, st, sh, sc, w_q, b, *qk, w_scale=scale)
+        assert kernels.LAUNCHES[name] == n0 + 1
+        assert rel(got, want) <= 2e-2
         return
-    assert rel(K.gemm_bias(a, w_q, b, w_scale=scale), K.gemm_bias_plain(a, w_q, b, w_scale=scale)) <= 2e-2
+    a = randn((B, T, K_), g, dev, torch.bfloat16)
     x = randn((B, T, N), g, dev, torch.bfloat16)
     gate = randn((B, N), g, dev, torch.bfloat16)
     mask = key_mask(B, T, g, dev)
@@ -237,7 +254,8 @@ def test_w8_wrappers_reject_fp32_on_the_card(dev):
     x = torch.zeros((4, 64), device=dev)
     for call in (lambda: W.w8_matmul(x, w_q[0], scale[0]), lambda: W.w8_matmul_all_layers(x, w_q, scale),
                  lambda: W.w8_matmul_stacked(x, w_q, scale, 1),
-                 lambda: K.gemm_bias(x[None], w_q[0], torch.zeros(32, device=dev), w_scale=scale[0])):
+                 lambda: K.gemm_residual(x[None], w_q[0], None, torch.zeros((1, 4, 32), device=dev),
+                                         torch.zeros((1, 32), device=dev), w_scale=scale[0])):
         with pytest.raises(ValueError, match="bf16"):
             call()
 
@@ -248,30 +266,37 @@ def test_int8_gemm_rejects_a_misaligned_weight(dev):
     stays usable."""
     a = torch.zeros((2, 8, 64), device=dev, dtype=torch.bfloat16)
     flat = torch.zeros((64 * 64 + 16,), device=dev, dtype=torch.int8)
-    scale, b = torch.ones((64,), device=dev), torch.zeros((64,), device=dev, dtype=torch.bfloat16)
+    scale, gate = torch.ones((64,), device=dev), torch.ones((2, 64), device=dev, dtype=torch.bfloat16)
+    x = torch.ones((2, 8, 64), device=dev, dtype=torch.bfloat16)
     for off in (1, 8):
         w_q = flat[off:off + 64 * 64].view(64, 64)
         with pytest.raises(ValueError, match="aligned"):
-            K.gemm_bias(a, w_q, b, w_scale=scale)
-    got = K.gemm_bias(a, flat[16:].view(64, 64), b, w_scale=scale)
+            K.gemm_residual(a, w_q, None, x, gate, w_scale=scale)
+    got = K.gemm_residual(a, flat[16:].view(64, 64), None, x, gate, w_scale=scale)
     torch.cuda.synchronize()
-    assert float(got.abs().max()) == 0.0
+    assert bool((got == 1).all())
 
 
 def test_gemm_rejects_fp32_on_the_card(dev):
     a = torch.zeros((2, 8, 64), device=dev)
     with pytest.raises(ValueError):
-        K.gemm_bias(a, torch.zeros((64, 64), device=dev), torch.zeros((64,), device=dev))
+        K.gemm_residual(a, torch.zeros((64, 64), device=dev), None, a.clone(), torch.zeros((2, 64), device=dev))
 
 
 def test_norm_kernels_reject_fp32_on_the_card(dev):
+    """row_stats and the two adaLN products are bf16 only."""
     x = torch.zeros((2, 8, 64), device=dev)
     with pytest.raises(ValueError, match="bf16"):
-        K.adaln_modulate(x, torch.zeros((2, 64), device=dev), torch.zeros((2, 64), device=dev))
-    qkvg = torch.zeros((2, 8, 4 * 64), device=dev)
-    cos = torch.zeros((8, 16), device=dev)
+        K.row_stats(x)
+    stats = torch.zeros((16, 1, 2), device=dev)
+    mod = torch.zeros((2, 64), device=dev)
+    w = torch.zeros((64, 64), device=dev, dtype=torch.bfloat16)
+    cos = torch.zeros((8, 8), device=dev)
     with pytest.raises(ValueError, match="bf16"):
-        K.qk_norm_rope(qkvg, torch.ones((1, 64), device=dev), torch.ones((1, 64), device=dev), cos, cos)
+        K.adaln_gemm_qkvg(x, stats, mod, mod, w, None, torch.ones((2, 8), device=dev), torch.ones((2, 8), device=dev),
+                          cos, cos)
+    with pytest.raises(ValueError, match="bf16"):
+        K.adaln_gemm_swiglu(x, stats, mod, mod, w, torch.zeros((64,), device=dev, dtype=torch.bfloat16))
 
 
 def test_linear_bf16_on_the_card_rounds_once(dev):
@@ -332,16 +357,38 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
     assert int(out.abs().max()) > 0
 
 
-# the DiT's four products: K, W's width, epilogue
-PRODUCTS = {"qkvg": (960, 3840, "bias"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
+# the DiT's four products: K, W's width, form
+PRODUCTS = {"qkvg": (960, 3840, "qkvg"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
             "w2": (2400, 960, "resid")}
+NAMES = {"qkvg": "adaln_gemm_qkvg", "swiglu": "adaln_gemm_swiglu", "resid": "gemm_residual",
+         "resid_masked": "gemm_residual"}
 
 
-def run_product(dev, epi, B, T, K_, N, w8, seed):
-    """One GEMM epilogue on the card against its plain version; bf16 or
-    int8 W ((1, N) scales, as a layer of the stream weights)."""
+def partials_twopass(x):
+    """(rows, ceil(N/64), 2) float64 (mean, M2) of each 64-column tile of x."""
+    xd = x.reshape(-1, x.shape[-1]).double()
+    out = []
+    for c0 in range(0, xd.shape[1], 64):
+        t = xd[:, c0:c0 + 64]
+        mean = t.mean(-1)
+        out.append(torch.stack([mean, ((t - mean[:, None]) ** 2).sum(-1)], -1))
+    return torch.stack(out, 1)
+
+
+def assert_partials(stats, x):
+    """The partials held against a two-pass in float64: mean to 1e-6 of the
+    tile's largest |x|, M2 to 1e-6 relative."""
+    want = partials_twopass(x)
+    scale = x.reshape(-1, x.shape[-1]).abs().max().double()
+    assert float((stats[..., 0].double() - want[..., 0]).abs().max()) <= 1e-6 * float(scale)
+    assert float(((stats[..., 1].double() - want[..., 1]).abs() / want[..., 1].clamp_min(1e-30)).max()) <= 1e-6
+
+
+def run_product(dev, form, B, T, K_, N, w8, seed, heads=8, rot=64):
+    """One GEMM form on the card against its plain version; bf16 or int8 W
+    ((1, N) scales, as a layer of the stream weights). qkvg has N = 4 heads D;
+    the residual forms write their row partials."""
     g = gen(dev, seed)
-    a = randn((B, T, K_), g, dev, torch.bfloat16)
     w = randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_))
     if w8:
         w, scale = W.quantize_w8(w)
@@ -349,18 +396,27 @@ def run_product(dev, epi, B, T, K_, N, w8, seed):
     else:
         w, scale = w.to(torch.bfloat16), None
     b = randn((N,), g, dev, torch.bfloat16, 0.1)
-    name = {"bias": "gemm_bias", "swiglu": "gemm_swiglu"}.get(epi, "gemm_residual") + ("_w8" if w8 else "")
+    name = NAMES[form] + ("_w8" if w8 else "")
     n0 = kernels.LAUNCHES.get(name, 0)
-    if epi == "bias":
-        got, want = K.gemm_bias(a, w, b, w_scale=scale), K.gemm_bias_plain(a, w, b, w_scale=scale)
-    elif epi == "swiglu":
-        got, want = K.gemm_swiglu(a, w, b, w_scale=scale), K.gemm_swiglu_plain(a, w, b, w_scale=scale)
+    if form == "qkvg":
+        x, st, sh, sc = adaln_inputs(g, dev, B, T, K_)
+        qk = qk_tables(g, dev, heads, N // (4 * heads), T, rot)
+        got = K.adaln_gemm_qkvg(x, st, sh, sc, w, b, *qk, w_scale=scale)
+        want = K.adaln_gemm_qkvg_plain(x, st, sh, sc, w, b, *qk, w_scale=scale)
+    elif form == "swiglu":
+        x, st, sh, sc = adaln_inputs(g, dev, B, T, K_)
+        got = K.adaln_gemm_swiglu(x, st, sh, sc, w, b, w_scale=scale)
+        want = K.adaln_gemm_swiglu_plain(x, st, sh, sc, w, b, w_scale=scale)
     else:
+        a = randn((B, T, K_), g, dev, torch.bfloat16)
         x = randn((B, T, N), g, dev, torch.bfloat16)
         gate = randn((B, N), g, dev, torch.bfloat16)
-        mask, bias = (key_mask(B, T, g, dev), None) if epi == "resid_masked" else (None, b)
+        mask, bias = (key_mask(B, T, g, dev), None) if form == "resid_masked" else (None, b)
+        stats = torch.full((B * T, -(-N // 64), 2), float("nan"), device=dev)
         want = K.gemm_residual_plain(a, w, bias, x.clone(), gate, mask, w_scale=scale)
-        got = K.gemm_residual(a, w, bias, x.clone(), gate, mask, w_scale=scale)
+        got = K.gemm_residual(a, w, bias, x.clone(), gate, mask, w_scale=scale, stats=stats)
+        torch.cuda.synchronize()
+        assert_partials(stats, got)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] == n0 + 1
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
@@ -376,16 +432,110 @@ def test_gemm_products_at_served_rows(dev, product, M, w8):
     and w2's K (2400) end in half tiles. w2 at M = 40, 128 and 200 splits K
     over a cluster of 4, 4 and 3 ranks (the merge through distributed shared
     memory); the other products run one rank per tile."""
-    K_, N, epi = PRODUCTS[product]
-    run_product(dev, epi, 8, M // 8, K_, N, w8, seed=M + K_ + N)
+    K_, N, form = PRODUCTS[product]
+    run_product(dev, form, 8, M // 8, K_, N, w8, seed=M + K_ + N)
 
 
 @pytest.mark.parametrize("w8", [False, True])
-@pytest.mark.parametrize("epi", ["bias", "swiglu", "resid", "resid_masked"])
+@pytest.mark.parametrize("epi", ["qkvg", "swiglu", "resid", "resid_masked"])
 def test_gemm_ragged_tails(dev, epi, w8):
-    """N = 208 and K = 72: the last column tile and the last k tile are
-    mostly past the edge (TMA zero fill, masked stores); one row block."""
-    run_product(dev, epi, 2, 9, 72, 416 if epi == "swiglu" else 208, w8, seed=99)
+    """K = 72 and N = 208 (qkvg: one head of D = 56, N = 224, RoPE on 16
+    lanes): the last k tile is mostly past the edge (TMA zero fill, the
+    adaLN's shift and scale masked), the last column tile of the residual
+    holds 16 columns (masked stores, a 16-column partial); one row block."""
+    N = {"qkvg": 224, "swiglu": 416}.get(epi, 208)
+    run_product(dev, epi, 2, 9, 72, N, w8, seed=99, heads=1, rot=16)
+
+
+def ulps_apart(got, want, before=None):
+    """(share of elements that differ, largest difference in bf16 ulps of
+    the larger of |want| and |before|, the value before the last op)."""
+    got, want = got.float(), want.float()
+    mag = want.abs() if before is None else torch.maximum(want.abs(), before.float().abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+    return float((got != want).float().mean()), float(((got - want).abs() / ulp).max())
+
+
+def identity(K_, copies, w8, dev):
+    """[I | I | ...] (K_, copies K_): bf16, or int8 ones with scale 1."""
+    w = torch.eye(K_, device=dev).repeat(1, copies)
+    if w8:
+        return w.to(torch.int8), torch.ones((1, copies * K_), device=dev)
+    return w.to(torch.bfloat16), None
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("M", [40, 128, 200, 320])
+def test_qkvg_rounding_points_on_an_identity_weight(dev, M, w8):
+    """W = [I | I | I | I]: the product is h itself, so the kernel's adaLN
+    (four roundings), bias, q/k RMSNorm and RoPE must give the plain
+    version's bits: at most 1e-4 of elements one ulp away (of the value
+    before RoPE, which may cancel it)."""
+    T = 16 if M == 128 else 40
+    B, H = M // T, 960
+    g = gen(dev, 31 + M)
+    x, st, sh, sc = adaln_inputs(g, dev, B, T, H)
+    w, scale = identity(H, 4, w8, dev)
+    b = randn((4 * H,), g, dev, torch.bfloat16, 0.1)
+    qs, ks, cos, sin = qk_tables(g, dev, 8, 120, T, 64)
+    got = K.adaln_gemm_qkvg(x, st, sh, sc, w, b, qs, ks, cos, sin, w_scale=scale)
+    want = K.adaln_gemm_qkvg_plain(x, st, sh, sc, w, b, qs, ks, cos, sin, w_scale=scale)
+    before = K.adaln_gemm_qkvg_plain(x, st, sh, sc, w, b, qs, ks, cos[:, :0], sin[:, :0], w_scale=scale)
+    share, worst = ulps_apart(got, want, before)
+    assert share <= 1e-4 and worst <= 1.0, (share, worst)
+
+
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("M", [40, 320])
+def test_swiglu_adaln_on_an_identity_weight(dev, M, w8):
+    """W = [I | I]: silu(h + b1) * (h + b3) with h the kernel's adaLN. A flip
+    of h enters both factors, so a differing element may be two ulps away;
+    at most 1e-4 of elements differ."""
+    B, T, H = M // 40, 40, 960
+    g = gen(dev, 41 + M)
+    x, st, sh, sc = adaln_inputs(g, dev, B, T, H)
+    w, scale = identity(H, 2, w8, dev)
+    b = randn((2 * H,), g, dev, torch.bfloat16, 0.1)
+    got = K.adaln_gemm_swiglu(x, st, sh, sc, w, b, w_scale=scale)
+    share, worst = ulps_apart(got, K.adaln_gemm_swiglu_plain(x, st, sh, sc, w, b, w_scale=scale))
+    assert share <= 1e-4 and worst <= 2.0, (share, worst)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("w8", [False, True])
+@pytest.mark.parametrize("M", [40, 128, 200, 320])
+def test_residual_rounding_points_on_an_identity_weight(dev, M, w8, masked):
+    """W = I: x + tanh(gate) * (a + b), four roundings (the row mask zeroes
+    the product), bit-equal to the plain version up to 1e-4 of elements one
+    ulp away; the partials it writes against a two-pass."""
+    T = 16 if M == 128 else 40
+    B, H = M // T, 960
+    g = gen(dev, 51 + M)
+    w, scale = identity(H, 1, w8, dev)
+    a, x = randn((B, T, H), g, dev, torch.bfloat16), randn((B, T, H), g, dev, torch.bfloat16, 2.0)
+    gate, b = randn((B, H), g, dev, torch.bfloat16), randn((H,), g, dev, torch.bfloat16, 0.1)
+    mask = key_mask(B, T, g, dev) if masked else None
+    stats = torch.full((M, H // 64, 2), float("nan"), device=dev)
+    got = K.gemm_residual(a, w, b, x.clone(), gate, mask, w_scale=scale, stats=stats)
+    want = K.gemm_residual_plain(a, w, b, x.clone(), gate, mask, w_scale=scale)
+    torch.cuda.synchronize()
+    share, worst = ulps_apart(got, want)
+    assert share <= 1e-4 and worst <= 1.0, (share, worst)
+    assert_partials(stats, got)
+
+
+@pytest.mark.parametrize("M,H", [(320, 960), (128, 960), (9, 1000)])
+def test_row_stats_kernel(dev, M, H):
+    """The copy is exact; the partials (a ragged last tile at H = 1000)
+    against a two-pass."""
+    g = gen(dev, M + H)
+    x = randn((1, M, H), g, dev, torch.bfloat16, 3.0) + 1.0
+    n0 = kernels.LAUNCHES.get("row_stats", 0)
+    out, stats = K.row_stats(x)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["row_stats"] == n0 + 1
+    assert torch.equal(out, x) and out.data_ptr() != x.data_ptr()
+    assert_partials(stats, x)
 
 
 @pytest.mark.parametrize("two", [False, True])
