@@ -9,11 +9,10 @@
    on the card, at the serving path's shapes, with the tolerance stated;
    kernel, plain and (where one exists) library-call times. A: attention,
    the served DiT shapes (T 16 and 40, cross Sc 448) among them; B: the DiT
-   block scan's kernels, bf16 and int8-weight: row_stats, and the four GEMM
-   products at M = 320 and M = 128 rows (qkvg with the adaLN and the q/k
-   norm + RoPE, w13 with the adaLN and SwiGLU, to_out and w2 with the gated
-   residual and its row partials), and the 12-layer scan on bf16 and on int8
-   stream weights; C: the three w8 products, each shape on the kernel its
+   block scan's kernels, bf16 and int8-weight: adaln_modulate, and the four
+   GEMM products at M = 320 and M = 128 rows (qkvg with the q/k norm + RoPE
+   epilogue, w13 with SwiGLU, to_out and w2 with the gated residual), and
+   the 12-layer scan on bf16 and on int8 stream weights; C: the three w8 products, each shape on the kernel its
    route names (tensor cores wherever TMA can read the operands), timed on
    the device clock or the run fails. Then the GEMM and attention wrappers'
    host time per call (median of 1000).
@@ -22,9 +21,9 @@
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
    path SmallTTS(pcm16_out=True, w8_modulation=True, w8_stream=True). The
    launch counters, reset just before each, must show every kernel of that
-   path and the scan's exact count, 244 launches a batch (4 scans x (12
-   layers x 5 + 1)), with no int8 GEMM on the bf16 path and no bf16 GEMM on
-   the int8 one; one batch is held against the same
+   path and the scan's exact count, 336 launches a batch (4 scans x 12
+   layers x 7), with no int8 GEMM on the bf16 path and no bf16 GEMM on the
+   int8 one; one batch is held against the same
    batch with the plain versions forced; synthesize_padded(fetch=False)
    must queue a batch with no synchronizing call, and one batch is profiled
    (host dispatch time, wall time, device busy time): the profiler must see
@@ -72,14 +71,14 @@ W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmu
           "w8_matmul_stacked": "smalltts_tpu/ops/pallas/w8.py:117"}
 W8_TOL = 1e-2  # one bf16 rounding (2^-8 of a value) that fp32 sums in another order may flip
 W8_TC, W8_STREAM = "w8_wgmma_kernel", "w8_stream_kernel"  # profiler names: tensor cores; CUDA cores
-GEMMS = ("adaln_gemm_qkvg", "adaln_gemm_swiglu", "gemm_residual")
-SCAN_KERNELS = ("row_stats",) + GEMMS
+GEMMS = ("gemm_qkvg", "gemm_swiglu", "gemm_residual")
+SCAN_KERNELS = ("adaln_modulate",) + GEMMS
 # profiler names of the GEMM instances: demangled, or mangled (gemm_wgmma_kernel<EPI, W8>)
 GEMM_NAMES = {f"{n}{sfx}": (f"gemm_wgmma_kernel<{i}, {w}>", f"gemm_wgmma_kernelILi{i}ELb{int(w == 'true')}E")
               for i, n in enumerate(GEMMS) for sfx, w in (("", "false"), ("_w8", "true"))}
-KERNEL_NAMES = {"row_stats": ("row_stats_kernel",), **GEMM_NAMES}
-# the kernels the PR 4 tree ran in their place: none may launch now
-GONE = ("adaln_modulate", "qk_norm_rope", "gemm_bias", "gemm_swiglu", "gemm_bias_w8", "gemm_swiglu_w8")
+KERNEL_NAMES = {"adaln_modulate": ("adaln_kernel",), **GEMM_NAMES}
+# the launches an earlier scan made in place of the qkvg product's epilogue: none may be made now
+GONE = ("qk_norm_rope", "gemm_bias", "gemm_bias_w8")
 # the bf16 and int8 serve batches differ by the int8 weight rounding (~0.4%
 # of each weight, per channel) carried through 48 products a step and 4
 # steps: 5.0e-3 rel-L2 on an H100 at this configuration. A wiring fault (a
@@ -162,28 +161,32 @@ def main() -> int:
         return e0.elapsed_time(e1) / iters
 
     def device_ms(fn, iters=10, match=None, launches=1):
-        """Device time per call from torch.profiler: the kernels whose names
-        hold one of `match` (every kernel when None), summed over `iters`
-        calls, each of which launches at least `launches` of them. A trace
-        with fewer launches lost records, and is taken again (3 tries). None
-        when the profiler reports no device time, or lost records each try."""
+        """Device time per call from torch.profiler over iters + 1 calls, each
+        of which launches `launches` kernels whose names hold one of `match`:
+        their mean time per launch times `launches` (a trace may drop a
+        record; one with fewer than iters * launches of them is taken again,
+        3 tries); every kernel's time over the calls when `match` is None.
+        None when the profiler reports no device time, or lost records each
+        try."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
+                for _ in range(iters + 1):
                     fn()
                 torch.cuda.synchronize()
             evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
             if not evts:
                 return None  # the profiler sees no device time at all
-            hits = [e for e in evts if match is None or any(m in e.key for m in match)]
+            if match is None:
+                return sum(_dev_us(e) for e in evts) / 1e3 / (iters + 1)
+            hits = [e for e in evts if any(m in e.key for m in match)]
             check(bool(hits), f"no profiled kernel matches {match}")
             seen = sum(e.count for e in hits)
             if seen >= iters * launches:
-                return sum(_dev_us(e) for e in hits) / 1e3 / iters
+                return sum(_dev_us(e) for e in hits) / 1e3 / seen * launches
             print(f"  (profiler trace holds {seen} of at least {iters * launches} launches: taken again)", flush=True)
         return None
 
@@ -294,13 +297,11 @@ def main() -> int:
                       bound_by=b_by, library_ms=None, shape=f"B={B} T={T} Sc={Sc} L={L} H={H}")
 
     # each launch of a layer, timed over the 12 layers' weights (88+ MB: out of L2, as in the scan),
-    # at the two served row counts: M = 320 (latent bucket 40) and M = 128 (bucket 16). The adaLN
-    # products read x with the partials row_stats leaves; the residual forms write partials
+    # at the two served row counts: M = 320 (latent bucket 40) and M = 128 (bucket 16)
     def acts(Tm):
         m_ = key_mask(B, Tm)
         m_[-1, :3] = True
-        xs, st = K.row_stats(randn((B, Tm, H), scale=2.0))
-        return dict(a=randn((B, Tm, H)), mid=randn((B, Tm, F)), x=xs, stats=st, mask=m_,
+        return dict(h=randn((B, Tm, H)), mid=randn((B, Tm, F)), x=randn((B, Tm, H), scale=2.0), mask=m_,
                     rope=rope_cos_sin(cfg, Tm, dev))
 
     act_rows = {T: acts(T), 16: acts(16)}
@@ -317,55 +318,51 @@ def main() -> int:
             return nbytes(*(lin[k][l] for k in ("w", "w_q", "scale", "b") if k in lin))
 
         def at_rows(act):
-            a_, mid_, x_, st_, m_ = act["a"], act["mid"], act["x"], act["stats"], act["mask"]
+            h_, mid_, x_, m_ = act["h"], act["mid"], act["x"], act["mask"]
             cos_, sin_ = act["rope"]
-            M_ = a_.shape[0] * a_.shape[1]
+            M_ = h_.shape[0] * h_.shape[1]
             qk, out_, w13, w2 = at["qkvg"], at["to_out"], fw["w13"], fw["w2"]
-            st_out = torch.empty_like(st_)
 
             def qkvg(fn):
                 def run(l):
                     w, s = weight(qk, l)
-                    return fn(x_, st_, mods[l][:, :H], mods[l][:, H:2 * H], w, qk["b"][l], qs[l], ks[l], cos_, sin_,
-                              w_scale=s)
+                    return fn(h_, w, qk["b"][l], qs[l], ks[l], cos_, sin_, w_scale=s)
                 return run
 
             def swiglu(fn):
                 def run(l):
                     w, s = weight(w13, l)
-                    return fn(x_, st_, mods[l][:, 3 * H:4 * H], mods[l][:, 4 * H:5 * H], w, w13["b"][l], w_scale=s)
+                    return fn(h_, w, w13["b"][l], w_scale=s)
                 return run
 
             def resid(fn, lin, a, gate_at, masked):
                 def run(l):
                     w, s = weight(lin, l)
                     return fn(a, w, lin["b"][l] if "b" in lin else None, x_.clone(), mods[l][:, gate_at:gate_at + H],
-                              m_ if masked else None, w_scale=s, stats=st_out)
+                              m_ if masked else None, w_scale=s)
                 return run
 
-            adaln_in = lambda l, at_: nbytes(x_, st_, mods[l][:, at_:at_ + 2 * H])  # noqa: E731
             return {
-                "adaln_gemm_qkvg": [(f"qkvg M={M_} K={H} N={4 * H}", qkvg(K.adaln_gemm_qkvg),
-                                     qkvg(K.adaln_gemm_qkvg_plain),
-                                     lambda l: torch.addmm(attn["qkvg"]["b"][l], x_.view(M_, H), attn["qkvg"]["w"][l]),
-                                     lambda l: (adaln_in(l, 0) + leaf_bytes(qk, l) + nbytes(qs[l], ks[l], cos_, sin_)
-                                                + M_ * 4 * H * 2, 2.0 * M_ * H * 4 * H))],
-                "adaln_gemm_swiglu": [(f"w13 M={M_} K={H} N={2 * F} (out {F})", swiglu(K.adaln_gemm_swiglu),
-                                       swiglu(K.adaln_gemm_swiglu_plain),
-                                       lambda l: torch.addmm(ff["w13"]["b"][l], x_.view(M_, H), ff["w13"]["w"][l]),
-                                       lambda l: (adaln_in(l, 3 * H) + leaf_bytes(w13, l) + M_ * F * 2,
-                                                  2.0 * M_ * H * 2 * F))],
+                "gemm_qkvg": [(f"qkvg M={M_} K={H} N={4 * H}, + q/k norm and RoPE", qkvg(K.gemm_qkvg),
+                               qkvg(K.gemm_qkvg_plain),
+                               lambda l: torch.addmm(attn["qkvg"]["b"][l], h_.view(M_, H), attn["qkvg"]["w"][l]),
+                               lambda l: (nbytes(h_) + leaf_bytes(qk, l) + nbytes(qs[l], ks[l], cos_, sin_)
+                                          + M_ * 4 * H * 2, 2.0 * M_ * H * 4 * H))],
+                "gemm_swiglu": [(f"w13 M={M_} K={H} N={2 * F} (out {F})", swiglu(K.gemm_swiglu),
+                                 swiglu(K.gemm_swiglu_plain),
+                                 lambda l: torch.addmm(ff["w13"]["b"][l], h_.view(M_, H), ff["w13"]["w"][l]),
+                                 lambda l: (nbytes(h_) + leaf_bytes(w13, l) + M_ * F * 2, 2.0 * M_ * H * 2 * F))],
                 "gemm_residual": [
-                    (f"w2 M={M_} K={F} N={H}, + partials", resid(K.gemm_residual, w2, mid_, 5 * H, False),
+                    (f"w2 M={M_} K={F} N={H}", resid(K.gemm_residual, w2, mid_, 5 * H, False),
                      resid(K.gemm_residual_plain, w2, mid_, 5 * H, False),
                      lambda l: torch.addmm(ff["w2"]["b"][l], mid_.view(M_, F), ff["w2"]["w"][l]),
-                     lambda l: (nbytes(mid_, mods[l][:, 5 * H:], st_out) + leaf_bytes(w2, l) + 2 * M_ * H * 2,
+                     lambda l: (nbytes(mid_, mods[l][:, 5 * H:]) + leaf_bytes(w2, l) + 2 * M_ * H * 2,
                                 2.0 * M_ * F * H)),
-                    (f"to_out M={M_} K={H} N={H}, row-masked, + partials",
-                     resid(K.gemm_residual, out_, a_, 2 * H, True), resid(K.gemm_residual_plain, out_, a_, 2 * H, True),
-                     lambda l: torch.mm(a_.view(M_, H), attn["to_out"]["w"][l]),
-                     lambda l: (nbytes(a_, mods[l][:, 2 * H:3 * H], m_, st_out) + leaf_bytes(out_, l)
-                                + 2 * M_ * H * 2, 2.0 * M_ * H * H))],
+                    (f"to_out M={M_} K={H} N={H}, row-masked",
+                     resid(K.gemm_residual, out_, h_, 2 * H, True), resid(K.gemm_residual_plain, out_, h_, 2 * H, True),
+                     lambda l: torch.mm(h_.view(M_, H), attn["to_out"]["w"][l]),
+                     lambda l: (nbytes(h_, mods[l][:, 2 * H:3 * H], m_) + leaf_bytes(out_, l) + 2 * M_ * H * 2,
+                                2.0 * M_ * H * H))],
             }
 
         rows = {}
@@ -374,13 +371,18 @@ def main() -> int:
                 rows.setdefault(name + sfx, []).extend(rs)
         return rows
 
-    x_in = act_rows[T]["x"]
-    per_layer = {
-        "row_stats": [(f"M={M} H={H} (the scan's first launch), partials held", lambda l: K.row_stats(x_in)[1],
-                       lambda l: K.row_stats_plain(x_in)[1], None,
-                       lambda l: (2 * nbytes(x_in) + nbytes(act_rows[T]["stats"]), 0.0))],
-        **gemm_rows(attn, ff, ""),
-    }
+    def adaln_rows():
+        """adaln_modulate at both row counts, each layer's shift/scale_msa (a modulation shared by the
+        batch, stride 0, as the sampler hoists it)."""
+        rows = []
+        for act in act_rows.values():
+            x_ = act["x"]
+            run = lambda fn, x_=x_: (lambda l: fn(x_, mods[l][:, :H], mods[l][:, H:2 * H]))  # noqa: E731
+            rows.append((f"M={x_.shape[0] * x_.shape[1]} H={H}", run(K.adaln_modulate), run(K.adaln_modulate_plain),
+                         None, lambda l, x_=x_: (2 * nbytes(x_) + nbytes(mods[l][:, :2 * H]), 0.0)))
+        return rows
+
+    per_layer = {"adaln_modulate": adaln_rows(), **gemm_rows(attn, ff, "")}
 
     def over_layers(fn):
         def run():
@@ -537,7 +539,7 @@ def main() -> int:
     host_ms = wrapper_host_ms(torch, dev)
     print(f"wrapper host time per call, median of 1000 (ms): {json.dumps(host_ms)}", flush=True)
     for e in entries:
-        if e["name"] in ("attention", "adaln_gemm_qkvg"):
+        if e["name"] in ("attention", "gemm_qkvg"):
             e["wrapper_host_ms"] = host_ms["qkvg product M=320" if e["name"] != "attention" else "attention dit T=40 + Sc=448"]
 
     # --------------------------------------------------------- serving phases
@@ -609,27 +611,27 @@ def main() -> int:
         return launches, batches, refs
 
     def scan_launches(launches, gemms):
-        """The scan is a host loop that launches nothing itself: row_stats
-        once a scan, the launches of its per-layer kernels, and the one
-        attention launch each layer makes (one per qkvg launch; the attention
-        counter also holds the encoders' launches)."""
-        names = ("row_stats",) + gemms
+        """The scan is a host loop that launches nothing itself: the launches
+        of its per-layer kernels, and the one attention launch each layer
+        makes (one per qkvg launch; the attention counter also holds the
+        encoders' launches)."""
+        names = ("adaln_modulate",) + gemms
         total = sum(launches.get(n, 0) for n in names) + launches.get(gemms[0], 0)
         return total, list(names) + ["attention (one per qkvg launch)"]
 
     def check_scan_counts(launches, n_b, tts, sfx):
-        """The exact launch counts of n_b batches: 4 scans a batch, each
-        row_stats once and, per layer, qkvg, w13 and two residuals (+ one
-        attention): 244 a batch; none of the kernels they replaced, and none
-        of the other weight type's GEMMs."""
-        scans, per = n_b * tts.num_steps, n_b * tts.num_steps * tts.cfg.dit.n_blocks
+        """The exact launch counts of n_b batches: 4 scans a batch of 12
+        layers, each two adaLNs, qkvg, w13 and two residuals (+ one
+        attention): 336 a batch; no separate q/k norm launch, and none of the
+        other weight type's GEMMs."""
+        per = n_b * tts.num_steps * tts.cfg.dit.n_blocks
         other = "_w8" if not sfx else ""
-        want = {"row_stats": scans, f"adaln_gemm_qkvg{sfx}": per, f"adaln_gemm_swiglu{sfx}": per,
+        want = {"adaln_modulate": 2 * per, f"gemm_qkvg{sfx}": per, f"gemm_swiglu{sfx}": per,
                 f"gemm_residual{sfx}": 2 * per, **{n: 0 for n in GONE}, **{n + other: 0 for n in GEMMS}}
         got = {k: launches.get(k, 0) for k in want}
         check(got == want, f"scan launch counts {json.dumps(got)}, want {json.dumps(want)}")
         total = scan_launches(launches, tuple(n + sfx for n in GEMMS))[0]
-        check(total == (tts.cfg.dit.n_blocks * 5 + 1) * scans, f"scan launches {total} for {n_b} batches")
+        check(total == 7 * per, f"scan launches {total} for {n_b} batches")
         print(f"  scan launch counts as expected for {n_b} batches: {total} ({total // n_b} a batch), "
               f"{json.dumps(want)}", flush=True)
 
@@ -676,7 +678,7 @@ def main() -> int:
                        if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in kern)
-        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("row_stats_kernel", "gemm_wgmma_kernel",
+        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "gemm_wgmma_kernel",
                                                                               W8_TC, W8_STREAM)))
 
         def seen(match):  # launches the profiler saw of kernels whose names hold one of `match`
@@ -866,11 +868,11 @@ def _median(xs):
 
 def wrapper_host_ms(torch, dev, calls=1000):
     """Host time per call (ms, median of `calls`) at served shapes of the
-    qkvg product's wrapper, the attention's, and the residual's as a control:
-    the Python checks, the ctypes call and the C launch code. The package may
-    be an earlier one (--compare): its qkvg product is then gemm_bias,
-    without the adaLN. The device runs behind; it is drained every 50 calls,
-    outside the timed calls."""
+    qkvg product's wrapper, the attention's, and adaln_modulate's as a
+    control: the Python checks, the ctypes call and the C launch code. The
+    package may be an earlier one (--compare): its qkvg product is then
+    gemm_bias, without the q/k norm. The device runs behind; it is drained
+    every 50 calls, outside the timed calls."""
     from smalltts_tpu_torch.ops.kernels import attention as A
     from smalltts_tpu_torch.ops.kernels import dit_block as K
 
@@ -883,17 +885,16 @@ def wrapper_host_ms(torch, dev, calls=1000):
     q, k, v, gate, k2, v2 = r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), \
         r(8, 8, 448, 120), r(8, 8, 448, 120)
     m1, m2 = torch.ones((8, 40), dtype=torch.bool, device=dev), torch.ones((8, 448), dtype=torch.bool, device=dev)
-    shift, w_out, xr = r(8, 960), r(960, 960), r(8, 40, 960)
-    if hasattr(K, "adaln_gemm_qkvg"):
-        x, stats = K.row_stats(a)
+    shift = r(8, 960)
+    if hasattr(K, "gemm_qkvg"):
         qs, cos = r(8, 120), torch.ones((40, 64), device=dev)
-        qkvg = lambda: K.adaln_gemm_qkvg(x, stats, shift, shift, w, b, qs, qs, cos, cos)  # noqa: E731
+        qkvg = lambda: K.gemm_qkvg(a, w, b, qs, qs, cos, cos)  # noqa: E731
     else:
         qkvg = lambda: K.gemm_bias(a, w, b)  # noqa: E731
     res = {}
     for name, fn in (("qkvg product M=320", qkvg),
                      ("attention dit T=40 + Sc=448", lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate)),
-                     ("gemm_residual M=320 (control)", lambda: K.gemm_residual(a, w_out, None, xr, shift))):
+                     ("adaln_modulate M=320 (control)", lambda: K.adaln_modulate(a, shift, shift))):
         for _ in range(20):
             fn()
         torch.cuda.synchronize()

@@ -4,18 +4,17 @@
 // The TPU kernel keeps the whole (B, T, 960) residual and a 2 MB weight window
 // resident in VMEM across all 12 layers. An SM has 227 KB of shared memory, so
 // here the scan is a host loop over layers (ops/kernels/dit_block.py) and each
-// layer is 4 launches of the GEMM in this file plus the attention kernel
-// (attention.cu); the scan adds one launch before its first layer:
+// layer is 7 launches of the kernels in this file plus the attention kernel
+// (attention.cu):
 //
-//   row_stats   (once a scan) x copied to the scan's working buffer, with
-//               each row's (mean, M2) over every 64-column tile: the
-//               "partials" the next adaLN reads
-//   gemm EPI_QKVG    [q|k|v|gate] = adaLN_msa(x) @ W_qkvg + b, then per-head
-//                    RMSNorm * scale and interleaved RoPE on q and k
+//   adaln_modulate   h = LN(x) * (1 + scale[b]) + shift[b]
+//   gemm EPI_QKVG    [q|k|v|gate] = h @ W_qkvg + b, then per-head RMSNorm *
+//                    scale and interleaved RoPE on q and k, in the epilogue
 //   attention        self keys + cross [ref|text] keys, one softmax, * sigmoid(gate)
-//   gemm EPI_RESID   x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask, + partials
-//   gemm EPI_SWIGLU  ff = silu(h W1 + b1) * (h W3 + b3), h = adaLN_mlp(x)  (W13 = [W1 | W3])
-//   gemm EPI_RESID   x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked), + partials
+//   gemm EPI_RESID   x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask
+//   adaln_modulate
+//   gemm EPI_SWIGLU  ff = silu(h @ W1 + b1) * (h @ W3 + b3)   (W13 = [W1 | W3])
+//   gemm EPI_RESID   x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked)
 //
 // Numerics follow _block_core (smalltts_tpu/models/dit.py:371-382), the JAX
 // default path, rounding to bf16 where its bf16 ops round: each product is
@@ -30,33 +29,26 @@
 // each of silu's four ops. Every kernel here takes bf16 tensors. The plain
 // versions (ops/kernels/dit_block.py) do the same arithmetic.
 //
+// adaln_modulate is bound by a launch's fixed cost (1.2 MB at M = 320 is
+// 0.37 us at 3.35 TB/s): one warp a row holds the row in registers, read
+// once with 16-byte loads beside the row's batch's shift and scale, two warp
+// reductions (mean, then the sum of squared deviations), one 16-byte store
+// per 8 values.
+//
 // The GEMM (gemm_wgmma_kernel). What bounds it on the H100: the four
 // products of a layer stream 22 MB of bf16 weights (6.6 us at 3.35 TB/s) and
 // do 7.4 GFLOP at M = B*T = 320 rows (7.5 us at 989 TFLOP/s): they sit at the
 // card's ridge, so the design must both read each weight byte from HBM once
-// and keep the tensor cores at their Hopper rate; and the norms between the
-// products, each a few hundred KB, are bound by a launch's fixed cost unless
-// they ride along in a product. The design:
+// and keep the tensor cores at their Hopper rate. The design:
 //  * one consumer warpgroup issues wgmma.mma_async m64nNk16 (bf16 in, fp32
-//    accumulators in registers) on 64-row tiles; W in its stored (K, N)
-//    row-major layout (MN-major: the transpose-B bit, no transposed copy)
-//    comes from shared memory in the 128-byte swizzle, with BK = 64 (128
-//    bytes of bf16, the swizzle's width);
+//    accumulators in registers) on 64-row tiles; A (activations, K-major) and
+//    W in its stored (K, N) row-major layout (MN-major: the transpose-B bit,
+//    no transposed copy) both come from shared memory in the 128-byte swizzle,
+//    with BK = 64 (128 bytes of bf16, the swizzle's width);
 //  * one TMA warp keeps a ring of 3-6 stages (100 KB) full with
 //    cp.async.bulk.tensor.2d, mbarrier completion, zero fill past the edges
 //    (M, N and K tails); the activation's tensor map is encoded per call in
 //    C, each weight's once and cached (its key is everything the map holds);
-//  * the adaLN rides in the A path of the two products that read it (qkvg,
-//    w13): x lands by TMA as it is, each consumer thread reads its wgmma A
-//    fragments with ldmatrix from the swizzled tile, applies the four
-//    rounding points with its rows' mean and rstd and the row's batch's
-//    (1 + scale) and shift, and issues wgmma with A in registers, four k16
-//    register sets in flight (wgmma.wait_group 3), so the next step's A is
-//    made while the previous products run; no normalized tile is written
-//    anywhere. A row's mean and rstd come from the partials the kernel that
-//    last wrote x left behind (row_stats, or the residual epilogue's two
-//    quad reductions of its 64 new values a row), merged in tile order
-//    (Chan et al.), so no pass over x precedes the product;
 //  * qkvg runs one block per head (120 columns, wgmma n = 128 over a W box
 //    that starts at column 120 j; the last 8 columns are discarded): a row's
 //    120 values of a head lie in the 4 threads of a quad, so the q/k RMSNorm
@@ -72,8 +64,7 @@
 //  * the epilogues read the accumulator fragments in registers and store
 //    bf16x2: SwiGLU from two accumulator sets (w1's and w3's columns
 //    n0..n0+63 land in the same thread), silu as JAX's op chain; the gated
-//    residual reads x, gate and row_mask, updates x in place and writes the
-//    row partials of its tile.
+//    residual reads x, gate and row_mask and updates x in place.
 // int8 weights (the w8_stream serving option, smalltts_tpu/models/dit.py::
 // quantize_stream_weights): W is int8 (K, N) with an fp32 per-column scale,
 // half the bytes. The int8 tile lands by TMA; the consumer warpgroup turns
@@ -81,8 +72,10 @@
 // bf16(bf16(q) * bf16(scale)), with the block's scales held in registers,
 // while the previous stage's wgmma runs; no bf16 copy of a weight is
 // written to device memory.
-// Measured times (H100 80GB HBM3, 700 W) and the grids each product gets are
-// in PERF.md section 6.
+// An adaLN applied to wgmma's A fragments in registers inside qkvg and w13
+// (no adaln_modulate launch) was built and measured slower than the launch
+// it saves (PERF.md section 6). Measured times (H100 80GB HBM3, 700 W)
+// and the grids each product gets are in PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -96,7 +89,6 @@ using bf16 = __nv_bfloat16;
 namespace {
 
 constexpr float EPS = 1e-6f;  // the adaLN LayerNorm and the q/k RMSNorm (_block_core)
-constexpr int ST = 64;        // columns a row partial (mean, M2) covers
 
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 // the value `v` takes once stored in bf16 (rounding points of the JAX path)
@@ -109,7 +101,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 __device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) { return *reinterpret_cast<const __nv_bfloat162*>(&v); }
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) { return __ldg(reinterpret_cast<const unsigned int*>(p)); }
 // 1 / sqrt(v), both correctly rounded: torch.rsqrt's arithmetic, which the plain versions use
 __device__ __forceinline__ float rsqrt_rn(float v) { return __fdiv_rn(1.f, __fsqrt_rn(v)); }
 // the sum over the 4 threads of a quad, in one order
@@ -118,88 +109,82 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// A row's mean and 1 / sqrt(var + eps) from its (mean, M2) partials over the
-// 64-column tiles of a width-H row, merged in tile order (Chan et al.): with
-// counts n and nb, d = mean_b - mean, mean += d * (nb / (n + nb)), M2 += M2_b
-// + d^2 * (n * nb / (n + nb)). row_moments_plain does these ops in this order.
-__device__ void row_moments(const float2* st, int H, float& mu, float& rstd) {
-  constexpr int BATCH = 16;  // partials loaded together, then merged
-  float n = 0.f, mean = 0.f, m2 = 0.f;
-  for (int t0 = 0; t0 * ST < H; t0 += BATCH) {
-    float2 p[BATCH];
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-    for (int i = 0; i < BATCH; ++i) p[i] = (t0 + i) * ST < H ? st[t0 + i] : make_float2(0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < BATCH; ++i) {
-      const int c0 = (t0 + i) * ST;
-      if (c0 >= H) break;
-      const float nb = static_cast<float>(min(ST, H - c0));
-      if (c0 == 0) {
-        n = nb, mean = p[i].x, m2 = p[i].y;
-        continue;
-      }
-      const float nn = __fadd_rn(n, nb), d = __fsub_rn(p[i].x, mean);
-      mean = __fadd_rn(mean, __fmul_rn(d, __fdiv_rn(nb, nn)));
-      m2 = __fadd_rn(__fadd_rn(m2, p[i].y), __fmul_rn(__fmul_rn(d, d), __fdiv_rn(__fmul_rn(n, nb), nn)));
-      n = nn;
-    }
-  }
-  mu = mean;
-  rstd = rsqrt_rn(__fadd_rn(__fdiv_rn(m2, static_cast<float>(H)), EPS));
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
-// the adaLN of two bf16 values of one row (a wgmma A register): n = bf16((x -
-// mu) * rstd), then bf16(bf16(n * bf16(1 + scale)) + shift). The bf16x2 ops
+// bf16(bf16(n * bf16(1 + scale)) + shift) on a bf16x2 pair. The bf16x2 ops
 // round once from the exact result, which equals fp32 arithmetic rounded to
 // bf16 for a sum or a product of two bf16 values (24 >= 2 * 8 + 2 bits); the
 // _rn forms keep the compiler from contracting the product and the sum into
 // one FMA, which would round once where JAX rounds twice.
-__device__ __forceinline__ uint32_t adaln2(uint32_t xv, float mu, float rstd, uint32_t scale, uint32_t shift) {
-  const __nv_bfloat162 nv = __floats2bfloat162_rn(__fmul_rn(__fsub_rn(bf_lo(xv), mu), rstd),
-                                                  __fmul_rn(__fsub_rn(bf_hi(xv), mu), rstd));
+__device__ __forceinline__ uint32_t modulate2(uint32_t n, uint32_t scale, uint32_t shift) {
   const __nv_bfloat162 s = __hadd2_rn(__float2bfloat162_rn(1.f), as_bf2(scale));
-  return as_u32(__hadd2_rn(__hmul2_rn(nv, s), as_bf2(shift)));
+  return as_u32(__hadd2_rn(__hmul2_rn(as_bf2(n), s), as_bf2(shift)));
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+// ------------------------------------------------------------ adaln_modulate
 
-// ----------------------------------------------------------------- row_stats
+constexpr int ADALN_ROWS = 4;  // rows (warps) per block
 
-// The scan's input copied to its working buffer with the partials of every
-// 64-column tile: one warp a row, 16 bytes (8 columns) a lane, 8 lanes a tile.
-__global__ void row_stats_kernel(const bf16* __restrict__ x, bf16* __restrict__ out, float2* __restrict__ stats,
-                                 int M, int H) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+// one warp a row of H = 8 * 32 * NV or fewer values: lane l holds the
+// 16-byte chunks l, l + 32, ... of x, scale and shift in registers; the
+// mean, then the sum of squared deviations, each one warp reduction
+template <int NV>
+__global__ void __launch_bounds__(32 * ADALN_ROWS) adaln_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
+                                                             const bf16* __restrict__ shift,
+                                                             const bf16* __restrict__ scale, long long mod_sb,
+                                                             int M, int T, int H) {
+  const int row = blockIdx.x * ADALN_ROWS + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= M) return;  // the whole warp
-  const int nt = (H + ST - 1) / ST;
+  const long long b = row / T;
   const bf16* xr = x + (long long)row * H;
-  bf16* orow = out + (long long)row * H;
-  for (int t0 = 0; t0 < nt; t0 += 4) {
-    const int t = t0 + (lane >> 3), col = t * ST + 8 * (lane & 7);
-    const bool ok = t < nt && col < H;  // H is a multiple of 8
-    const uint4 v = ok ? *reinterpret_cast<const uint4*>(xr + col) : make_uint4(0u, 0u, 0u, 0u);
-    if (ok) *reinterpret_cast<uint4*>(orow + col) = v;
-    const float f[8] = {bf_lo(v.x), bf_hi(v.x), bf_lo(v.y), bf_hi(v.y),
-                        bf_lo(v.z), bf_hi(v.z), bf_lo(v.w), bf_hi(v.w)};
-    float s = 0.f;
+  uint4 xv[NV], sc[NV], sh[NV];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) s += f[e];
+  for (int i = 0; i < NV; ++i) {
+    const int c = 8 * (lane + 32 * i);
+    const bool ok = c < H;  // H is a multiple of 8
+    xv[i] = ok ? *reinterpret_cast<const uint4*>(xr + c) : make_uint4(0u, 0u, 0u, 0u);
+    sc[i] = ok ? __ldg(reinterpret_cast<const uint4*>(scale + b * mod_sb + c)) : make_uint4(0u, 0u, 0u, 0u);
+    sh[i] = ok ? __ldg(reinterpret_cast<const uint4*>(shift + b * mod_sb + c)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float sum = 0.f;
 #pragma unroll
-    for (int o = 1; o < 8; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = __fdiv_rn(s, static_cast<float>(max(1, min(ST, H - t * ST))));
-    float m2 = 0.f;
+  for (int i = 0; i < NV; ++i) {
+    const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
 #pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      const float d = f[e] - mean;
-      m2 += ok ? d * d : 0.f;
+    for (int q = 0; q < 4; ++q) sum += bf_lo(w[q]) + bf_hi(w[q]);  // chunks past H are zeros
+  }
+  const float mean = __fdiv_rn(warp_sum(sum), static_cast<float>(H));
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    if (8 * (lane + 32 * i) >= H) continue;
+    const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float d0 = bf_lo(w[q]) - mean, d1 = bf_hi(w[q]) - mean;
+      ss += d0 * d0 + d1 * d1;
     }
+  }
+  const float rstd = rsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(ss), static_cast<float>(H)), EPS));
+  bf16* orow = out + (long long)row * H;
 #pragma unroll
-    for (int o = 1; o < 8; o <<= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-    if ((lane & 7) == 0 && t < nt) stats[(long long)row * nt + t] = make_float2(mean, m2);
+  for (int i = 0; i < NV; ++i) {
+    const int c = 8 * (lane + 32 * i);
+    if (c >= H) continue;
+    const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w}, s[4] = {sc[i].x, sc[i].y, sc[i].z, sc[i].w},
+                   f[4] = {sh[i].x, sh[i].y, sh[i].z, sh[i].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t n = pack_bf16x2(__fmul_rn(__fsub_rn(bf_lo(w[q]), mean), rstd),
+                                     __fmul_rn(__fsub_rn(bf_hi(w[q]), mean), rstd));
+      o[q] = modulate2(n, s[q], f[q]);
+    }
+    *reinterpret_cast<uint4*>(orow + c) = make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
@@ -217,10 +202,6 @@ struct GemmArgs {
   const bf16* bias;     // (wcols,) or null
   bf16* out;            // (M, N), row stride ldo; EPI_RESID: the residual, updated in place
   long long ldo;
-  float2* stats;  // QKVG / SWIGLU: (M, ceil(K/64)) partials of A, read; RESID: (M, ceil(N/64)) written, or null
-  const bf16* shift;  // QKVG / SWIGLU: the adaLN's (B, K) shift and scale rows at stride mod_sb
-  const bf16* scale;
-  long long mod_sb;
   const bf16* gate;  // EPI_RESID: (B, N) rows at stride gate_sb
   long long gate_sb;
   const unsigned char* row_mask;  // EPI_RESID: (M,) or null
@@ -236,7 +217,6 @@ struct GemmArgs {
 
 template <int EPI, bool W8>
 struct GemmCfg {
-  static constexpr bool AREG = EPI != EPI_RESID;             // the adaLN in the A path, A from registers
   static constexpr int BN = EPI == EPI_RESID ? 64 : 128;     // W columns a block multiplies per k step
   static constexpr int NSUB = BN / GSUB;                     // W sub-tiles per stage
   static constexpr int BNO = EPI == EPI_RESID || EPI == EPI_SWIGLU ? GSUB : BN;  // output tile (QKVG: a head)
@@ -270,6 +250,27 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
+// d (64 x 128, fp32) += A (64 x 16, K-major) * B (16 x 128, MN-major), both from shared memory
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // JAX's silu(a) * b on the rounded [w1|w3] linear: a * (1 / (1 + exp(-a))),
 // each op rounded to bf16
 __device__ __forceinline__ float swiglu(float a, float b) {
@@ -286,7 +287,7 @@ __device__ __forceinline__ float s8_scaled(uint32_t u, int b, float s, float off
   return fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | b)), s, off);
 }
 
-// two blocks per SM: a 160-block grid is resident in one wave
+// two blocks per SM: a 190-block grid is resident in one wave
 template <int EPI, bool W8>
 __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
@@ -367,45 +368,8 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
           off[j][e] = -8388736.f * sc[j][e];
         }
     }
-    // the adaLN: this thread's A rows are 16 warp + lane / 4 (+ 8) of the
-    // tile, its k pairs 2c and 2c + 8 of each k16 step
-    const int c = lane & 3;
-    float mu[2] = {0.f, 0.f}, rstd[2] = {0.f, 0.f};
-    const bf16* shp[2] = {g.shift, g.shift};
-    const bf16* scp[2] = {g.scale, g.scale};
-    if constexpr (C::AREG) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int m = m0 + warp * 16 + (lane >> 2) + 8 * hr;
-        if (m < g.M) row_moments(g.stats + (long long)m * ((g.K + ST - 1) / ST), g.K, mu[hr], rstd[hr]);
-        const long long b = min(m, g.M - 1) / g.T;
-        shp[hr] = g.shift + b * g.mod_sb;
-        scp[hr] = g.scale + b * g.mod_sb;
-      }
-    }
-    // ldmatrix: lane l addresses row (l % 8) + 8 ((l / 8) % 2) of the warp's
-    // 16 and 16-byte chunk l / 16 of the k16 step; matrices 0-3 are then the
-    // A registers (row g, k 2c), (g + 8, 2c), (g, 2c + 8), (g + 8, 2c + 8)
-    const int lrow = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1), lchunk = lane >> 4;
-    uint32_t a[GBK / 16][4];  // the A registers of the stage's 4 k16 steps
-
     for (int kt = kt0, i = 0; kt < kt1; ++kt, ++i) {
       const int s = i % C::STAGES, u = i / C::STAGES;
-      // the stage's shift and scale pairs, requested before the wait
-      uint32_t shv[C::AREG ? 2 : 1][GBK / 16][2], scv[C::AREG ? 2 : 1][GBK / 16][2];
-      if constexpr (C::AREG) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-          for (int j = 0; j < GBK / 16; ++j)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int col = kt * GBK + 16 * j + 2 * c + 8 * h;
-              const bool ok = col < g.K;  // K is a multiple of 8: both columns or neither
-              shv[hr][j][h] = ok ? ld_u32(shp[hr] + col) : 0u;
-              scv[hr][j][h] = ok ? ld_u32(scp[hr] + col) : 0u;
-            }
-      }
       mbar_wait(&full[s], u & 1);
       if constexpr (W8) {
 #pragma unroll
@@ -426,43 +390,26 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
         asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");  // the whole tile is written
       }
-      if constexpr (C::AREG) {
+      // 4 k16 wgmmas per stage, one group kept in flight
+      fence_regs<C::ACC>(acc);
+      wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < GBK / 16; ++j) {
-          // 4 groups stay in flight; the one that read a[j] a stage ago is done
-          wgmma_wait<GBK / 16 - 1>();
-          if (j == GBK / 16 - 1 && i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);  // and so is that stage
-          uint32_t xv[4];
-          const int ch = 2 * j + lchunk;  // 16-byte chunk ch of row r sits at chunk ch ^ (r % 8)
-          ldsm_x4(xv, a_tile(s) + lrow * 128 + ((ch ^ (lrow & 7)) << 4));
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            a[j][q] = adaln2(xv[q], mu[q & 1], rstd[q & 1], scv[q & 1][j][q >> 1], shv[q & 1][j][q >> 1]);
-          fence_regs<C::ACC>(acc);
-          wgmma_fence();
-          const uint64_t db = sw128_desc(b_tile(s, 0) + 2048 * j, C::SUB_BYTES, 1024);  // 16 k rows
-          if constexpr (EPI == EPI_SWIGLU) {
-            wgmma_rs_n64<1>(acc, a[j], db);
-            wgmma_rs_n64<1>(acc + 32, a[j], sw128_desc(b_tile(s, 1) + 2048 * j, C::SUB_BYTES, 1024));
-          } else {
-            wgmma_rs_n128<1>(acc, a[j], db);
-          }
-          wgmma_commit();
+      for (int k = 0; k < GBK / 16; ++k) {
+        const uint64_t da = sw128_desc(a_tile(s) + 32 * k, 16, 1024);  // 16 k = 32 bytes along the row
+        const uint64_t db = sw128_desc(b_tile(s, 0) + 2048 * k, C::SUB_BYTES, 1024);  // 16 k rows
+        if constexpr (EPI == EPI_SWIGLU) {
+          wgmma_n64(acc, da, db);
+          wgmma_n64(acc + 32, da, sw128_desc(b_tile(s, 1) + 2048 * k, C::SUB_BYTES, 1024));
+        } else if constexpr (EPI == EPI_QKVG) {
+          wgmma_n128(acc, da, db);
+        } else {
+          wgmma_n64(acc, da, db);
         }
-      } else {
-        // A from shared memory: 4 k16 wgmmas per stage, one group kept in flight
-        fence_regs<C::ACC>(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int k = 0; k < GBK / 16; ++k) {
-          const uint64_t da = sw128_desc(a_tile(s) + 32 * k, 16, 1024);  // 16 k = 32 bytes along the row
-          wgmma_n64(acc, da, sw128_desc(b_tile(s, 0) + 2048 * k, C::SUB_BYTES, 1024));
-        }
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous stage's products are done: release it
-        fence_regs<C::ACC>(acc);
-        if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
       }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      fence_regs<C::ACC>(acc);
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
     }
     wgmma_wait<0>();
     fence_regs<C::ACC>(acc);
@@ -516,43 +463,48 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
   if constexpr (EPI == EPI_QKVG) {
     // a head of D columns: v = bf16(acc + b); q and k heads then
     // bf16(v * rsqrt(mean(v^2) + eps) * scale[d]) and, on d < rot, the fp32
-    // rotation of the pair (d, d + 1), rounded again
+    // rotation of the pair (d, d + 1), rounded again. Every load is
+    // predicated and issued before the arithmetic that needs it, a row's
+    // tables at once: a load behind a branch would cost a round trip each.
     const int head = blockIdx.y;
     const bool qk = head < 2 * g.heads;  // uniform per block
     const bf16* nscale = !qk ? g.q_scale : head < g.heads ? g.q_scale + head * g.D : g.k_scale + (head - g.heads) * g.D;
-    float2 v[2][NJ];
-    float ss[2] = {0.f, 0.f};
+    float2 b[NJ];
+    uint32_t nsc[NJ];  // the norm's scale pair (bf16x2) at d = 8 j + cq
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int d = 8 * j + cq;
-      const float2 b = d < g.D ? bias_at(n0 + d) : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const float2 t = acc_at(j, hr);
-        v[hr][j] = d < g.D ? make_float2(rbf(t.x + b.x), rbf(t.y + b.y)) : make_float2(0.f, 0.f);
-        ss[hr] += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
-      }
+      b[j] = d < g.D ? bias_at(n0 + d) : make_float2(0.f, 0.f);
+      nsc[j] = qk && d < g.D ? *reinterpret_cast<const uint32_t*>(nscale + d) : 0u;
     }
-    if (qk) {
+    float2 v[2][NJ];
 #pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(quad_sum(ss[hr]), static_cast<float>(g.D)), EPS));
-        const int t = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
-        const float* ct = g.cos_t + (long long)t * g.rot;
-        const float* stb = g.sin_t + (long long)t * g.rot;
+    for (int hr = 0; hr < 2; ++hr) {
+      const int t = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
+      float2 cs[NJ], sn[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int d = 8 * j + cq;  // rot is even: a pair rotates together
+        const bool rot = qk && d < g.rot;
+        cs[j] = rot ? *reinterpret_cast<const float2*>(g.cos_t + (long long)t * g.rot + d) : make_float2(1.f, 1.f);
+        sn[j] = rot ? *reinterpret_cast<const float2*>(g.sin_t + (long long)t * g.rot + d) : make_float2(0.f, 0.f);
+      }
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float2 a = acc_at(j, hr);
+        v[hr][j] = 8 * j + cq < g.D ? make_float2(rbf(a.x + b[j].x), rbf(a.y + b[j].y)) : make_float2(0.f, 0.f);
+        ss += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
+      }
+      if (qk) {
+        const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(quad_sum(ss), static_cast<float>(g.D)), EPS));
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
-          const int d = 8 * j + cq;
-          if (d >= g.D) continue;
-          const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, inv), ld(nscale + d)));
-          const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, inv), ld(nscale + d + 1)));
-          if (d < g.rot) {  // rot is even: the pair rotates together
-            const float2 cs = *reinterpret_cast<const float2*>(ct + d), sn = *reinterpret_cast<const float2*>(stb + d);
-            v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs.x), __fmul_rn(y1, sn.x))),
-                                   rbf(__fadd_rn(__fmul_rn(y1, cs.y), __fmul_rn(y0, sn.y))));
-          } else {
-            v[hr][j] = make_float2(y0, y1);
-          }
+          const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, inv), bf_lo(nsc[j])));
+          const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, inv), bf_hi(nsc[j])));
+          // off the rotated lanes cos = 1 and sin = 0: y unchanged, rounded once more (exact)
+          v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs[j].x), __fmul_rn(y1, sn[j].x))),
+                                 rbf(__fadd_rn(__fmul_rn(y1, cs[j].y), __fmul_rn(y0, sn[j].y))));
         }
       }
     }
@@ -590,10 +542,9 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
       }
     }
   } else {
-    // the gated residual, x' = bf16(x + bf16(bf16(tanh(gate)) * bf16(acc + b))),
-    // then the row partials of the tile's new values
-    float2 b1[NJ], gt[2][NJ], xin[2][NJ], o[2][NJ];
-    bool keep[2], mok[2];
+    // the gated residual, x' = bf16(x + bf16(bf16(tanh(gate)) * bf16(acc + b)))
+    float2 b1[NJ], gt[2][NJ], xin[2][NJ];
+    bool keep[2];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int n = n0 + 8 * j + cq;
@@ -602,52 +553,30 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int m = m0 + wr + 8 * hr;
-      mok[hr] = m < g.M;
-      keep[hr] = mok[hr] && (!g.row_mask || g.row_mask[m]);
+      keep[hr] = m < g.M && (!g.row_mask || g.row_mask[m]);
       const bf16* grow = g.gate + (long long)(min(m, g.M - 1) / g.T) * g.gate_sb;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = n0 + 8 * j + cq;
-        const bool ok = mok[hr] && n < g.N;
+        const bool ok = m < g.M && n < g.N;
         gt[hr][j] = ok ? make_float2(rbf(tanhf(ld(grow + n))), rbf(tanhf(ld(grow + n + 1)))) : make_float2(0.f, 0.f);
         xin[hr][j] = ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(g.out + (long long)m * g.ldo + n))
                         : make_float2(0.f, 0.f);
       }
     }
-    const int ncol = min(ST, g.N - n0);  // the tile's valid columns
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float2 t = acc_at(j, hr);
-        const float p0 = keep[hr] ? rbf(gt[hr][j].x * rbf(t.x + b1[j].x)) : 0.f;
-        const float p1 = keep[hr] ? rbf(gt[hr][j].y * rbf(t.y + b1[j].y)) : 0.f;
-        o[hr][j] = make_float2(rbf(xin[hr][j].x + p0), rbf(xin[hr][j].y + p1));
-        if (8 * j + cq < ncol) sum += o[hr][j].x + o[hr][j].y;
-      }
-      if (g.stats) {  // uniform per launch
-        const float mean = __fdiv_rn(quad_sum(sum), static_cast<float>(ncol));
-        float m2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-          if (8 * j + cq < ncol) {
-            const float d0 = o[hr][j].x - mean, d1 = o[hr][j].y - mean;
-            m2 += d0 * d0 + d1 * d1;
-          }
-        m2 = quad_sum(m2);
-        if ((lane & 3) == 0 && mok[hr])
-          g.stats[(long long)(m0 + wr + 8 * hr) * ((g.N + ST - 1) / ST) + n0 / ST] = make_float2(mean, m2);
-      }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      if (!mok[hr]) continue;
-      bf16* orow = g.out + (long long)(m0 + wr + 8 * hr) * g.ldo;
+      const int m = m0 + wr + 8 * hr;
+      if (m >= g.M) continue;
+      bf16* orow = g.out + (long long)m * g.ldo;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = n0 + 8 * j + cq;
-        if (n < g.N) *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(o[hr][j].x, o[hr][j].y);
+        if (n >= g.N) continue;
+        const float2 t = acc_at(j, hr);
+        const float p0 = keep[hr] ? rbf(gt[hr][j].x * rbf(t.x + b1[j].x)) : 0.f;
+        const float p1 = keep[hr] ? rbf(gt[hr][j].y * rbf(t.y + b1[j].y)) : 0.f;
+        *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(xin[hr][j].x + p0, xin[hr][j].y + p1);
       }
     }
   }
@@ -713,65 +642,60 @@ int prepare(GemmArgs& g, const void* A, const void* W, long long ldw, const floa
   return 0;
 }
 
-// the adaLN's operands: (B, K) shift / scale rows at stride mod_sb, read 4 bytes at a time
-int set_adaln(GemmArgs& g, const void* stats, const void* shift, const void* scale, long long mod_sb, int T) {
-  if (!stats || T <= 0 || (mod_sb & 1) || ((reinterpret_cast<size_t>(shift) | reinterpret_cast<size_t>(scale)) & 3))
-    return (int)cudaErrorInvalidValue;
-  g.stats = static_cast<float2*>(const_cast<void*>(stats));
-  g.shift = static_cast<const bf16*>(shift); g.scale = static_cast<const bf16*>(scale); g.mod_sb = mod_sb;
-  g.T = T;
-  return 0;
-}
-
 }  // namespace
 
-// bf16 x (M, H) contiguous -> out (a copy) and stats (M, ceil(H/64)) fp32
-// (mean, M2) pairs; H a multiple of 8, x and out 16-byte aligned.
-extern "C" int st_row_stats(const void* x, void* out, void* stats, int M, int H, void* stream) {
-  if (M <= 0 || H <= 0 || (H & 7) || ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out)) & 15))
+// bf16. x / out (M, H) contiguous, H a multiple of 8 up to 2048; shift /
+// scale rows of H at batch stride mod_sb (0 when one modulation serves the
+// whole batch); every row start 16-byte aligned.
+extern "C" int st_adaln_modulate(const void* x, void* out, const void* shift, const void* scale,
+                                 long long mod_sb, int M, int T, int H, void* stream) {
+  if (M <= 0 || T <= 0 || H <= 0 || (H & 7) || H > 2048 || (mod_sb & 7) ||
+      ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(out) | reinterpret_cast<size_t>(shift) |
+        reinterpret_cast<size_t>(scale)) & 15))
     return (int)cudaErrorInvalidValue;
-  row_stats_kernel<<<(M + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(out), static_cast<float2*>(stats), M, H);
+  const dim3 grid((M + ADALN_ROWS - 1) / ADALN_ROWS), block(32 * ADALN_ROWS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16 *xp = static_cast<const bf16*>(x), *sh = static_cast<const bf16*>(shift),
+             *sc = static_cast<const bf16*>(scale);
+  bf16* op = static_cast<bf16*>(out);
+  const int chunks = (H / 8 + 31) / 32;  // 16-byte chunks per lane
+  if (chunks <= 1) adaln_kernel<1><<<grid, block, 0, s>>>(xp, op, sh, sc, mod_sb, M, T, H);
+  else if (chunks <= 2) adaln_kernel<2><<<grid, block, 0, s>>>(xp, op, sh, sc, mod_sb, M, T, H);
+  else if (chunks <= 4) adaln_kernel<4><<<grid, block, 0, s>>>(xp, op, sh, sc, mod_sb, M, T, H);
+  else adaln_kernel<8><<<grid, block, 0, s>>>(xp, op, sh, sc, mod_sb, M, T, H);
   return (int)cudaGetLastError();
 }
 
-// qkvg (M, N) = adaLN(x) @ W + bias, N = 4 heads D ([q | k | v | gate]), then
-// the q/k RMSNorm (q_scale / k_scale (heads, D) bf16) and RoPE on lanes [0,
-// rot) (cos / sin (T, rot) fp32) on the first 2 heads D columns. x (M, K) bf16
-// with its partials `stats`; shift / scale (B, K) at batch stride mod_sb.
-extern "C" int st_gemm_qkvg(const void* x, const void* W, long long ldw, const float* wscale, const void* bias,
-                            void* out, const void* stats, const void* shift, const void* scale, long long mod_sb,
-                            const void* q_scale, const void* k_scale, const float* cos_t, const float* sin_t,
-                            int M, int N, int K, int T, int heads, int D, int rot, void* stream) {
+// qkvg (M, N) = h @ W + bias, N = 4 heads D ([q | k | v | gate]), then the
+// q/k RMSNorm (q_scale / k_scale (heads, D) bf16) and RoPE on lanes [0, rot)
+// (cos / sin (T, rot) fp32) on the first 2 heads D columns; h (M, K) bf16.
+extern "C" int st_gemm_qkvg(const void* h, const void* W, long long ldw, const float* wscale, const void* bias,
+                            void* out, const void* q_scale, const void* k_scale, const float* cos_t,
+                            const float* sin_t, int M, int N, int K, int T, int heads, int D, int rot, void* stream) {
   if (D <= 0 || D > QK_DMAX || (D & 7) || heads <= 0 || N != 4 * heads * D || rot < 0 || rot > D || (rot & 1) ||
-      !q_scale || !k_scale || ((reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 7) ||
+      T <= 0 || !q_scale || !k_scale || ((reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 7) ||
       (rot && (!cos_t || !sin_t)))
     return (int)cudaErrorInvalidValue;
   GemmArgs g{};
   CUtensorMap ta, tw;
-  int e = prepare(g, x, W, ldw, wscale, out, M, N, K, N, ta, tw);
-  if (!e) e = set_adaln(g, stats, shift, scale, mod_sb, T);
-  if (e) return e;
+  if (const int e = prepare(g, h, W, ldw, wscale, out, M, N, K, N, ta, tw)) return e;
   g.bias = static_cast<const bf16*>(bias);
   g.out = static_cast<bf16*>(out); g.ldo = N;
   g.q_scale = static_cast<const bf16*>(q_scale); g.k_scale = static_cast<const bf16*>(k_scale);
   g.cos_t = cos_t; g.sin_t = sin_t;
-  g.heads = heads; g.D = D; g.rot = rot;
+  g.heads = heads; g.D = D; g.rot = rot; g.T = T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wscale ? dispatch_gemm<EPI_QKVG, true>(ta, tw, g, s) : dispatch_gemm<EPI_QKVG, false>(ta, tw, g, s);
 }
 
-// out (M, F) = silu(h W1 + b1) * (h W3 + b3), h = adaLN(x), W13 = [W1 | W3]
-// (K, 2F) with bias (2F,); x, stats, shift, scale as for st_gemm_qkvg.
-extern "C" int st_gemm_swiglu(const void* x, const void* W, long long ldw, const float* wscale, const void* bias,
-                              void* out, const void* stats, const void* shift, const void* scale,
-                              long long mod_sb, int M, int F, int K, int T, void* stream) {
+// out (M, F) = silu(h W1 + b1) * (h W3 + b3), W13 = [W1 | W3] (K, 2F) with
+// bias (2F,); h (M, K) bf16.
+extern "C" int st_gemm_swiglu(const void* h, const void* W, long long ldw, const float* wscale, const void* bias,
+                              void* out, int M, int F, int K, void* stream) {
   if (!bias || (F & (wscale ? 15 : 7))) return (int)cudaErrorInvalidValue;
   GemmArgs g{};
   CUtensorMap ta, tw;
-  int e = prepare(g, x, W, ldw, wscale, out, M, F, K, 2 * F, ta, tw);
-  if (!e) e = set_adaln(g, stats, shift, scale, mod_sb, T);
-  if (e) return e;
+  if (const int e = prepare(g, h, W, ldw, wscale, out, M, F, K, 2 * F, ta, tw)) return e;
   g.bias = static_cast<const bf16*>(bias);
   g.out = static_cast<bf16*>(out); g.ldo = F;
   g.half = F;
@@ -780,12 +704,10 @@ extern "C" int st_gemm_swiglu(const void* x, const void* W, long long ldw, const
 }
 
 // x (M, N) += tanh(gate[m / T]) * (A @ W + bias) [* row_mask[m]], in place,
-// A (M, K); gate (B, N) rows at stride gate_sb; bias and row_mask may be
-// null. Where stats is given, each row's (mean, M2) of its new values over
-// each 64-column tile is written there, (M, ceil(N/64)) fp32 pairs.
+// A (M, K); gate (B, N) rows at stride gate_sb; bias and row_mask may be null.
 extern "C" int st_gemm_residual(const void* A, const void* W, long long ldw, const float* wscale, const void* bias,
-                                void* x, const void* gate, long long gate_sb, const void* row_mask, void* stats,
-                                int M, int N, int K, int T, void* stream) {
+                                void* x, const void* gate, long long gate_sb, const void* row_mask, int M, int N,
+                                int K, int T, void* stream) {
   if (!gate || T <= 0) return (int)cudaErrorInvalidValue;
   GemmArgs g{};
   CUtensorMap ta, tw;
@@ -794,7 +716,6 @@ extern "C" int st_gemm_residual(const void* A, const void* W, long long ldw, con
   g.out = static_cast<bf16*>(x); g.ldo = N;
   g.gate = static_cast<const bf16*>(gate); g.gate_sb = gate_sb;
   g.row_mask = static_cast<const unsigned char*>(row_mask);
-  g.stats = static_cast<float2*>(stats);
   g.T = T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wscale ? dispatch_gemm<EPI_RESID, true>(ta, tw, g, s) : dispatch_gemm<EPI_RESID, false>(ta, tw, g, s);

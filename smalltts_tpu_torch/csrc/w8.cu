@@ -228,10 +228,9 @@ struct W8Cfg {
 
 template <int NM>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-  // x is K-major: no transpose
-  if constexpr (NM == 8) wgmma_rs_n8<0>(d, a, db);
-  else if constexpr (NM == 32) wgmma_rs_n32<0>(d, a, db);
-  else wgmma_rs_n64<0>(d, a, db);
+  if constexpr (NM == 8) wgmma_rs_n8(d, a, db);
+  else if constexpr (NM == 32) wgmma_rs_n32(d, a, db);
+  else wgmma_rs_n64(d, a, db);
 }
 
 // the int8 values in bytes 0 and 2 of v as a bf16 pair, exactly: with m the

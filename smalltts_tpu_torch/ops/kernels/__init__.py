@@ -111,11 +111,10 @@ SIGNATURES = {
                           ctypes.POINTER(_I), _F, _P], _I),
     },
     "dit_block": {
-        "st_row_stats": ([_P, _P, _P, _I, _I, _P], _I),
-        "st_gemm_qkvg": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "st_gemm_swiglu": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
-        "st_gemm_residual": ([_P, _P, _L, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _P], _I),
+        "st_adaln_modulate": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
+        "st_gemm_qkvg": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "st_gemm_swiglu": ([_P, _P, _L, _P, _P, _P, _I, _I, _I, _P], _I),
+        "st_gemm_residual": ([_P, _P, _L, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P], _I),
     },
     "w8": {
         "st_w8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

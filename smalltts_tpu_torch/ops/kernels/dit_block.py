@@ -1,48 +1,38 @@
 """The cached DiT block scan: wrappers of csrc/dit_block.cu and plain versions.
 
 Port of the Pallas TPU kernel smalltts_tpu/ops/pallas/block.py::fused_dit_scan.
-On the H100 the 12-layer scan is a host loop; each layer is 5 launches of
-hand-written kernels, and the scan adds one before its first layer
-(csrc/dit_block.cu has the source note: what bounds it, and what the design
-does about that):
+On the H100 the 12-layer scan is a host loop; each layer is 7 launches of
+hand-written kernels (csrc/dit_block.cu has the source note: what bounds it,
+and what the design does about that):
 
-    row_stats (once a scan: the working copy of x and its row partials)
-    adaln_gemm_qkvg (adaLN -> qkvg product -> q/k RMSNorm + RoPE) -> attention
-    -> gemm_residual (to_out, row-masked, + partials)
-    -> adaln_gemm_swiglu (adaLN -> w13 product -> SwiGLU)
-    -> gemm_residual (w2, + partials)
+    adaln_modulate -> gemm_qkvg (+ q/k RMSNorm and RoPE) -> attention
+    -> gemm_residual (to_out, row-masked) -> adaln_modulate
+    -> gemm_swiglu (w13) -> gemm_residual (w2)
 
-The adaLN's row mean and variance come from "partials": each row's (mean,
-M2) over every 64-column tile of x, written by the kernel that last wrote x
-and merged in tile order by the product that reads it (row_moments_plain is
-that merge). Every rounding point is the JAX bf16 path's: the adaLN rounds
-n = LN(x), 1 + scale, n * (1 + scale) and + shift; the gated residual
-tanh(gate), tanh(gate) * y and x + that.
+Every rounding point is the JAX bf16 path's: the adaLN rounds LN(x),
+1 + scale, n * (1 + scale) and + shift; the gated residual tanh(gate),
+tanh(gate) * y and x + that.
 
 Each wrapper takes its plain version for CPU tensors (and under the
 test-only `kernels.force_plain()`), and otherwise launches its kernel or
 raises. The products go to the port's own GEMM kernel, never to cuBLAS: a
 Hopper wgmma kernel fed by TMA, with a split of K over a thread-block
-cluster chosen per product in C, the adaLN applied to A in registers, and
-the q/k norm + RoPE / SwiGLU / gated residual epilogues applied to the
-accumulators in registers.
+cluster chosen per product in C, and the q/k norm + RoPE / SwiGLU / gated
+residual epilogues applied to the accumulators in registers.
 
 With int8 stream weights (models/dit.py::quantize_stream_weights) a
 product's leaf holds `w_q` (K, N) int8 and `scale` (1, N) fp32 in place of
 `w`; the GEMM wrappers then take `w_scale` and launch the int8-weight
-variant of the kernel, counted under their own names (`adaln_gemm_qkvg_w8`,
-`adaln_gemm_swiglu_w8`, `gemm_residual_w8`).
+variant of the kernel, counted under their own names (`gemm_qkvg_w8`,
+`gemm_swiglu_w8`, `gemm_residual_w8`).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.attention import fused_attention
-
-PART = 64  # columns a row partial (mean, M2) covers
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -55,87 +45,40 @@ def _bf16_only(what: str, *ts) -> None:
         raise ValueError(f"{what}: bf16 only on the card, got {[t.dtype for t in ts]}")
 
 
-# ------------------------------------------------------------ row partials
-
-
-def row_partials_plain(x):
-    """(M, ceil(H/64), 2) fp32: each row's (mean, M2 = sum of (x - mean)^2)
-    over each 64-column tile of x (..., H); the last tile may be narrower."""
-    xf = x.reshape(-1, x.shape[-1]).float()
-    tiles = []
-    for c0 in range(0, xf.shape[1], PART):
-        t = xf[:, c0:c0 + PART]
-        mean = t.sum(-1) / t.shape[1]
-        tiles.append(torch.stack([mean, ((t - mean[:, None]) ** 2).sum(-1)], -1))
-    return torch.stack(tiles, 1)
-
-
-def row_moments_plain(stats, H, eps=1e-6):
-    """(mean, 1 / sqrt(var + eps)) per row from its partials, merged in tile
-    order (Chan et al.): d = mean_b - mean, mean += d * (nb / n'), M2 += M2_b
-    + d^2 * (n * nb / n'), the count ratios rounded in fp32, as the kernel
-    merges them."""
-    mean, m2, n = stats[:, 0, 0], stats[:, 0, 1], min(PART, H)
-    for t in range(1, stats.shape[1]):
-        nb = min(PART, H - t * PART)
-        nn_ = n + nb
-        d = stats[:, t, 0] - mean
-        mean = mean + d * float(np.float32(nb) / np.float32(nn_))
-        m2 = (m2 + stats[:, t, 1]) + (d * d) * float(np.float32(n * nb) / np.float32(nn_))
-        n = nn_
-    return mean, torch.rsqrt(m2 / H + eps)
-
-
-def row_stats_plain(x):
-    xc = x.contiguous().clone()
-    return xc, row_partials_plain(xc)
-
-
-def row_stats(x):
-    """(a contiguous copy of x (B, T, H), its row partials (B*T, ceil(H/64),
-    2) fp32): the scan's working buffer and what its first adaLN reads."""
-    if kernels.use_plain(x):
-        return row_stats_plain(x)
-    _bf16_only("row_stats", x)
-    x = x.contiguous()
-    H = x.shape[-1]
-    M = x.numel() // H
-    out = torch.empty_like(x)
-    stats = torch.empty((M, -(-H // PART), 2), device=x.device, dtype=torch.float32)
-    lib = kernels.load("dit_block")
-    status = lib.st_row_stats(x.data_ptr(), out.data_ptr(), stats.data_ptr(), M, H, _stream(x))
-    kernels.check(lib, "dit_block", status, "row_stats")
-    kernels.count_launch("row_stats")
-    return out, stats
-
-
-# ------------------------------------------------------------------- adaLN
-
-
-def _modulate(n, shift, scale):
-    """n * (1 + scale[b]) + shift[b], each op in n's dtype (bf16: three
-    roundings, as the JAX expression)."""
-    return n * (1 + scale[:, None]) + shift[:, None]
+# ------------------------------------------------------------ adaln_modulate
 
 
 def adaln_modulate_plain(x, shift, scale, eps=1e-6):
     """The JAX adaLN, nn.layernorm_noaffine(x) * (1 + scale) + shift: mean
     and variance in fp32 (two passes), the normalized value rounded to x's
-    dtype, then each op in that dtype. x (B, T, H); shift/scale (B, H)."""
+    dtype, then each op in that dtype (bf16: three more roundings).
+    x (B, T, H); shift/scale (B, H)."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    return _modulate(((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype), shift, scale)
+    n = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return n * (1 + scale[:, None]) + shift[:, None]
 
 
-def adaln_from_stats_plain(x, stats, shift, scale, eps=1e-6):
-    """The adaLN as the GEMMs apply it: the same rounding points, the mean
-    and variance from x's row partials (row_moments_plain)."""
-    H = x.shape[-1]
-    mu, rstd = row_moments_plain(stats, H, eps)
-    xf = x.reshape(-1, H).float()
-    n = ((xf - mu[:, None]) * rstd[:, None]).to(x.dtype).reshape(x.shape)
-    return _modulate(n, shift, scale)
+def adaln_modulate(x, shift, scale):
+    if kernels.use_plain(x):
+        return adaln_modulate_plain(x, shift, scale)
+    B, T, H = x.shape
+    if not x.is_contiguous() or shift.shape != (B, H) or scale.shape != (B, H):
+        raise ValueError("adaln_modulate: x (B,T,H) contiguous, shift/scale (B,H)")
+    if shift.stride() != scale.stride() or shift.stride(1) != 1:
+        raise ValueError("adaln_modulate: shift/scale must share strides, contiguous in H")
+    _bf16_only("adaln_modulate", x, shift, scale)
+    # 16-byte loads: every row start 16-byte aligned
+    if H % 8 or H > 2048 or shift.stride(0) % 8 or any(t.data_ptr() % 16 for t in (x, shift, scale)):
+        raise ValueError("adaln_modulate: H a multiple of 8 up to 2048, rows 16-byte aligned")
+    out = torch.empty_like(x)
+    lib = kernels.load("dit_block")
+    status = lib.st_adaln_modulate(x.data_ptr(), out.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+                                   shift.stride(0), B * T, T, H, _stream(x))
+    kernels.check(lib, "dit_block", status, "adaln_modulate")
+    kernels.count_launch("adaln_modulate")
+    return out
 
 
 # -------------------------------------------------------------- qk_norm_rope
@@ -186,26 +129,18 @@ def gemm_swiglu_plain(a, w13, b13, w_scale=None):
     return nn.silu(ab[..., :f]) * ab[..., f:]
 
 
-def adaln_gemm_qkvg_plain(x, stats, shift, scale, w, b, q_scale, k_scale, cos, sin, w_scale=None):
-    """adaLN(x) @ w + b, then the q/k RMSNorm and RoPE (qk_norm_rope_plain)."""
-    h = adaln_from_stats_plain(x, stats, shift, scale)
+def gemm_qkvg_plain(h, w, b, q_scale, k_scale, cos, sin, w_scale=None):
+    """h @ w + b, then the q/k RMSNorm and RoPE (qk_norm_rope_plain)."""
     return qk_norm_rope_plain(_product(h, w, b, w_scale), q_scale, k_scale, cos, sin)
 
 
-def adaln_gemm_swiglu_plain(x, stats, shift, scale, w13, b13, w_scale=None):
-    return gemm_swiglu_plain(adaln_from_stats_plain(x, stats, shift, scale), w13, b13, w_scale)
-
-
-def gemm_residual_plain(a, w, b, x, gate, row_mask=None, w_scale=None, stats=None):
+def gemm_residual_plain(a, w, b, x, gate, row_mask=None, w_scale=None):
     """x (B, T, N) += tanh(gate[b]) * (a @ w (+ b)) [* row_mask], in place,
-    each op in x's dtype; `stats`, where given, receives x's new row
-    partials."""
+    each op in x's dtype."""
     y = _product(a, w, b, w_scale)
     if row_mask is not None:
         y = torch.where(row_mask[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
     x.copy_(x + torch.tanh(gate)[:, None, :] * y)
-    if stats is not None:
-        stats.copy_(row_partials_plain(x))
     return x
 
 
@@ -240,86 +175,64 @@ def _bias_arg(what, t):
     return t.data_ptr() if t is not None else None
 
 
-def _adaln_args(what, x, stats, shift, scale):
-    """(M, T, batch stride) of the adaLN's operands: x (B, T, K) contiguous,
-    its partials (B*T, ceil(K/64), 2) fp32, shift/scale (B, K) sharing
-    strides, contiguous in K."""
-    B, T, K = x.shape
-    if (stats.dtype != torch.float32 or not stats.is_contiguous()
-            or stats.shape != (B * T, -(-K // PART), 2)):
-        raise ValueError(f"{what}: stats must be (B*T, ceil(K/64), 2) fp32 partials of x")
-    if shift.shape != (B, K) or scale.shape != (B, K) or shift.stride() != scale.stride() or shift.stride(1) != 1:
-        raise ValueError(f"{what}: shift/scale (B, K) sharing strides, contiguous in K")
-    _bf16_only(what, shift, scale)
-    if shift.stride(0) % 2 or any(t.data_ptr() % 4 for t in (shift, scale)):
-        raise ValueError(f"{what}: shift/scale rows must be 4-byte aligned")
-    return B * T, T, shift.stride(0)
-
-
 def _count(name, w_scale):
     kernels.count_launch(name if w_scale is None else name + "_w8")
 
 
-def adaln_gemm_qkvg(x, stats, shift, scale, w, b, q_scale, k_scale, cos, sin, w_scale=None):
-    """[q|k|v|gate] = adaLN(x) @ w + b in one launch, with the per-head
-    RMSNorm (q_scale / k_scale (heads, D)) and interleaved RoPE (cos/sin (T,
-    rot) fp32) applied to q and k. x (B, T, K) with its row partials `stats`;
-    shift/scale (B, K); w (K, 4 heads D), bf16 or int8 with `w_scale`."""
-    if kernels.use_plain(x):
-        return adaln_gemm_qkvg_plain(x, stats, shift, scale, w, b, q_scale, k_scale, cos, sin, w_scale)
-    what = "adaln_gemm_qkvg"
+def gemm_qkvg(h, w, b, q_scale, k_scale, cos, sin, w_scale=None):
+    """[q|k|v|gate] = h @ w + b in one launch, with the per-head RMSNorm
+    (q_scale / k_scale (heads, D)) and interleaved RoPE (cos/sin (T, rot)
+    fp32) applied to q and k. h (B, T, K); w (K, 4 heads D), bf16 or int8
+    with `w_scale`."""
+    if kernels.use_plain(h):
+        return gemm_qkvg_plain(h, w, b, q_scale, k_scale, cos, sin, w_scale)
+    what = "gemm_qkvg"
     heads, D = q_scale.shape
-    N = w.shape[1]
-    M, T, mod_sb = _adaln_args(what, x, stats, shift, scale)
-    ldw, w_scale = _weight_args(what, x, w, w_scale, N)
+    T, N = h.shape[1], w.shape[1]
+    ldw, w_scale = _weight_args(what, h, w, w_scale, N)
     rot = cos.shape[-1]
-    if N != 4 * heads * D or k_scale.shape != q_scale.shape or D % 8 or D > 128:
-        raise ValueError(f"{what}: w must be (K, 4 heads D), D a multiple of 8 up to 128")
+    if h.dim() != 3 or N != 4 * heads * D or k_scale.shape != q_scale.shape or D % 8 or D > 128:
+        raise ValueError(f"{what}: h (B, T, K), w (K, 4 heads D), D a multiple of 8 up to 128")
     if cos.shape != (T, rot) or sin.shape != cos.shape or cos.dtype != torch.float32 or rot % 2 or rot > D:
         raise ValueError(f"{what}: cos/sin must be fp32 (T, rot), rot even and <= D")
     q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
     cos, sin = cos.contiguous(), sin.contiguous()
     _bf16_only(what, q_scale, k_scale)
-    out = torch.empty((*x.shape[:-1], N), device=x.device, dtype=x.dtype)
+    out = torch.empty((*h.shape[:-1], N), device=h.device, dtype=h.dtype)
     lib = kernels.load("dit_block")
-    status = lib.st_gemm_qkvg(x.data_ptr(), w.data_ptr(), ldw, w_scale.data_ptr() if w_scale is not None else None,
-                              _bias_arg(what, b), out.data_ptr(), stats.data_ptr(), shift.data_ptr(),
-                              scale.data_ptr(), mod_sb, q_scale.data_ptr(), k_scale.data_ptr(), cos.data_ptr(),
-                              sin.data_ptr(), M, N, x.shape[-1], T, heads, D, rot, _stream(x))
+    status = lib.st_gemm_qkvg(h.data_ptr(), w.data_ptr(), ldw, w_scale.data_ptr() if w_scale is not None else None,
+                              _bias_arg(what, b), out.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
+                              cos.data_ptr(), sin.data_ptr(), h.numel() // h.shape[-1], N, h.shape[-1], T, heads, D,
+                              rot, _stream(h))
     kernels.check(lib, "dit_block", status, what)
     _count(what, w_scale)
     return out
 
 
-def adaln_gemm_swiglu(x, stats, shift, scale, w13, b13, w_scale=None):
-    """silu(h @ w1 + b1) * (h @ w3 + b3), h = adaLN(x), in one launch; w13 =
-    [w1 | w3] (K, 2F); x, stats, shift, scale as for adaln_gemm_qkvg."""
-    if kernels.use_plain(x):
-        return adaln_gemm_swiglu_plain(x, stats, shift, scale, w13, b13, w_scale)
-    what = "adaln_gemm_swiglu"
+def gemm_swiglu(a, w13, b13, w_scale=None):
+    """silu(a @ w1 + b1) * (a @ w3 + b3) with w13 = [w1 | w3] (K, 2F)."""
+    if kernels.use_plain(a):
+        return gemm_swiglu_plain(a, w13, b13, w_scale)
+    what = "gemm_swiglu"
     f = w13.shape[1] // 2
-    M, T, mod_sb = _adaln_args(what, x, stats, shift, scale)
-    ldw, w_scale = _weight_args(what, x, w13, w_scale, f)
+    ldw, w_scale = _weight_args(what, a, w13, w_scale, f)
     if b13 is None:
         raise ValueError(f"{what}: needs the bias")
-    out = torch.empty((*x.shape[:-1], f), device=x.device, dtype=x.dtype)
+    out = torch.empty((*a.shape[:-1], f), device=a.device, dtype=a.dtype)
     lib = kernels.load("dit_block")
-    status = lib.st_gemm_swiglu(x.data_ptr(), w13.data_ptr(), ldw,
-                                w_scale.data_ptr() if w_scale is not None else None, _bias_arg(what, b13),
-                                out.data_ptr(), stats.data_ptr(), shift.data_ptr(), scale.data_ptr(), mod_sb,
-                                M, f, x.shape[-1], T, _stream(x))
+    status = lib.st_gemm_swiglu(a.data_ptr(), w13.data_ptr(), ldw, w_scale.data_ptr() if w_scale is not None else None,
+                                _bias_arg(what, b13), out.data_ptr(), a.numel() // a.shape[-1], f, a.shape[-1],
+                                _stream(a))
     kernels.check(lib, "dit_block", status, what)
     _count(what, w_scale)
     return out
 
 
-def gemm_residual(a, w, b, x, gate, row_mask=None, w_scale=None, stats=None):
+def gemm_residual(a, w, b, x, gate, row_mask=None, w_scale=None):
     """x (B, T, N) += tanh(gate (B, N)) * (a @ w (+ b)) [* row_mask (B, T)],
-    updated in place; rows are NOT masked when row_mask is None. `stats`
-    ((B*T, ceil(N/64), 2) fp32), where given, receives x's new row
-    partials."""
+    updated in place; rows are NOT masked when row_mask is None."""
     if kernels.use_plain(a):
-        return gemm_residual_plain(a, w, b, x, gate, row_mask, w_scale, stats)
+        return gemm_residual_plain(a, w, b, x, gate, row_mask, w_scale)
     what = "gemm_residual"
     B, T, N = x.shape
     if gate.shape != (B, N) or (row_mask is not None and row_mask.shape != (B, T)):
@@ -328,19 +241,13 @@ def gemm_residual(a, w, b, x, gate, row_mask=None, w_scale=None, stats=None):
     _bf16_only(what, x)
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
-    if stats is not None and (stats.dtype != torch.float32 or not stats.is_contiguous()
-                              or stats.shape != (B * T, -(-N // PART), 2)):
-        raise ValueError(f"{what}: stats must be (B*T, ceil(N/64), 2) fp32")
-    mask = None
-    if row_mask is not None:
-        mask = row_mask.to(torch.bool).contiguous()
+    mask = row_mask.to(torch.bool).contiguous() if row_mask is not None else None
     lib = kernels.load("dit_block")
     status = lib.st_gemm_residual(a.data_ptr(), w.data_ptr(), ldw,
                                   w_scale.data_ptr() if w_scale is not None else None, _bias_arg(what, b),
                                   x.data_ptr(), _bias_arg(what, gate), gate.stride(0),
-                                  mask.data_ptr() if mask is not None else None,
-                                  stats.data_ptr() if stats is not None else None,
-                                  B * T, N, a.shape[-1], T, _stream(a))
+                                  mask.data_ptr() if mask is not None else None, B * T, N, a.shape[-1], T,
+                                  _stream(a))
     kernels.check(lib, "dit_block", status, what)
     _count(what, w_scale)
     return x
@@ -354,22 +261,21 @@ def _weight(lin):
     return (lin["w_q"], lin["scale"]) if "w_q" in lin else (lin["w"], None)
 
 
-def block_layer(x, stats, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, heads, head_dim):
+def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, heads, head_dim):
     """One cached DiT block (port of smalltts_tpu/models/dit.py::_block_core)
-    on the fused serving layout, updating x (B, T, H) and its row partials
-    `stats` in place. mod (B, 6H) [shift|scale|gate]_msa,
-    [shift|scale|gate]_mlp; cross_k/v (B, heads, Sc, D); masks (B, T) /
-    (B, Sc). Each product's leaf holds `w`, or int8 `w_q` with `scale`
-    (quantize_stream_weights)."""
+    on the fused serving layout, updating x (B, T, H) in place.
+    mod (B, 6H) [shift|scale|gate]_msa, [shift|scale|gate]_mlp; cross_k/v
+    (B, heads, Sc, D); masks (B, T) / (B, Sc). Each product's leaf holds
+    `w`, or int8 `w_q` with `scale` (quantize_stream_weights)."""
     B, T, H = x.shape
     inner = heads * head_dim
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
         mod[:, i * H:(i + 1) * H] for i in range(6))
     attn, ff = layer["attn"], layer["ff"]
 
+    h = adaln_modulate(x, shift_msa, scale_msa)
     w, s = _weight(attn["qkvg"])
-    qkvg = adaln_gemm_qkvg(x, stats, shift_msa, scale_msa, w, attn["qkvg"]["b"], attn["q_norm"]["scale"],
-                           attn["k_norm"]["scale"], cos, sin, w_scale=s)
+    qkvg = gemm_qkvg(h, w, attn["qkvg"]["b"], attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin, w_scale=s)
 
     def heads_view(i):  # (B, heads, T, D) view of column block i of qkvg
         return qkvg[..., i * inner:(i + 1) * inner].unflatten(-1, (heads, head_dim)).transpose(1, 2)
@@ -379,11 +285,12 @@ def block_layer(x, stats, mod, mask, cross_k, cross_v, cross_mask, layer, cos, s
                     cross_k, cross_v, cross_mask, gate=heads_view(3),
                     out=att.unflatten(-1, (heads, head_dim)).transpose(1, 2))
     w, s = _weight(attn["to_out"])
-    gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s, stats=stats)
+    gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s)
+    h = adaln_modulate(x, shift_mlp, scale_mlp)
     w, s = _weight(ff["w13"])
-    mid = adaln_gemm_swiglu(x, stats, shift_mlp, scale_mlp, w, ff["w13"]["b"], w_scale=s)
+    mid = gemm_swiglu(h, w, ff["w13"]["b"], w_scale=s)
     w, s = _weight(ff["w2"])
-    gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s, stats=stats)
+    gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s)
     return x
 
 
@@ -397,11 +304,11 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     fp32. Returns the new residual (x is not modified)."""
     if "qkvg" not in blocks["attn"] or "w13" not in blocks["ff"]:
         raise ValueError("fused_dit_scan needs the fused serving layout (fuse_serving_projections)")
-    x, stats = row_stats(x)
+    x = x.contiguous().clone()
     L = mods.shape[0]
     used = {"attn": {k: blocks["attn"][k] for k in ("qkvg", "to_out", "q_norm", "k_norm")},
             "ff": {k: blocks["ff"][k] for k in ("w13", "w2")}}
     for l in range(L):
-        block_layer(x, stats, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
+        block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
                     heads, head_dim)
     return x
