@@ -49,14 +49,12 @@
 //    cp.async.bulk.tensor.2d, mbarrier completion, zero fill past the edges
 //    (M, N and K tails); the activation's tensor map is encoded per call in
 //    C, each weight's once and cached (its key is everything the map holds);
-//  * qkvg runs 128-column tiles whose W boxes start on 128-byte lines, and
-//    the q/k RMSNorm in its epilogue: the q and k columns (15 tiles at the
-//    model's width) form one thread-block cluster; each block sums v^2 over
-//    its part of each head it meets (a row's columns lie in the 4 threads of
-//    a quad: two shuffles), leaves the sums in its shared memory, and after
-//    a cluster barrier adds a head's sums from the one or two ranks that
-//    hold it, in rank order. RoPE's pairs (d, d ^ 1) are the two adjacent
-//    columns one thread holds, so the rotation is done in registers;
+//  * qkvg runs one block per head (120 columns, wgmma n = 128 over a W box
+//    that starts at column 120 j; the last 8 columns are discarded): a row's
+//    120 values of a head lie in the 4 threads of a quad, so the q/k RMSNorm
+//    is two shuffles and RoPE's pairs (d, d ^ 1) are the two adjacent columns
+//    one thread holds: the norm and the rotation are done in registers, and
+//    v / gate heads keep the plain bias epilogue (uniform per block);
 //  * the tile width and a split of K are chosen per product on the host;
 //    two blocks fit on an SM. Where the tiles leave most SMs idle and K is
 //    long (w2 at M = 128) K is split: the K ranks of one output tile form a
@@ -196,8 +194,7 @@ constexpr int GBM = 64;        // rows per block: the consumer warpgroup's one m
 constexpr int GBK = 64;        // k per stage: 128 bytes of bf16, the width of the 128-byte swizzle
 constexpr int GSUB = 64;       // columns per W sub-tile: one TMA box of 64 k rows x 128 bytes
 constexpr int GMAXSPLIT = 4;   // K ranks per output tile (the cluster's size)
-constexpr int QK_DMIN = 48, QK_DMAX = 128;  // head widths: a 128-column tile meets at most 4 heads,
-                                            // a head at most 2 tiles
+constexpr int QK_DMAX = 128;   // the widest head one qkvg block holds (wgmma n = 128)
 enum { EPI_QKVG = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
 
 struct GemmArgs {
@@ -213,7 +210,6 @@ struct GemmArgs {
   const float* cos_t;  // EPI_QKVG: (T, rot) fp32 RoPE tables
   const float* sin_t;
   int heads, D, rot;
-  int qk_tiles;  // EPI_QKVG: the cluster's size, the tiles that hold q and k columns
   int M, N, K, T;
   int half;   // EPI_SWIGLU: column of W where the second (W3) half starts
   int wcols;  // W's width
@@ -223,7 +219,7 @@ template <int EPI, bool W8>
 struct GemmCfg {
   static constexpr int BN = EPI == EPI_RESID ? 64 : 128;     // W columns a block multiplies per k step
   static constexpr int NSUB = BN / GSUB;                     // W sub-tiles per stage
-  static constexpr int BNO = EPI == EPI_SWIGLU ? GSUB : BN;  // output columns per block
+  static constexpr int BNO = EPI == EPI_RESID || EPI == EPI_SWIGLU ? GSUB : BN;  // output tile (QKVG: a head)
   static constexpr int A_BYTES = GBM * GBK * 2;
   static constexpr int SUB_BYTES = GBK * GSUB * 2;              // one bf16 W sub-tile
   static constexpr int RAW_BYTES = W8 ? NSUB * GBK * GSUB : 0;  // int8 sub-tiles as TMA lands them
@@ -310,11 +306,16 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // grid.x is the cluster: the K ranks of one output tile
   const int split = blockIdx.x, nsplit = gridDim.x;
-  const int n0 = blockIdx.y * C::BNO, m0 = blockIdx.z * GBM;
+  // the output columns' start: QKVG a head of D columns, else a tile of BNO
+  const int n0 = blockIdx.y * (EPI == EPI_QKVG ? g.D : C::BNO), m0 = blockIdx.z * GBM;
   const int nk = (g.K + GBK - 1) / GBK;
   const int kt0 = split * nk / nsplit, kt1 = (split + 1) * nk / nsplit;
   // W column of sub-tile j's first column (SwiGLU: w1's, then w3's)
   auto w_col = [&](int j) { return EPI == EPI_SWIGLU ? (j ? g.half : 0) + n0 : n0 + j * GSUB; };
+  // a TMA box starts on a 16-byte boundary: an int8 head tile (column 120 j)
+  // is loaded from the boundary below it, `wshift` (0 or 8) columns early,
+  // and the consumers read it shifted back as they dequantize
+  const int wshift = W8 && EPI == EPI_QKVG ? n0 & 15 : 0;
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -339,7 +340,7 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
         tma_load_2d(a_tile(s), &tmA, kt * GBK, m0, &full[s]);
 #pragma unroll
         for (int j = 0; j < C::NSUB; ++j)
-          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j), kt * GBK, &full[s]);
+          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j) - wshift, kt * GBK, &full[s]);
       }
     }
     __syncwarp();
@@ -351,6 +352,12 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
     // scales in registers
     const int c8 = tid & 7;
     float sc[W8 ? C::NSUB : 1][8], off[W8 ? C::NSUB : 1][8];
+    int raw[W8 ? C::NSUB : 1];  // the int8 bytes of columns 64 j + 8 c8 .. + 7 in the stage's raw tiles, or -1
+#pragma unroll
+    for (int j = 0; j < (W8 ? C::NSUB : 1); ++j) {
+      const int rc = GSUB * j + 8 * c8 + wshift;
+      raw[j] = rc < C::NSUB * GSUB ? (rc / GSUB) * GBK * GSUB + rc % GSUB : -1;
+    }
     if constexpr (W8) {
 #pragma unroll
       for (int j = 0; j < C::NSUB; ++j)
@@ -368,7 +375,8 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
 #pragma unroll
         for (int it = 0; it < C::NSUB * 4; ++it) {
           const int j = it / 4, r = (tid >> 3) + 16 * (it & 3);
-          const uint2 q = *reinterpret_cast<const uint2*>(raw_tile(s, j) + r * GSUB + 8 * c8);
+          const uint2 q = raw[j] < 0 ? make_uint2(0u, 0u)  // columns past the head: discarded
+                                     : *reinterpret_cast<const uint2*>(raw_tile(s, 0) + raw[j] + r * GSUB);
           const uint32_t qu[2] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u};
           uint32_t pk[4];
 #pragma unroll
@@ -438,13 +446,7 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
     cluster_sync();  // no rank leaves while rank 0 reads its shared memory
     if (split != 0) return;
   }
-  if (tid >= C::CONSUMERS) {
-    if constexpr (EPI == EPI_QKVG) {  // every thread of the cluster meets the epilogue's two barriers
-      cluster_sync();
-      cluster_sync();
-    }
-    return;
-  }
+  if (tid >= C::CONSUMERS) return;
 
   // epilogue from the accumulator fragments: thread (warp w, lane) holds rows
   // 16w + lane/4 (+8) and, in each 8-column group j, columns 8j + 2(lane%4)
@@ -459,107 +461,62 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
   };
 
   if constexpr (EPI == EPI_QKVG) {
-    // v = bf16(acc + b); on the q and k columns then bf16(v * rsqrt(mean(v^2)
-    // over the head + eps) * scale[d]) and, on d < rot, the fp32 rotation of
-    // the pair (d, d + 1), rounded again. Every load is predicated and issued
-    // before the arithmetic that needs it: a load behind a branch would cost
-    // a round trip each.
-    const int qkcols = 2 * g.heads * g.D, h0 = n0 / g.D;  // h0: the tile's first head
-    const bool qk = n0 < qkcols;  // uniform per block: the cluster of the q and k columns
+    // a head of D columns: v = bf16(acc + b); q and k heads then
+    // bf16(v * rsqrt(mean(v^2) + eps) * scale[d]) and, on d < rot, the fp32
+    // rotation of the pair (d, d + 1), rounded again. Every load is
+    // predicated and issued before the arithmetic that needs it, a row's
+    // tables at once: a load behind a branch would cost a round trip each.
+    const int head = blockIdx.y;
+    const bool qk = head < 2 * g.heads;  // uniform per block
+    const bf16* nscale = !qk ? g.q_scale : head < g.heads ? g.q_scale + head * g.D : g.k_scale + (head - g.heads) * g.D;
     float2 b[NJ];
-    uint32_t nsc[NJ];  // the norm's scale pair (bf16x2) at the column pair
-    int slot[NJ], dd[NJ];  // the pair's head - h0 (-1 off the q/k columns) and lane d in it
+    uint32_t nsc[NJ];  // the norm's scale pair (bf16x2) at d = 8 j + cq
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const int c = n0 + 8 * j + cq, h = c / g.D;
-      const bool on = c < qkcols;
-      slot[j] = on ? h - h0 : -1;
-      dd[j] = c - h * g.D;
-      b[j] = c < g.N ? bias_at(c) : make_float2(0.f, 0.f);
-      const bf16* sp = h < g.heads ? g.q_scale + h * g.D : g.k_scale + (h - g.heads) * g.D;
-      nsc[j] = on ? *reinterpret_cast<const uint32_t*>(sp + dd[j]) : 0u;
+      const int d = 8 * j + cq;
+      b[j] = d < g.D ? bias_at(n0 + d) : make_float2(0.f, 0.f);
+      nsc[j] = qk && d < g.D ? *reinterpret_cast<const uint32_t*>(nscale + d) : 0u;
     }
     float2 v[2][NJ];
-    float ss[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};  // per head the tile meets
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float2 a = acc_at(j, hr);
-        v[hr][j] = n0 + 8 * j + cq < g.N ? make_float2(rbf(a.x + b[j].x), rbf(a.y + b[j].y)) : make_float2(0.f, 0.f);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (slot[j] == e) ss[hr][e] += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
-      }
-    // the tile's sums, a float4 a row in the (now free) stage memory; a
-    // head's total is the sums of the ranks (tiles) it spans, in rank order
-    float4* part = reinterpret_cast<float4*>(sm);
-    if (qk) {
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ss[hr][e] = quad_sum(ss[hr][e]);
-        if ((lane & 3) == 0) part[wr + 8 * hr] = make_float4(ss[hr][0], ss[hr][1], ss[hr][2], ss[hr][3]);
-      }
-    }
-    cluster_sync();
-    float inv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    if (qk) {
-      const int t = blockIdx.y;  // the q/k cluster is the first: its ranks are the tiles
-      auto at = [](const float4& f, int e) { return e == 0 ? f.x : e == 1 ? f.y : e == 2 ? f.z : f.w; };
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        const int r = wr + 8 * hr;
-        const float4 own = part[r];
-        const float4 prev = t > 0 ? ld_cluster4(part + r, t - 1) : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4 next = t + 1 < g.qk_tiles ? ld_cluster4(part + r, t + 1) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = h0 + e, c0 = h * g.D;
-          if (c0 >= qkcols || c0 > n0 + C::BNO - 1) continue;
-          const int ta = c0 / C::BNO, tb = (c0 + g.D - 1) / C::BNO;  // tb <= ta + 1: D <= 128
-          float sum = 0.f;
-          for (int tt = ta; tt <= tb; ++tt) {
-            const float4 src = tt == t ? own : tt < t ? prev : next;
-            sum += at(src, h - tt * C::BNO / g.D);
-          }
-          inv[hr][e] = rsqrt_rn(__fadd_rn(__fdiv_rn(sum, static_cast<float>(g.D)), EPS));
-        }
-      }
-    }
-    cluster_sync();  // no block leaves while another reads its sums
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      const int tt = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
+      const int t = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
       float2 cs[NJ], sn[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const bool rot = slot[j] >= 0 && dd[j] < g.rot;  // rot is even: a pair rotates together
-        cs[j] = rot ? *reinterpret_cast<const float2*>(g.cos_t + (long long)tt * g.rot + dd[j]) : make_float2(1.f, 1.f);
-        sn[j] = rot ? *reinterpret_cast<const float2*>(g.sin_t + (long long)tt * g.rot + dd[j]) : make_float2(0.f, 0.f);
+        const int d = 8 * j + cq;  // rot is even: a pair rotates together
+        const bool rot = qk && d < g.rot;
+        cs[j] = rot ? *reinterpret_cast<const float2*>(g.cos_t + (long long)t * g.rot + d) : make_float2(1.f, 1.f);
+        sn[j] = rot ? *reinterpret_cast<const float2*>(g.sin_t + (long long)t * g.rot + d) : make_float2(0.f, 0.f);
       }
+      float ss = 0.f;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        if (slot[j] < 0) continue;
-        float iv = 0.f;
+        const float2 a = acc_at(j, hr);
+        v[hr][j] = 8 * j + cq < g.D ? make_float2(rbf(a.x + b[j].x), rbf(a.y + b[j].y)) : make_float2(0.f, 0.f);
+        ss += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
+      }
+      if (qk) {
+        const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(quad_sum(ss), static_cast<float>(g.D)), EPS));
 #pragma unroll
-        for (int e = 0; e < 4; ++e) iv = slot[j] == e ? inv[hr][e] : iv;
-        const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, iv), bf_lo(nsc[j])));
-        const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, iv), bf_hi(nsc[j])));
-        // off the rotated lanes cos = 1 and sin = 0: y unchanged, rounded once more (exact)
-        v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs[j].x), __fmul_rn(y1, sn[j].x))),
-                               rbf(__fadd_rn(__fmul_rn(y1, cs[j].y), __fmul_rn(y0, sn[j].y))));
+        for (int j = 0; j < NJ; ++j) {
+          const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, inv), bf_lo(nsc[j])));
+          const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, inv), bf_hi(nsc[j])));
+          // off the rotated lanes cos = 1 and sin = 0: y unchanged, rounded once more (exact)
+          v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs[j].x), __fmul_rn(y1, sn[j].x))),
+                                 rbf(__fadd_rn(__fmul_rn(y1, cs[j].y), __fmul_rn(y0, sn[j].y))));
+        }
       }
     }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int m = m0 + wr + 8 * hr;
       if (m >= g.M) continue;
-      bf16* orow = g.out + (long long)m * g.ldo;
+      bf16* orow = g.out + (long long)m * g.ldo + n0;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        const int n = n0 + 8 * j + cq;
-        if (n < g.N) *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(v[hr][j].x, v[hr][j].y);
+        const int d = 8 * j + cq;
+        if (d < g.D) *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16x2(v[hr][j].x, v[hr][j].y);
       }
     }
   } else if constexpr (EPI == EPI_SWIGLU) {
@@ -627,19 +584,12 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
 
 // ------------------------------------------------------------- gemm, host side
 
-// grid (split, tiles, row tiles) in clusters of (split, cluster_y, 1)
 template <int EPI, bool W8>
 int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int tiles, int split,
-                int cluster_y, cudaStream_t s) {
+                cudaStream_t s) {
   using C = GemmCfg<EPI, W8>;
-  static const cudaError_t attr = [] {
-    const cudaError_t e =
-        cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
-    // the q/k cluster holds 15 tiles at the model's width: more than the portable 8
-    return e != cudaSuccess ? e
-                            : cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8>,
-                                                   cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(split, tiles, (g.M + GBM - 1) / GBM);
@@ -649,7 +599,7 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g,
   cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = split;
-  at[0].val.clusterDim.y = cluster_y;
+  at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
@@ -661,18 +611,14 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g,
 // only where the 64-column tiles leave more than half the SMs idle and each
 // rank keeps 8 k tiles or more (w2 at M = 128): the split's merge and
 // cluster barriers cost a few us, measured on the H100 (PERF.md section 6),
-// more than the split gains elsewhere. qkvg is not split: its tiles form
-// clusters of qk_tiles along the columns (the grid rounded up to a multiple).
+// more than the split gains elsewhere. qkvg (one head a block) is not split.
 template <int EPI, bool W8>
 int dispatch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
   const int sms = sm_count(), mt = (g.M + GBM - 1) / GBM, nk = (g.K + GBK - 1) / GBK;
-  if (EPI == EPI_QKVG) {
-    const int tiles = (g.N + 127) / 128;
-    return launch_gemm<EPI, W8>(ta, tw, g, (tiles + g.qk_tiles - 1) / g.qk_tiles * g.qk_tiles, 1, g.qk_tiles, s);
-  }
+  if (EPI == EPI_QKVG) return launch_gemm<EPI, W8>(ta, tw, g, g.N / g.D, 1, s);
   const int tiles = (g.N + GSUB - 1) / GSUB, blocks = mt * tiles;
   const int split = blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
-  return launch_gemm<EPI, W8>(ta, tw, g, tiles, split, 1, s);
+  return launch_gemm<EPI, W8>(ta, tw, g, tiles, split, s);
 }
 
 // What every product takes: A bf16 (M, K) contiguous, W (K, wcols) at row
@@ -722,14 +668,11 @@ extern "C" int st_adaln_modulate(const void* x, void* out, const void* shift, co
 
 // qkvg (M, N) = h @ W + bias, N = 4 heads D ([q | k | v | gate]), then the
 // q/k RMSNorm (q_scale / k_scale (heads, D) bf16) and RoPE on lanes [0, rot)
-// (cos / sin (T, rot) fp32) on the first 2 heads D columns (48 <= D <= 128,
-// a multiple of 8; 2 heads D <= 2048); h (M, K) bf16.
+// (cos / sin (T, rot) fp32) on the first 2 heads D columns; h (M, K) bf16.
 extern "C" int st_gemm_qkvg(const void* h, const void* W, long long ldw, const float* wscale, const void* bias,
                             void* out, const void* q_scale, const void* k_scale, const float* cos_t,
                             const float* sin_t, int M, int N, int K, int T, int heads, int D, int rot, void* stream) {
-  const int qk_tiles = (2 * heads * D + 127) / 128;  // at most 16: the largest cluster
-  if (D < QK_DMIN || D > QK_DMAX || (D & 7) || heads <= 0 || N != 4 * heads * D || qk_tiles > 16 || rot < 0 ||
-      rot > D || (rot & 1) ||
+  if (D <= 0 || D > QK_DMAX || (D & 7) || heads <= 0 || N != 4 * heads * D || rot < 0 || rot > D || (rot & 1) ||
       T <= 0 || !q_scale || !k_scale || ((reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 7) ||
       (rot && (!cos_t || !sin_t)))
     return (int)cudaErrorInvalidValue;
@@ -740,7 +683,7 @@ extern "C" int st_gemm_qkvg(const void* h, const void* W, long long ldw, const f
   g.out = static_cast<bf16*>(out); g.ldo = N;
   g.q_scale = static_cast<const bf16*>(q_scale); g.k_scale = static_cast<const bf16*>(k_scale);
   g.cos_t = cos_t; g.sin_t = sin_t;
-  g.heads = heads; g.D = D; g.rot = rot; g.T = T; g.qk_tiles = qk_tiles;
+  g.heads = heads; g.D = D; g.rot = rot; g.T = T;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return wscale ? dispatch_gemm<EPI_QKVG, true>(ta, tw, g, s) : dispatch_gemm<EPI_QKVG, false>(ta, tw, g, s);
 }

@@ -191,9 +191,8 @@ def gemm_qkvg(h, w, b, q_scale, k_scale, cos, sin, w_scale=None):
     T, N = h.shape[1], w.shape[1]
     ldw, w_scale = _weight_args(what, h, w, w_scale, N)
     rot = cos.shape[-1]
-    if (h.dim() != 3 or N != 4 * heads * D or k_scale.shape != q_scale.shape or D % 8 or not 48 <= D <= 128
-            or 2 * heads * D > 2048):
-        raise ValueError(f"{what}: h (B, T, K), w (K, 4 heads D), D a multiple of 8 in [48, 128], 2 heads D <= 2048")
+    if h.dim() != 3 or N != 4 * heads * D or k_scale.shape != q_scale.shape or D % 8 or D > 128:
+        raise ValueError(f"{what}: h (B, T, K), w (K, 4 heads D), D a multiple of 8 up to 128")
     if cos.shape != (T, rot) or sin.shape != cos.shape or cos.dtype != torch.float32 or rot % 2 or rot > D:
         raise ValueError(f"{what}: cos/sin must be fp32 (T, rot), rot even and <= D")
     q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()

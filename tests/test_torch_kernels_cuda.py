@@ -395,8 +395,9 @@ def test_gemm_products_at_served_rows(dev, product, M, w8):
     200 are ragged (not multiples of the 64-row tile); w13's output (2400)
     and w2's K (2400) end in half tiles. w2 at M = 40, 128 and 200 splits K
     over a cluster of 4, 4 and 3 ranks (the merge through distributed shared
-    memory); the other products run one rank per tile; qkvg's 15 q/k tiles
-    form one cluster that exchanges each head's sum of squares."""
+    memory); the other products run one rank per tile; qkvg one block per
+    head (int8: every other head's tile starts 8 bytes past a 16-byte
+    boundary)."""
     K_, N, form = PRODUCTS[product]
     run_product(dev, form, 8, M // 8, K_, N, w8, seed=M + K_ + N)
 
@@ -405,20 +406,11 @@ def test_gemm_products_at_served_rows(dev, product, M, w8):
 @pytest.mark.parametrize("epi", ["qkvg", "swiglu", "resid", "resid_masked"])
 def test_gemm_ragged_tails(dev, epi, w8):
     """K = 72 and N = 208 (qkvg: one head of D = 56, N = 224, RoPE on 16
-    lanes; its q, k and 16 v columns share one tile): the last k tile is
-    mostly past the edge (TMA zero fill), the last column tile holds 16 or
-    96 columns (masked stores); one row block."""
+    lanes): the last k tile is mostly past the edge (TMA zero fill), the last
+    column tile of the residual holds 16 columns (masked stores); one row
+    block."""
     N = {"qkvg": 224, "swiglu": 416}.get(epi, 208)
     run_product(dev, epi, 2, 9, 72, N, w8, seed=99, heads=1, rot=16)
-
-
-@pytest.mark.parametrize("w8", [False, True])
-@pytest.mark.parametrize("heads,D,rot", [(2, 120, 64), (3, 56, 16), (4, 64, 32)])
-def test_qkvg_cluster_shapes(dev, heads, D, rot, w8):
-    """Other q/k clusters than the model's 15 tiles: 4 tiles with heads
-    across tile edges (2 x 120), 3 tiles whose last holds v columns too
-    (3 x 56), 4 tiles with no head across an edge (4 x 64); M = 40."""
-    run_product(dev, "qkvg", 2, 20, 960, 4 * heads * D, w8, seed=heads * D, heads=heads, rot=rot)
 
 
 def ulps_apart(got, want, before=None):
