@@ -9,10 +9,11 @@
    on the card, at the serving path's shapes, with the tolerance stated;
    kernel, plain and (where one exists) library-call times. A: attention,
    the served DiT shapes (T 16 and 40, cross Sc 448) among them; B: the DiT
-   block scan's kernels, bf16 and int8-weight: adaln_modulate, and the four
-   GEMM products at M = 320 and M = 128 rows (qkvg with the q/k norm + RoPE
-   epilogue, w13 with SwiGLU, to_out and w2 with the gated residual), and
-   the 12-layer scan on bf16 and on int8 stream weights; C: the three w8 products, each shape on the kernel its
+   block scan's kernels, bf16 and int8-weight, at M = 320 and M = 128 rows:
+   adaln_modulate, qk_norm_rope, and the four GEMM products (qkvg with its
+   bias, w13 with SwiGLU, to_out and w2 with the gated residual), and the
+   12-layer scan on bf16 and on int8 stream weights; C: the three w8
+   products, each shape on the kernel its
    route names (tensor cores wherever TMA can read the operands), timed on
    the device clock or the run fails. Then the GEMM and attention wrappers'
    host time per call (median of 1000).
@@ -21,8 +22,8 @@
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
    path SmallTTS(pcm16_out=True, w8_modulation=True, w8_stream=True). The
    launch counters, reset just before each, must show every kernel of that
-   path and the scan's exact count, 336 launches a batch (4 scans x 12
-   layers x 7), with no int8 GEMM on the bf16 path and no bf16 GEMM on the
+   path and the scan's exact count, 384 launches a batch (4 scans x 12
+   layers x 8), with no int8 GEMM on the bf16 path and no bf16 GEMM on the
    int8 one; one batch is held against the same
    batch with the plain versions forced; synthesize_padded(fetch=False)
    must queue a batch with no synchronizing call, and one batch is profiled
@@ -43,10 +44,11 @@ of the parent commit) with this one on the card. Each turn is a worker
 process of its own with the full-width bf16 model, and the turns alternate
 DIR, this, this, DIR, three times. It prints the served batch's host
 dispatch and wall time (synthesize_padded(fetch=False), then the waveform
-to the host) and the GEMM and attention wrappers' host time per call, each
-tree's median, its turns' medians and the change's minus the parent's in
-each adjacent pair of turns. A turn is
-`python3 chip_smoke.py --worker DIR`.
+to the host), the qkvg, attention and adaLN wrappers' host time per call,
+and the device time per launch of the scan's kernels at both served row
+counts and of the 12-layer scan (bf16 and int8 weights), each tree's
+median, its turns' values and the change's minus the parent's in each
+adjacent pair of turns. A turn is `python3 chip_smoke.py --worker DIR`.
 """
 
 from __future__ import annotations
@@ -71,14 +73,15 @@ W8_TPU = {"w8_matmul_all_layers": "smalltts_tpu/ops/pallas/w8.py:167", "w8_matmu
           "w8_matmul_stacked": "smalltts_tpu/ops/pallas/w8.py:117"}
 W8_TOL = 1e-2  # one bf16 rounding (2^-8 of a value) that fp32 sums in another order may flip
 W8_TC, W8_STREAM = "w8_wgmma_kernel", "w8_stream_kernel"  # profiler names: tensor cores; CUDA cores
-GEMMS = ("gemm_qkvg", "gemm_swiglu", "gemm_residual")
-SCAN_KERNELS = ("adaln_modulate",) + GEMMS
-# profiler names of the GEMM instances: demangled, or mangled (gemm_wgmma_kernel<EPI, W8>)
-GEMM_NAMES = {f"{n}{sfx}": (f"gemm_wgmma_kernel<{i}, {w}>", f"gemm_wgmma_kernelILi{i}ELb{int(w == 'true')}E")
+# wrapper_host_ms's keys of the kernels whose `kernels` entry carries a wrapper host time
+WRAPPER_KEYS = {"gemm_bias": "gemm_bias qkvg M=320", "qk_norm_rope": "qk_norm_rope M=320",
+                "attention": "attention dit T=40 + Sc=448"}
+GEMMS = ("gemm_bias", "gemm_swiglu", "gemm_residual")
+SCAN_KERNELS = ("adaln_modulate", "qk_norm_rope") + GEMMS
+# profiler names of the GEMM instances: demangled, or mangled (gemm_wgmma_kernel<EPI, W8, BN>)
+GEMM_NAMES = {f"{n}{sfx}": (f"gemm_wgmma_kernel<{i}, {w},", f"gemm_wgmma_kernelILi{i}ELb{int(w == 'true')}E")
               for i, n in enumerate(GEMMS) for sfx, w in (("", "false"), ("_w8", "true"))}
-KERNEL_NAMES = {"adaln_modulate": ("adaln_kernel",), **GEMM_NAMES}
-# the launches an earlier scan made in place of the qkvg product's epilogue: none may be made now
-GONE = ("qk_norm_rope", "gemm_bias", "gemm_bias_w8")
+KERNEL_NAMES = {"adaln_modulate": ("adaln_kernel",), "qk_norm_rope": ("qk_norm_rope_kernel",), **GEMM_NAMES}
 # the bf16 and int8 serve batches differ by the int8 weight rounding (~0.4%
 # of each weight, per channel) carried through 48 products a step and 4
 # steps: 5.0e-3 rel-L2 on an H100 at this configuration. A wiring fault (a
@@ -114,6 +117,63 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+def time_ms(fn, iters=20, warmup=3):
+    """Event-timed wall ms per call on the card."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters=10, match=None, launches=1):
+    """Device time per call from torch.profiler over iters + 1 calls, each
+    of which launches `launches` kernels whose names hold one of `match`:
+    their mean time per launch times `launches` (a trace may drop a
+    record; one with fewer than iters * launches of them is taken again,
+    3 tries); every kernel's time over the calls when `match` is None.
+    None when the profiler reports no device time, or lost records each
+    try."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters + 1):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
+        if not evts:
+            return None  # the profiler sees no device time at all
+        if match is None:
+            return sum(_dev_us(e) for e in evts) / 1e3 / (iters + 1)
+        hits = [e for e in evts if any(m in e.key for m in match)]
+        check(bool(hits), f"no profiled kernel matches {match}")
+        seen = sum(e.count for e in hits)
+        if seen >= iters * launches:
+            return sum(_dev_us(e) for e in hits) / 1e3 / seen * launches
+        print(f"  (profiler trace holds {seen} of at least {iters * launches} launches: taken again)", flush=True)
+    return None
+
+
+def timed(fn, iters, match=None, per=1):
+    """(ms, wall ms, clock) per launch, `per` launches a call: ms is
+    profiler device time, or the event-timed wall time (clock "wall")
+    where the profiler saw none or lost records."""
+    wall = time_ms(fn, iters=iters) / per
+    dev_t = device_ms(fn, iters=iters, match=match, launches=per)
+    return (wall, wall, "wall") if dev_t is None else (dev_t / per, wall, "device")
+
+
 def main() -> int:
     try:
         import torch
@@ -147,56 +207,6 @@ def main() -> int:
     secs = kernels.build_all()
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s per source, "
           f"{time.perf_counter() - t0:.2f} s wall", flush=True)
-
-    def time_ms(fn, iters=20, warmup=3):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / iters
-
-    def device_ms(fn, iters=10, match=None, launches=1):
-        """Device time per call from torch.profiler over iters + 1 calls, each
-        of which launches `launches` kernels whose names hold one of `match`:
-        their mean time per launch times `launches` (a trace may drop a
-        record; one with fewer than iters * launches of them is taken again,
-        3 tries); every kernel's time over the calls when `match` is None.
-        None when the profiler reports no device time, or lost records each
-        try."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters + 1):
-                    fn()
-                torch.cuda.synchronize()
-            evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
-            if not evts:
-                return None  # the profiler sees no device time at all
-            if match is None:
-                return sum(_dev_us(e) for e in evts) / 1e3 / (iters + 1)
-            hits = [e for e in evts if any(m in e.key for m in match)]
-            check(bool(hits), f"no profiled kernel matches {match}")
-            seen = sum(e.count for e in hits)
-            if seen >= iters * launches:
-                return sum(_dev_us(e) for e in hits) / 1e3 / seen * launches
-            print(f"  (profiler trace holds {seen} of at least {iters * launches} launches: taken again)", flush=True)
-        return None
-
-    def timed(fn, iters, match=None, per=1):
-        """(ms, wall ms, clock) per launch, `per` launches a call: ms is
-        profiler device time, or the event-timed wall time (clock "wall")
-        where the profiler saw none or lost records."""
-        wall = time_ms(fn, iters=iters) / per
-        dev_t = device_ms(fn, iters=iters, match=match, launches=per)
-        return (wall, wall, "wall") if dev_t is None else (dev_t / per, wall, "device")
 
     def err(got, want):
         got, want = got.float(), want.float()
@@ -319,14 +329,13 @@ def main() -> int:
 
         def at_rows(act):
             h_, mid_, x_, m_ = act["h"], act["mid"], act["x"], act["mask"]
-            cos_, sin_ = act["rope"]
             M_ = h_.shape[0] * h_.shape[1]
             qk, out_, w13, w2 = at["qkvg"], at["to_out"], fw["w13"], fw["w2"]
 
-            def qkvg(fn):
+            def bias(fn):
                 def run(l):
                     w, s = weight(qk, l)
-                    return fn(h_, w, qk["b"][l], qs[l], ks[l], cos_, sin_, w_scale=s)
+                    return fn(h_, w, qk["b"][l], w_scale=s)
                 return run
 
             def swiglu(fn):
@@ -343,11 +352,9 @@ def main() -> int:
                 return run
 
             return {
-                "gemm_qkvg": [(f"qkvg M={M_} K={H} N={4 * H}, + q/k norm and RoPE", qkvg(K.gemm_qkvg),
-                               qkvg(K.gemm_qkvg_plain),
+                "gemm_bias": [(f"qkvg M={M_} K={H} N={4 * H}", bias(K.gemm_bias), bias(K.gemm_bias_plain),
                                lambda l: torch.addmm(attn["qkvg"]["b"][l], h_.view(M_, H), attn["qkvg"]["w"][l]),
-                               lambda l: (nbytes(h_) + leaf_bytes(qk, l) + nbytes(qs[l], ks[l], cos_, sin_)
-                                          + M_ * 4 * H * 2, 2.0 * M_ * H * 4 * H))],
+                               lambda l: (nbytes(h_) + leaf_bytes(qk, l) + M_ * 4 * H * 2, 2.0 * M_ * H * 4 * H))],
                 "gemm_swiglu": [(f"w13 M={M_} K={H} N={2 * F} (out {F})", swiglu(K.gemm_swiglu),
                                  swiglu(K.gemm_swiglu_plain),
                                  lambda l: torch.addmm(ff["w13"]["b"][l], h_.view(M_, H), ff["w13"]["w"][l]),
@@ -382,7 +389,21 @@ def main() -> int:
                          None, lambda l, x_=x_: (2 * nbytes(x_) + nbytes(mods[l][:, :2 * H]), 0.0)))
         return rows
 
-    per_layer = {"adaln_modulate": adaln_rows(), **gemm_rows(attn, ff, "")}
+    def qk_rows():
+        """qk_norm_rope at both row counts, in place on a qkvg buffer (the kernel and the plain
+        version each on its own copy), each layer's q/k norm scales."""
+        rows = []
+        for act in act_rows.values():
+            q0 = randn((*act["h"].shape[:2], 4 * H))
+            cos_, sin_ = act["rope"]
+            run = lambda fn, buf, c=cos_, s_=sin_: (lambda l: fn(buf, qs[l], ks[l], c, s_))  # noqa: E731
+            rows.append((f"M={q0.shape[0] * q0.shape[1]} heads={heads} D={hd} rot={cos_.shape[1]}",
+                         run(K.qk_norm_rope, q0.clone()), run(K.qk_norm_rope_plain, q0.clone()), None,
+                         lambda l, q0=q0, c=cos_, s_=sin_: (2 * 2 * q0.shape[0] * q0.shape[1] * H * 2
+                                                            + nbytes(qs[l], ks[l], c, s_), 0.0)))
+        return rows
+
+    per_layer = {"adaln_modulate": adaln_rows(), "qk_norm_rope": qk_rows(), **gemm_rows(attn, ff, "")}
 
     def over_layers(fn):
         def run():
@@ -539,8 +560,8 @@ def main() -> int:
     host_ms = wrapper_host_ms(torch, dev)
     print(f"wrapper host time per call, median of 1000 (ms): {json.dumps(host_ms)}", flush=True)
     for e in entries:
-        if e["name"] in ("attention", "gemm_qkvg"):
-            e["wrapper_host_ms"] = host_ms["qkvg product M=320" if e["name"] != "attention" else "attention dit T=40 + Sc=448"]
+        if e["name"] in ("attention", "gemm_bias", "qk_norm_rope"):
+            e["wrapper_host_ms"] = host_ms[WRAPPER_KEYS[e["name"]]]
 
     # --------------------------------------------------------- serving phases
     import numpy as np
@@ -613,25 +634,25 @@ def main() -> int:
     def scan_launches(launches, gemms):
         """The scan is a host loop that launches nothing itself: the launches
         of its per-layer kernels, and the one attention launch each layer
-        makes (one per qkvg launch; the attention counter also holds the
-        encoders' launches)."""
-        names = ("adaln_modulate",) + gemms
-        total = sum(launches.get(n, 0) for n in names) + launches.get(gemms[0], 0)
-        return total, list(names) + ["attention (one per qkvg launch)"]
+        makes (one per qk_norm_rope launch; the attention counter also holds
+        the encoders' launches)."""
+        names = ("adaln_modulate", "qk_norm_rope") + gemms
+        total = sum(launches.get(n, 0) for n in names) + launches.get("qk_norm_rope", 0)
+        return total, list(names) + ["attention (one per qk_norm_rope launch)"]
 
     def check_scan_counts(launches, n_b, tts, sfx):
         """The exact launch counts of n_b batches: 4 scans a batch of 12
-        layers, each two adaLNs, qkvg, w13 and two residuals (+ one
-        attention): 336 a batch; no separate q/k norm launch, and none of the
-        other weight type's GEMMs."""
+        layers, each two adaLNs, qkvg, the q/k norm, w13 and two residuals
+        (+ one attention): 384 a batch; none of the other weight type's
+        GEMMs."""
         per = n_b * tts.num_steps * tts.cfg.dit.n_blocks
         other = "_w8" if not sfx else ""
-        want = {"adaln_modulate": 2 * per, f"gemm_qkvg{sfx}": per, f"gemm_swiglu{sfx}": per,
-                f"gemm_residual{sfx}": 2 * per, **{n: 0 for n in GONE}, **{n + other: 0 for n in GEMMS}}
+        want = {"adaln_modulate": 2 * per, "qk_norm_rope": per, f"gemm_bias{sfx}": per, f"gemm_swiglu{sfx}": per,
+                f"gemm_residual{sfx}": 2 * per, **{n + other: 0 for n in GEMMS}}
         got = {k: launches.get(k, 0) for k in want}
         check(got == want, f"scan launch counts {json.dumps(got)}, want {json.dumps(want)}")
         total = scan_launches(launches, tuple(n + sfx for n in GEMMS))[0]
-        check(total == 7 * per, f"scan launches {total} for {n_b} batches")
+        check(total == 8 * per, f"scan launches {total} for {n_b} batches")
         print(f"  scan launch counts as expected for {n_b} batches: {total} ({total // n_b} a batch), "
               f"{json.dumps(want)}", flush=True)
 
@@ -678,8 +699,8 @@ def main() -> int:
                        if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in kern)
-        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "gemm_wgmma_kernel",
-                                                                              W8_TC, W8_STREAM)))
+        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
+                                                                              "gemm_wgmma_kernel", W8_TC, W8_STREAM)))
 
         def seen(match):  # launches the profiler saw of kernels whose names hold one of `match`
             return sum(c for k, _, c in kern if any(m in k for m in match))
@@ -805,7 +826,8 @@ def worker(torch, batches=5):
     """One turn of --compare, in a process of its own: builds the kernels and
     the full-width bf16 model of the package on sys.path, then prints one
     JSON line: the host dispatch and wall ms of `batches` padded batches of 8
-    (t 40, ref 64, phoneme 384) and the wrappers' host ms per call."""
+    (t 40, ref 64, phoneme 384), the wrappers' host ms per call and the
+    scan's device ms (scan_device_ms)."""
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.serving.batcher import pad_group, Request
 
@@ -823,7 +845,8 @@ def worker(torch, batches=5):
         one_batch()
     dispatch, walls = batch_host_ms(one_batch, batches)
     print(json.dumps({"buckets": [args[5], args[0].shape[1], args[2].shape[1]], "dispatch_ms": dispatch,
-                      "wall_ms": walls, "wrapper_host_ms": wrapper_host_ms(torch, dev)}), flush=True)
+                      "wall_ms": walls, "wrapper_host_ms": wrapper_host_ms(torch, dev),
+                      "device_ms": scan_device_ms(torch, dev)}), flush=True)
     return 0
 
 
@@ -857,6 +880,13 @@ def compare(other, blocks=3):
             "dispatch_ms_turn_medians": [_median(t["dispatch_ms"]) for t in turns],
             "wall_ms_turn_medians": [_median(t["wall_ms"]) for t in turns],
             "wrapper_host_ms": {k: [t["wrapper_host_ms"][k] for t in turns] for k in turns[0]["wrapper_host_ms"]}}
+    # device ms: each tree's turns and median, and change minus parent in each adjacent pair
+    summary["device_ms"] = {
+        k: {"parent_median": _median([t["device_ms"][k] for t in res["parent"]]),
+            "change_median": _median([t["device_ms"][k] for t in res["change"]]),
+            "pairs": [res["change"][i]["device_ms"][k] - res["parent"][i]["device_ms"][k] for i in range(2 * blocks)],
+            "parent": [t["device_ms"][k] for t in res["parent"]], "change": [t["device_ms"][k] for t in res["change"]]}
+        for k in res["change"][0]["device_ms"]}
     print(json.dumps({"compare": summary}))
     return 0
 
@@ -868,11 +898,10 @@ def _median(xs):
 
 def wrapper_host_ms(torch, dev, calls=1000):
     """Host time per call (ms, median of `calls`) at served shapes of the
-    qkvg product's wrapper, the attention's, and adaln_modulate's as a
-    control: the Python checks, the ctypes call and the C launch code. The
-    package may be an earlier one (--compare): its qkvg product is then
-    gemm_bias, without the q/k norm. The device runs behind; it is drained
-    every 50 calls, outside the timed calls."""
+    qkvg product's two wrappers (gemm_bias, then qk_norm_rope), each alone
+    and the pair, the attention's, and adaln_modulate's as a control: the
+    Python checks, the ctypes call and the C launch code. The device runs
+    behind; it is drained every 50 calls, outside the timed calls."""
     from smalltts_tpu_torch.ops.kernels import attention as A
     from smalltts_tpu_torch.ops.kernels import dit_block as K
 
@@ -882,18 +911,16 @@ def wrapper_host_ms(torch, dev, calls=1000):
         return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
 
     a, w, b = r(8, 40, 960), r(960, 3840), r(3840)
+    qkvg, qs, cos = r(8, 40, 3840), r(8, 120), torch.ones((40, 64), device=dev)
     q, k, v, gate, k2, v2 = r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), r(8, 8, 40, 120), \
         r(8, 8, 448, 120), r(8, 8, 448, 120)
     m1, m2 = torch.ones((8, 40), dtype=torch.bool, device=dev), torch.ones((8, 448), dtype=torch.bool, device=dev)
     shift = r(8, 960)
-    if hasattr(K, "gemm_qkvg"):
-        qs, cos = r(8, 120), torch.ones((40, 64), device=dev)
-        qkvg = lambda: K.gemm_qkvg(a, w, b, qs, qs, cos, cos)  # noqa: E731
-    else:
-        qkvg = lambda: K.gemm_bias(a, w, b)  # noqa: E731
     res = {}
-    for name, fn in (("qkvg product M=320", qkvg),
-                     ("attention dit T=40 + Sc=448", lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate)),
+    for name, fn in ((WRAPPER_KEYS["gemm_bias"], lambda: K.gemm_bias(a, w, b)),
+                     (WRAPPER_KEYS["qk_norm_rope"], lambda: K.qk_norm_rope(qkvg, qs, qs, cos, cos)),
+                     ("qkvg product + q/k norm M=320", lambda: K.qk_norm_rope(K.gemm_bias(a, w, b), qs, qs, cos, cos)),
+                     (WRAPPER_KEYS["attention"], lambda: A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate)),
                      ("adaln_modulate M=320 (control)", lambda: K.adaln_modulate(a, shift, shift))):
         for _ in range(20):
             fn()
@@ -906,6 +933,67 @@ def wrapper_host_ms(torch, dev, calls=1000):
             if i % 50 == 49:
                 torch.cuda.synchronize()
         res[name] = sorted(ts)[len(ts) // 2] * 1e3
+    return res
+
+
+def scan_device_ms(torch, dev):
+    """Device ms per launch (torch.profiler) of the scan's kernels at both
+    served row counts (M = 320 and 128), and per call of the 12-layer scan
+    B8 T40 Sc192, bf16 and int8 stream weights, on seeded random inputs, for
+    the package on sys.path: --compare makes the same calls in either tree.
+    Each kernel is timed over the 12 layers' weights, as in phase B."""
+    from smalltts_tpu_torch.models.dit import (DiTConfig, fuse_serving_projections, init_dit,
+                                               quantize_stream_weights, rope_cos_sin)
+    from smalltts_tpu_torch.ops.kernels import dit_block as K
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    cfg = DiTConfig()
+    B, Sc, L, H, heads, hd, F = 8, 192, cfg.n_blocks, cfg.hidden_dim, cfg.heads, cfg.head_dim, cfg.ff_dim
+
+    def r(shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(torch.bfloat16)
+
+    blocks = fuse_serving_projections({"dit": init_dit(g, cfg, torch.bfloat16, dev)})["dit"]["blocks"]
+    trees = {"": blocks, " int8": quantize_stream_weights({"blocks": blocks})["blocks"]}
+    mods = r((L, 6 * H), 0.5)[:, None, :].expand(L, B, 6 * H)
+    qs, ks = blocks["attn"]["q_norm"]["scale"], blocks["attn"]["k_norm"]["scale"]
+    ck, cv = r((L, B, heads, Sc, hd)), r((L, B, heads, Sc, hd))
+    cmask = torch.arange(Sc, device=dev)[None] < torch.randint(Sc // 2, Sc + 1, (B, 1), generator=g, device=dev)
+
+    def over_layers(fn):
+        return lambda: [fn(l) for l in range(L)]
+
+    def prod(fn, lin, a, *rest):
+        """fn(a, w, b, *rest, w_scale) on layer l's weight of the leaf `lin`, bf16 or int8."""
+        def run(l):
+            w, s = (lin["w_q"][l], lin["scale"][l]) if "w_q" in lin else (lin["w"][l], None)
+            return fn(a, w, lin["b"][l] if "b" in lin else None, *(f(l) for f in rest), w_scale=s)
+        return run
+
+    res = {}
+    for T in (16, 40):  # the scan below runs on T = 40's inputs
+        M = B * T
+        x, mid, qkvg = r((B, T, H), 2.0), r((B, T, F)), r((B, T, 4 * H))
+        mask = torch.ones((B, T), dtype=torch.bool, device=dev)
+        cos, sin = rope_cos_sin(cfg, T, dev)
+        calls = {f"adaln_modulate M={M}": (lambda l: K.adaln_modulate(x, mods[l][:, :H], mods[l][:, H:2 * H]),
+                                           "adaln_kernel"),
+                 f"qk_norm_rope M={M}": (lambda l: K.qk_norm_rope(qkvg, qs[l], ks[l], cos, sin), "qk_norm_rope_kernel")}
+        for sfx, tree in trees.items():
+            at, ff = tree["attn"], tree["ff"]
+            calls.update({
+                f"gemm_bias qkvg M={M}{sfx}": (prod(K.gemm_bias, at["qkvg"], x), "gemm_wgmma_kernel"),
+                f"gemm_swiglu w13 M={M}{sfx}": (prod(K.gemm_swiglu, ff["w13"], x), "gemm_wgmma_kernel"),
+                f"gemm_residual w2 M={M}{sfx}": (prod(K.gemm_residual, ff["w2"], mid, lambda l: x,
+                                                      lambda l: mods[l][:, 5 * H:]), "gemm_wgmma_kernel"),
+                f"gemm_residual to_out M={M}{sfx}": (prod(K.gemm_residual, at["to_out"], x, lambda l: x,
+                                                          lambda l: mods[l][:, 2 * H:3 * H], lambda l: mask),
+                                                     "gemm_wgmma_kernel")})
+        for name, (fn, match) in calls.items():
+            res[name] = timed(over_layers(fn), 5, (match,), per=L)[0]
+    for sfx, tree in trees.items():
+        res[f"scan B8 T40 Sc192{sfx}"] = timed(lambda: K.fused_dit_scan(
+            x, mods, mask, ck, cv, cmask, tree, cos, sin, heads=heads, head_dim=hd), 10)[0]
     return res
 
 

@@ -4,17 +4,20 @@
 // The TPU kernel keeps the whole (B, T, 960) residual and a 2 MB weight window
 // resident in VMEM across all 12 layers. An SM has 227 KB of shared memory, so
 // here the scan is a host loop over layers (ops/kernels/dit_block.py) and each
-// layer is 7 launches of the kernels in this file plus the attention kernel
+// layer is 8 launches of the kernels in this file plus the attention kernel
 // (attention.cu):
 //
 //   adaln_modulate   h = LN(x) * (1 + scale[b]) + shift[b]
-//   gemm EPI_QKVG    [q|k|v|gate] = h @ W_qkvg + b, then per-head RMSNorm *
-//                    scale and interleaved RoPE on q and k, in the epilogue
+//   gemm  EPI_BIAS   [q|k|v|gate] = h @ W_qkvg + b
+//   qk_norm_rope     per-head RMSNorm * scale, then interleaved RoPE on lanes
+//                    [0, rot) in fp32, IN PLACE on the q and k columns of the
+//                    qkvg buffer (the attention kernel reads q/k/v/gate from
+//                    that buffer by strides, so no split copy is made)
 //   attention        self keys + cross [ref|text] keys, one softmax, * sigmoid(gate)
-//   gemm EPI_RESID   x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask
+//   gemm  EPI_RESID  x += tanh(gate_msa[b]) * (attn @ W_out) * row_mask
 //   adaln_modulate
-//   gemm EPI_SWIGLU  ff = silu(h @ W1 + b1) * (h @ W3 + b3)   (W13 = [W1 | W3])
-//   gemm EPI_RESID   x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked)
+//   gemm  EPI_SWIGLU ff = silu(h @ W1 + b1) * (h @ W3 + b3)   (W13 = [W1 | W3])
+//   gemm  EPI_RESID  x += tanh(gate_mlp[b]) * (ff @ W2 + b2)  (rows NOT masked)
 //
 // Numerics follow _block_core (smalltts_tpu/models/dit.py:371-382), the JAX
 // default path, rounding to bf16 where its bf16 ops round: each product is
@@ -29,11 +32,13 @@
 // each of silu's four ops. Every kernel here takes bf16 tensors. The plain
 // versions (ops/kernels/dit_block.py) do the same arithmetic.
 //
-// adaln_modulate is bound by a launch's fixed cost (1.2 MB at M = 320 is
-// 0.37 us at 3.35 TB/s): one warp a row holds the row in registers, read
-// once with 16-byte loads beside the row's batch's shift and scale, two warp
-// reductions (mean, then the sum of squared deviations), one 16-byte store
-// per 8 values.
+// The two norm kernels are bound by a launch's fixed cost (adaln_modulate
+// moves 1.2 MB at M = 320, 0.37 us at 3.35 TB/s; qk_norm_rope 2.5 MB): each
+// reads its input once with 16-byte loads into registers, reduces in a warp
+// or half-warp, and stores 16 bytes per 8 values. Folding either into the
+// GEMM beside it (the adaLN into the A path of qkvg and w13, the q/k norm +
+// RoPE into the qkvg epilogue with one block a head) was built and measured
+// slower than the launch it saved (PERF.md section 6).
 //
 // The GEMM (gemm_wgmma_kernel). What bounds it on the H100: the four
 // products of a layer stream 22 MB of bf16 weights (6.6 us at 3.35 TB/s) and
@@ -49,12 +54,6 @@
 //    cp.async.bulk.tensor.2d, mbarrier completion, zero fill past the edges
 //    (M, N and K tails); the activation's tensor map is encoded per call in
 //    C, each weight's once and cached (its key is everything the map holds);
-//  * qkvg runs one block per head (120 columns, wgmma n = 128 over a W box
-//    that starts at column 120 j; the last 8 columns are discarded): a row's
-//    120 values of a head lie in the 4 threads of a quad, so the q/k RMSNorm
-//    is two shuffles and RoPE's pairs (d, d ^ 1) are the two adjacent columns
-//    one thread holds: the norm and the rotation are done in registers, and
-//    v / gate heads keep the plain bias epilogue (uniform per block);
 //  * the tile width and a split of K are chosen per product on the host;
 //    two blocks fit on an SM. Where the tiles leave most SMs idle and K is
 //    long (w2 at M = 128) K is split: the K ranks of one output tile form a
@@ -62,9 +61,10 @@
 //    distributed shared memory in rank order and rounds once, in one launch,
 //    with no scratch and no atomics (deterministic);
 //  * the epilogues read the accumulator fragments in registers and store
-//    bf16x2: SwiGLU from two accumulator sets (w1's and w3's columns
-//    n0..n0+63 land in the same thread), silu as JAX's op chain; the gated
-//    residual reads x, gate and row_mask and updates x in place.
+//    bf16x2: bias; SwiGLU from two accumulator sets (w1's and w3's columns
+//    n0..n0+63 land in the same thread), silu as JAX's op chain
+//    a * (1 / (1 + exp(-a))) rounded to bf16 at each of its four ops; the
+//    gated residual reads x, gate and row_mask and updates x in place.
 // int8 weights (the w8_stream serving option, smalltts_tpu/models/dit.py::
 // quantize_stream_weights): W is int8 (K, N) with an fp32 per-column scale,
 // half the bytes. The int8 tile lands by TMA; the consumer warpgroup turns
@@ -72,10 +72,8 @@
 // bf16(bf16(q) * bf16(scale)), with the block's scales held in registers,
 // while the previous stage's wgmma runs; no bf16 copy of a weight is
 // written to device memory.
-// An adaLN applied to wgmma's A fragments in registers inside qkvg and w13
-// (no adaln_modulate launch) was built and measured slower than the launch
-// it saves (PERF.md section 6). Measured times (H100 80GB HBM3, 700 W)
-// and the grids each product gets are in PERF.md section 6.
+// Measured times (H100 80GB HBM3, 700 W) and the grids each product gets are
+// in PERF.md section 6.
 
 #include <cuda_bf16.h>
 #include <math.h>
@@ -103,11 +101,6 @@ __device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) { return *reinterpr
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) { return *reinterpret_cast<const uint32_t*>(&v); }
 // 1 / sqrt(v), both correctly rounded: torch.rsqrt's arithmetic, which the plain versions use
 __device__ __forceinline__ float rsqrt_rn(float v) { return __fdiv_rn(1.f, __fsqrt_rn(v)); }
-// the sum over the 4 threads of a quad, in one order
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -188,14 +181,82 @@ __global__ void __launch_bounds__(32 * ADALN_ROWS) adaln_kernel(const bf16* __re
   }
 }
 
+// -------------------------------------------------------------- qk_norm_rope
+
+constexpr int QK_UNITS = 16;  // (row, head) units per block, a half-warp each
+
+// one half-warp per (row, head) of q or k, D = 8 * 16 * NV or fewer values:
+// lane l of the half holds the 16-byte chunks l, l + 16, ... of the head, of
+// its norm scale and, on the rotated lanes, of the row's cos and sin; the sum
+// of squares is one 16-lane reduction, and RoPE's pairs (d, d + 1) are
+// adjacent values of one chunk. y = bf16(v * rsqrt(mean(v^2) + eps) *
+// scale[d]), then on d < rot the fp32 rotation of the pair, rounded again.
+// Every load is issued before the reduction; the head is rewritten in place.
+template <int NV>
+__global__ void __launch_bounds__(16 * QK_UNITS) qk_norm_rope_kernel(bf16* __restrict__ qkvg, long long ldq, int M,
+                                                                  int T, int heads, int D, int rot,
+                                                                  const bf16* __restrict__ q_scale,
+                                                                  const bf16* __restrict__ k_scale,
+                                                                  const float* __restrict__ cos_t,
+                                                                  const float* __restrict__ sin_t) {
+  const int unit = blockIdx.x * QK_UNITS + (threadIdx.x >> 4), l = threadIdx.x & 15;
+  const bool live = unit < 2 * heads * M;  // a unit past the end still takes part in the shuffles
+  const int m = live ? unit / (2 * heads) : 0, hh = unit % (2 * heads);  // hh: q heads, then k heads
+  bf16* xh = qkvg + (long long)m * ldq + (long long)hh * D;
+  const bf16* nsc = hh < heads ? q_scale + hh * D : k_scale + (hh - heads) * D;
+  const long long trow = (long long)(m % T) * rot;
+  uint4 xv[NV], sv[NV];
+  float4 cs[NV][2], sn[NV][2];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int d = 8 * (l + 16 * i);
+    const bool ok = live && d < D, r = ok && d < rot;  // D and rot are multiples of 8
+    xv[i] = ok ? *reinterpret_cast<const uint4*>(xh + d) : make_uint4(0u, 0u, 0u, 0u);
+    sv[i] = ok ? __ldg(reinterpret_cast<const uint4*>(nsc + d)) : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      cs[i][q] = r ? __ldg(reinterpret_cast<const float4*>(cos_t + trow + d) + q) : make_float4(1.f, 1.f, 1.f, 1.f);
+      sn[i][q] = r ? __ldg(reinterpret_cast<const float4*>(sin_t + trow + d) + q) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)  // chunks past D are zeros
+      ss = __fadd_rn(__fadd_rn(ss, __fmul_rn(bf_lo(w[q]), bf_lo(w[q]))), __fmul_rn(bf_hi(w[q]), bf_hi(w[q])));
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);  // within the half-warp
+  const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(ss, static_cast<float>(D)), EPS));
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int d = 8 * (l + 16 * i);
+    if (!live || d >= D) continue;
+    const uint32_t w[4] = {xv[i].x, xv[i].y, xv[i].z, xv[i].w}, s[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+    const float c[8] = {cs[i][0].x, cs[i][0].y, cs[i][0].z, cs[i][0].w, cs[i][1].x, cs[i][1].y, cs[i][1].z, cs[i][1].w};
+    const float n[8] = {sn[i][0].x, sn[i][0].y, sn[i][0].z, sn[i][0].w, sn[i][1].x, sn[i][1].y, sn[i][1].z, sn[i][1].w};
+    uint32_t o[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float y0 = rbf(__fmul_rn(__fmul_rn(bf_lo(w[q]), inv), bf_lo(s[q])));
+      const float y1 = rbf(__fmul_rn(__fmul_rn(bf_hi(w[q]), inv), bf_hi(s[q])));
+      o[q] = d < rot ? pack_bf16x2(__fsub_rn(__fmul_rn(y0, c[2 * q]), __fmul_rn(y1, n[2 * q])),
+                                   __fadd_rn(__fmul_rn(y1, c[2 * q + 1]), __fmul_rn(y0, n[2 * q + 1])))
+                     : pack_bf16x2(y0, y1);
+    }
+    *reinterpret_cast<uint4*>(xh + d) = make_uint4(o[0], o[1], o[2], o[3]);
+  }
+}
+
 // ---------------------------------------------------------------------- gemm
 
 constexpr int GBM = 64;        // rows per block: the consumer warpgroup's one m64 wgmma row
 constexpr int GBK = 64;        // k per stage: 128 bytes of bf16, the width of the 128-byte swizzle
 constexpr int GSUB = 64;       // columns per W sub-tile: one TMA box of 64 k rows x 128 bytes
 constexpr int GMAXSPLIT = 4;   // K ranks per output tile (the cluster's size)
-constexpr int QK_DMAX = 128;   // the widest head one qkvg block holds (wgmma n = 128)
-enum { EPI_QKVG = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
+enum { EPI_BIAS = 0, EPI_SWIGLU = 1, EPI_RESID = 2 };
 
 struct GemmArgs {
   const float* wscale;  // int8 W: (wcols,) fp32 per-column scale
@@ -205,21 +266,16 @@ struct GemmArgs {
   const bf16* gate;  // EPI_RESID: (B, N) rows at stride gate_sb
   long long gate_sb;
   const unsigned char* row_mask;  // EPI_RESID: (M,) or null
-  const bf16* q_scale;            // EPI_QKVG: (heads, D) RMSNorm scales of q and k
-  const bf16* k_scale;
-  const float* cos_t;  // EPI_QKVG: (T, rot) fp32 RoPE tables
-  const float* sin_t;
-  int heads, D, rot;
   int M, N, K, T;
   int half;   // EPI_SWIGLU: column of W where the second (W3) half starts
   int wcols;  // W's width
 };
 
-template <int EPI, bool W8>
+// BN: W columns a block multiplies per k step (SwiGLU: 64 of w1 and the same 64 of w3)
+template <int EPI, bool W8, int BN>
 struct GemmCfg {
-  static constexpr int BN = EPI == EPI_RESID ? 64 : 128;     // W columns a block multiplies per k step
   static constexpr int NSUB = BN / GSUB;                     // W sub-tiles per stage
-  static constexpr int BNO = EPI == EPI_RESID || EPI == EPI_SWIGLU ? GSUB : BN;  // output tile (QKVG: a head)
+  static constexpr int BNO = EPI == EPI_SWIGLU ? GSUB : BN;  // output columns per block
   static constexpr int A_BYTES = GBM * GBK * 2;
   static constexpr int SUB_BYTES = GBK * GSUB * 2;              // one bf16 W sub-tile
   static constexpr int RAW_BYTES = W8 ? NSUB * GBK * GSUB : 0;  // int8 sub-tiles as TMA lands them
@@ -287,12 +343,12 @@ __device__ __forceinline__ float s8_scaled(uint32_t u, int b, float s, float off
   return fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 | b)), s, off);
 }
 
-// two blocks per SM: a 190-block grid is resident in one wave
-template <int EPI, bool W8>
-__global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
+// two blocks per SM: a 150-block grid is resident in one wave
+template <int EPI, bool W8, int BN>
+__global__ void __launch_bounds__(GemmCfg<EPI, W8, BN>::THREADS, 2)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmW,
                       const GemmArgs g) {
-  using C = GemmCfg<EPI, W8>;
+  using C = GemmCfg<EPI, W8, BN>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   auto a_tile = [&](int s) { return sm + s * C::STAGE; };
@@ -306,16 +362,11 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // grid.x is the cluster: the K ranks of one output tile
   const int split = blockIdx.x, nsplit = gridDim.x;
-  // the output columns' start: QKVG a head of D columns, else a tile of BNO
-  const int n0 = blockIdx.y * (EPI == EPI_QKVG ? g.D : C::BNO), m0 = blockIdx.z * GBM;
+  const int n0 = blockIdx.y * C::BNO, m0 = blockIdx.z * GBM;
   const int nk = (g.K + GBK - 1) / GBK;
   const int kt0 = split * nk / nsplit, kt1 = (split + 1) * nk / nsplit;
   // W column of sub-tile j's first column (SwiGLU: w1's, then w3's)
   auto w_col = [&](int j) { return EPI == EPI_SWIGLU ? (j ? g.half : 0) + n0 : n0 + j * GSUB; };
-  // a TMA box starts on a 16-byte boundary: an int8 head tile (column 120 j)
-  // is loaded from the boundary below it, `wshift` (0 or 8) columns early,
-  // and the consumers read it shifted back as they dequantize
-  const int wshift = W8 && EPI == EPI_QKVG ? n0 & 15 : 0;
 
   if (tid == 0) {
     for (int s = 0; s < C::STAGES; ++s) {
@@ -340,31 +391,25 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
         tma_load_2d(a_tile(s), &tmA, kt * GBK, m0, &full[s]);
 #pragma unroll
         for (int j = 0; j < C::NSUB; ++j)
-          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j) - wshift, kt * GBK, &full[s]);
+          tma_load_2d(W8 ? raw_tile(s, j) : b_tile(s, j), &tmW, w_col(j), kt * GBK, &full[s]);
       }
     }
     __syncwarp();
   } else {
-    // the consumer warpgroup. int8: before it issues, it turns the stage's
-    // int8 tile into the swizzled bf16 tile wgmma reads, each value bf16(q *
-    // bf16(scale[col])), while the previous stage's products run; a thread
-    // always handles the same 8 columns of each sub-tile, so it holds their
-    // scales in registers
+    // the consumer warpgroup: 4 k16 wgmmas per stage, one group kept in
+    // flight. int8: before it issues, it turns the stage's int8 tile into the
+    // swizzled bf16 tile wgmma reads, each value bf16(q * bf16(scale[col])),
+    // while the previous stage's products run; a thread always handles the
+    // same 8 columns of each sub-tile, so it holds their scales in registers
     const int c8 = tid & 7;
     float sc[W8 ? C::NSUB : 1][8], off[W8 ? C::NSUB : 1][8];
-    int raw[W8 ? C::NSUB : 1];  // the int8 bytes of columns 64 j + 8 c8 .. + 7 in the stage's raw tiles, or -1
-#pragma unroll
-    for (int j = 0; j < (W8 ? C::NSUB : 1); ++j) {
-      const int rc = GSUB * j + 8 * c8 + wshift;
-      raw[j] = rc < C::NSUB * GSUB ? (rc / GSUB) * GBK * GSUB + rc % GSUB : -1;
-    }
     if constexpr (W8) {
 #pragma unroll
       for (int j = 0; j < C::NSUB; ++j)
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int col = w_col(j) + 8 * c8 + e;
-          sc[j][e] = col < g.wcols ? rbf(g.wscale[col]) : 0.f;
+          const int n = n0 + (EPI == EPI_SWIGLU ? 0 : j * GSUB) + 8 * c8 + e, col = w_col(j) + 8 * c8 + e;
+          sc[j][e] = n < g.N && col < g.wcols ? rbf(g.wscale[col]) : 0.f;
           off[j][e] = -8388736.f * sc[j][e];
         }
     }
@@ -375,14 +420,15 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
 #pragma unroll
         for (int it = 0; it < C::NSUB * 4; ++it) {
           const int j = it / 4, r = (tid >> 3) + 16 * (it & 3);
-          const uint2 q = raw[j] < 0 ? make_uint2(0u, 0u)  // columns past the head: discarded
-                                     : *reinterpret_cast<const uint2*>(raw_tile(s, 0) + raw[j] + r * GSUB);
+          const uint2 q = *reinterpret_cast<const uint2*>(raw_tile(s, j) + r * GSUB + 8 * c8);
           const uint32_t qu[2] = {q.x ^ 0x80808080u, q.y ^ 0x80808080u};
           uint32_t pk[4];
 #pragma unroll
-          for (int e = 0; e < 8; e += 2)
-            pk[e >> 1] = pack_bf16x2(s8_scaled(qu[e >> 2], e & 3, sc[j][e], off[j][e]),
-                                     s8_scaled(qu[e >> 2], (e & 3) + 1, sc[j][e + 1], off[j][e + 1]));
+          for (int e = 0; e < 8; e += 2) {
+            const __nv_bfloat162 h = __floats2bfloat162_rn(s8_scaled(qu[e >> 2], e & 3, sc[j][e], off[j][e]),
+                                                           s8_scaled(qu[e >> 2], (e & 3) + 1, sc[j][e + 1], off[j][e + 1]));
+            pk[e >> 1] = *reinterpret_cast<const uint32_t*>(&h);
+          }
           // 16-byte chunk c8 of k row r sits at chunk c8 ^ (r % 8): the 128-byte swizzle TMA would give
           *reinterpret_cast<uint4*>(b_tile(s, j) + r * 128 + ((c8 ^ (r & 7)) << 4)) =
               make_uint4(pk[0], pk[1], pk[2], pk[3]);
@@ -390,7 +436,6 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
         asm volatile("bar.sync 1, %0;\n" ::"n"(C::CONSUMERS) : "memory");  // the whole tile is written
       }
-      // 4 k16 wgmmas per stage, one group kept in flight
       fence_regs<C::ACC>(acc);
       wgmma_fence();
 #pragma unroll
@@ -400,7 +445,7 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
         if constexpr (EPI == EPI_SWIGLU) {
           wgmma_n64(acc, da, db);
           wgmma_n64(acc + 32, da, sw128_desc(b_tile(s, 1) + 2048 * k, C::SUB_BYTES, 1024));
-        } else if constexpr (EPI == EPI_QKVG) {
+        } else if constexpr (BN == 128) {
           wgmma_n128(acc, da, db);
         } else {
           wgmma_n64(acc, da, db);
@@ -455,106 +500,23 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
   // store would wait for it, and the loads would run one round trip at a time.
   constexpr int NJ = C::BNO / 8;
   const int wr = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
-  auto acc_at = [&](int j, int hr) { return make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]); };
-  auto bias_at = [&](int col) {  // N is a multiple of 8, so col < N means col + 1 < N as well
-    return col < g.wcols && g.bias ? make_float2(ld(g.bias + col), ld(g.bias + col + 1)) : make_float2(0.f, 0.f);
-  };
-
-  if constexpr (EPI == EPI_QKVG) {
-    // a head of D columns: v = bf16(acc + b); q and k heads then
-    // bf16(v * rsqrt(mean(v^2) + eps) * scale[d]) and, on d < rot, the fp32
-    // rotation of the pair (d, d + 1), rounded again. Every load is
-    // predicated and issued before the arithmetic that needs it, a row's
-    // tables at once: a load behind a branch would cost a round trip each.
-    const int head = blockIdx.y;
-    const bool qk = head < 2 * g.heads;  // uniform per block
-    const bf16* nscale = !qk ? g.q_scale : head < g.heads ? g.q_scale + head * g.D : g.k_scale + (head - g.heads) * g.D;
-    float2 b[NJ];
-    uint32_t nsc[NJ];  // the norm's scale pair (bf16x2) at d = 8 j + cq
+  float2 b1[NJ], b3[NJ];  // the bias at each column pair (SwiGLU: w1's, and w3's in b3)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int d = 8 * j + cq;
-      b[j] = d < g.D ? bias_at(n0 + d) : make_float2(0.f, 0.f);
-      nsc[j] = qk && d < g.D ? *reinterpret_cast<const uint32_t*>(nscale + d) : 0u;
-    }
-    float2 v[2][NJ];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int t = min(m0 + wr + 8 * hr, g.M - 1) % g.T;
-      float2 cs[NJ], sn[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = 8 * j + cq;  // rot is even: a pair rotates together
-        const bool rot = qk && d < g.rot;
-        cs[j] = rot ? *reinterpret_cast<const float2*>(g.cos_t + (long long)t * g.rot + d) : make_float2(1.f, 1.f);
-        sn[j] = rot ? *reinterpret_cast<const float2*>(g.sin_t + (long long)t * g.rot + d) : make_float2(0.f, 0.f);
-      }
-      float ss = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float2 a = acc_at(j, hr);
-        v[hr][j] = 8 * j + cq < g.D ? make_float2(rbf(a.x + b[j].x), rbf(a.y + b[j].y)) : make_float2(0.f, 0.f);
-        ss += v[hr][j].x * v[hr][j].x + v[hr][j].y * v[hr][j].y;
-      }
-      if (qk) {
-        const float inv = rsqrt_rn(__fadd_rn(__fdiv_rn(quad_sum(ss), static_cast<float>(g.D)), EPS));
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float y0 = rbf(__fmul_rn(__fmul_rn(v[hr][j].x, inv), bf_lo(nsc[j])));
-          const float y1 = rbf(__fmul_rn(__fmul_rn(v[hr][j].y, inv), bf_hi(nsc[j])));
-          // off the rotated lanes cos = 1 and sin = 0: y unchanged, rounded once more (exact)
-          v[hr][j] = make_float2(rbf(__fsub_rn(__fmul_rn(y0, cs[j].x), __fmul_rn(y1, sn[j].x))),
-                                 rbf(__fadd_rn(__fmul_rn(y1, cs[j].y), __fmul_rn(y0, sn[j].y))));
-        }
-      }
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wr + 8 * hr;
-      if (m >= g.M) continue;
-      bf16* orow = g.out + (long long)m * g.ldo + n0;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = 8 * j + cq;
-        if (d < g.D) *reinterpret_cast<uint32_t*>(orow + d) = pack_bf16x2(v[hr][j].x, v[hr][j].y);
-      }
-    }
-  } else if constexpr (EPI == EPI_SWIGLU) {
-    float2 b1[NJ], b3[NJ];  // the bias at each column pair: w1's, and w3's
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + cq;
-      b1[j] = n < g.N ? bias_at(n) : make_float2(0.f, 0.f);
-      b3[j] = n < g.N ? bias_at(g.half + n) : make_float2(0.f, 0.f);
-    }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wr + 8 * hr;
-      if (m >= g.M) continue;
-      bf16* orow = g.out + (long long)m * g.ldo;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = n0 + 8 * j + cq;
-        if (n >= g.N) continue;
-        const float2 a1 = acc_at(j, hr), a3 = acc_at(NJ + j, hr);
-        *reinterpret_cast<uint32_t*>(orow + n) =
-            pack_bf16x2(swiglu(a1.x + b1[j].x, a3.x + b3[j].x), swiglu(a1.y + b1[j].y, a3.y + b3[j].y));
-      }
-    }
-  } else {
-    // the gated residual, x' = bf16(x + bf16(bf16(tanh(gate)) * bf16(acc + b)))
-    float2 b1[NJ], gt[2][NJ], xin[2][NJ];
-    bool keep[2];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = n0 + 8 * j + cq;
-      b1[j] = n < g.N ? bias_at(n) : make_float2(0.f, 0.f);
-    }
+  for (int j = 0; j < NJ; ++j) {
+    const int n = n0 + 8 * j + cq;  // N is a multiple of 8, so n < N means n + 1 < N as well
+    const bool ok = n < g.N && g.bias;
+    b1[j] = ok ? make_float2(ld(g.bias + n), ld(g.bias + n + 1)) : make_float2(0.f, 0.f);
+    b3[j] = ok && EPI == EPI_SWIGLU ? make_float2(ld(g.bias + g.half + n), ld(g.bias + g.half + n + 1))
+                                    : make_float2(0.f, 0.f);
+  }
+  float2 gt[EPI == EPI_RESID ? 2 : 1][NJ], xin[EPI == EPI_RESID ? 2 : 1][NJ];  // tanh(gate), x
+  bool keep[2];
+  if constexpr (EPI == EPI_RESID) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       const int m = m0 + wr + 8 * hr;
       keep[hr] = m < g.M && (!g.row_mask || g.row_mask[m]);
-      const bf16* grow = g.gate + (long long)(min(m, g.M - 1) / g.T) * g.gate_sb;
+      const bf16* grow = g.gate + (long long)(m / g.T) * g.gate_sb;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int n = n0 + 8 * j + cq;
@@ -564,35 +526,41 @@ __global__ void __launch_bounds__(GemmCfg<EPI, W8>::THREADS, 2)
                         : make_float2(0.f, 0.f);
       }
     }
+  }
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int m = m0 + wr + 8 * hr;
-      if (m >= g.M) continue;
-      bf16* orow = g.out + (long long)m * g.ldo;
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m = m0 + wr + 8 * hr;
+    if (m >= g.M) continue;
+    bf16* orow = g.out + (long long)m * g.ldo;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = n0 + 8 * j + cq;
-        if (n >= g.N) continue;
-        const float2 t = acc_at(j, hr);
-        const float p0 = keep[hr] ? rbf(gt[hr][j].x * rbf(t.x + b1[j].x)) : 0.f;
-        const float p1 = keep[hr] ? rbf(gt[hr][j].y * rbf(t.y + b1[j].y)) : 0.f;
-        *reinterpret_cast<uint32_t*>(orow + n) = pack_bf16x2(xin[hr][j].x + p0, xin[hr][j].y + p1);
+    for (int j = 0; j < NJ; ++j) {
+      const int n = n0 + 8 * j + cq;
+      if (n >= g.N) continue;
+      float v0 = acc[4 * j + 2 * hr] + b1[j].x, v1 = acc[4 * j + 2 * hr + 1] + b1[j].y;
+      if constexpr (EPI == EPI_SWIGLU) {
+        v0 = swiglu(v0, acc[32 + 4 * j + 2 * hr] + b3[j].x);
+        v1 = swiglu(v1, acc[32 + 4 * j + 2 * hr + 1] + b3[j].y);
+      } else if constexpr (EPI == EPI_RESID) {
+        // x' = bf16(x + bf16(bf16(tanh(gate)) * bf16(acc + b))): the sum and
+        // the product of two bf16 values in fp32 round to bf16 as bf16 ops do
+        v0 = xin[hr][j].x + (keep[hr] ? rbf(gt[hr][j].x * rbf(v0)) : 0.f);
+        v1 = xin[hr][j].y + (keep[hr] ? rbf(gt[hr][j].y * rbf(v1)) : 0.f);
       }
+      *reinterpret_cast<__nv_bfloat162*>(orow + n) = __floats2bfloat162_rn(v0, v1);
     }
   }
 }
 
 // ------------------------------------------------------------- gemm, host side
 
-template <int EPI, bool W8>
-int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int tiles, int split,
-                cudaStream_t s) {
-  using C = GemmCfg<EPI, W8>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+template <int EPI, bool W8, int BN>
+int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, int split, cudaStream_t s) {
+  using C = GemmCfg<EPI, W8, BN>;
+  static const cudaError_t attr = cudaFuncSetAttribute(gemm_wgmma_kernel<EPI, W8, BN>,
+                                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(split, tiles, (g.M + GBM - 1) / GBM);
+  cfg.gridDim = dim3(split, (g.N + C::BNO - 1) / C::BNO, (g.M + GBM - 1) / GBM);
   cfg.blockDim = dim3(C::THREADS);
   cfg.dynamicSmemBytes = C::SMEM;
   cfg.stream = s;
@@ -603,43 +571,35 @@ int launch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g,
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8>, ta, tw, g);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, gemm_wgmma_kernel<EPI, W8, BN>, ta, tw, g);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// K split per product: K is split over a cluster of up to GMAXSPLIT ranks
-// only where the 64-column tiles leave more than half the SMs idle and each
-// rank keeps 8 k tiles or more (w2 at M = 128): the split's merge and
-// cluster barriers cost a few us, measured on the H100 (PERF.md section 6),
-// more than the split gains elsewhere. qkvg (one head a block) is not split.
-template <int EPI, bool W8>
-int dispatch_gemm(const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
+// Tile width and K split per product: 128 columns where 64-row x 128-column
+// tiles already give most SMs a block (qkvg at M = 320), else 64. K is split
+// over a cluster of up to GMAXSPLIT ranks only where the tiles leave more
+// than half the SMs idle and each rank keeps 8 k tiles or more (w2 at M =
+// 128): the split's merge and cluster barriers cost a few us, measured on
+// the H100 (PERF.md section 6), more than the split gains elsewhere.
+template <bool W8>
+int dispatch_gemm(int epi, const CUtensorMap& ta, const CUtensorMap& tw, const GemmArgs& g, cudaStream_t s) {
   const int sms = sm_count(), mt = (g.M + GBM - 1) / GBM, nk = (g.K + GBK - 1) / GBK;
-  if (EPI == EPI_QKVG) return launch_gemm<EPI, W8>(ta, tw, g, g.N / g.D, 1, s);
-  const int tiles = (g.N + GSUB - 1) / GSUB, blocks = mt * tiles;
-  const int split = blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
-  return launch_gemm<EPI, W8>(ta, tw, g, tiles, split, s);
-}
-
-// What every product takes: A bf16 (M, K) contiguous, W (K, wcols) at row
-// stride ldw, bf16 or int8 with an fp32 scale per column. TMA reads A and W:
-// K and wcols multiples of 8 (16 for int8 W, and ldw too), A and W 16-byte
-// aligned. Encodes both tensor maps: 64 x 64 boxes, bf16 in the 128-byte
-// swizzle wgmma reads, int8 unswizzled (the consumers swizzle it as they
-// dequantize).
-int prepare(GemmArgs& g, const void* A, const void* W, long long ldw, const float* wscale, const void* out,
-            int M, int N, int K, int wcols, CUtensorMap& ta, CUtensorMap& tw) {
-  const long long wmul = wscale ? 15 : 7;
-  if ((K & 7) || ((N | wcols | ldw) & wmul) || M <= 0 || N <= 0 || K <= 0 || wcols > ldw)
-    return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
-    return (int)cudaErrorMisalignedAddress;
-  if (!encode_map(&ta, MapSpec{A, false, M, K, K, GBK, GBM, true}) ||
-      !weight_map(&tw, MapSpec{W, wscale != nullptr, K, wcols, ldw, GSUB, GBK, wscale == nullptr}))
-    return (int)cudaErrorInvalidValue;
-  g.wscale = wscale;
-  g.M = M; g.N = N; g.K = K; g.wcols = wcols;
-  return 0;
+  const int tiles64 = mt * ((g.N + 63) / 64);
+  auto split_for = [&](int blocks) {
+    return blocks >= sms / 2 ? 1 : std::max(1, std::min({GMAXSPLIT, (sms + blocks - 1) / blocks, nk / 8}));
+  };
+  switch (epi) {
+    case EPI_BIAS:
+      if (mt * ((g.N + 127) / 128) >= (3 * sms) / 4) return launch_gemm<EPI_BIAS, W8, 128>(ta, tw, g, 1, s);
+      return launch_gemm<EPI_BIAS, W8, 64>(ta, tw, g, split_for(tiles64), s);
+    case EPI_SWIGLU:
+      if (!g.bias) return (int)cudaErrorInvalidValue;
+      return launch_gemm<EPI_SWIGLU, W8, 128>(ta, tw, g, split_for(tiles64), s);
+    case EPI_RESID:
+      if (!g.gate || g.T <= 0) return (int)cudaErrorInvalidValue;
+      return launch_gemm<EPI_RESID, W8, 64>(ta, tw, g, split_for(tiles64), s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -666,59 +626,58 @@ extern "C" int st_adaln_modulate(const void* x, void* out, const void* shift, co
   return (int)cudaGetLastError();
 }
 
-// qkvg (M, N) = h @ W + bias, N = 4 heads D ([q | k | v | gate]), then the
-// q/k RMSNorm (q_scale / k_scale (heads, D) bf16) and RoPE on lanes [0, rot)
-// (cos / sin (T, rot) fp32) on the first 2 heads D columns; h (M, K) bf16.
-extern "C" int st_gemm_qkvg(const void* h, const void* W, long long ldw, const float* wscale, const void* bias,
-                            void* out, const void* q_scale, const void* k_scale, const float* cos_t,
-                            const float* sin_t, int M, int N, int K, int T, int heads, int D, int rot, void* stream) {
-  if (D <= 0 || D > QK_DMAX || (D & 7) || heads <= 0 || N != 4 * heads * D || rot < 0 || rot > D || (rot & 1) ||
-      T <= 0 || !q_scale || !k_scale || ((reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 7) ||
-      (rot && (!cos_t || !sin_t)))
+// bf16 qkvg (M, ldq): q at column 0, k at column heads*D, each (heads, D) per
+// row, normalized and rotated in place. cos/sin (T, rot) fp32 tables (null
+// when rot is 0); q_scale / k_scale (heads, D) bf16. D a multiple of 8 up to
+// 256, rot of 8 up to D, ldq of 8; every pointer 16-byte aligned (the loads
+// and stores are 16 bytes).
+extern "C" int st_qk_norm_rope(void* qkvg, long long ldq, int M, int T, int heads, int D, int rot,
+                               const void* q_scale, const void* k_scale, const float* cos_t,
+                               const float* sin_t, void* stream) {
+  if (M <= 0 || T <= 0 || heads <= 0 || D <= 0 || D > 256 || (D & 7) || rot < 0 || rot > D || (rot & 7) ||
+      (ldq & 7) || ldq < 2LL * heads * D || !q_scale || !k_scale || (rot && (!cos_t || !sin_t)) ||
+      ((reinterpret_cast<size_t>(qkvg) | reinterpret_cast<size_t>(q_scale) | reinterpret_cast<size_t>(k_scale) |
+        reinterpret_cast<size_t>(cos_t) | reinterpret_cast<size_t>(sin_t)) & 15))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((2 * heads * M + QK_UNITS - 1) / QK_UNITS), block(16 * QK_UNITS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* qp = static_cast<bf16*>(qkvg);
+  const bf16 *qs = static_cast<const bf16*>(q_scale), *ks = static_cast<const bf16*>(k_scale);
+  if (D <= 128) qk_norm_rope_kernel<1><<<grid, block, 0, s>>>(qp, ldq, M, T, heads, D, rot, qs, ks, cos_t, sin_t);
+  else qk_norm_rope_kernel<2><<<grid, block, 0, s>>>(qp, ldq, M, T, heads, D, rot, qs, ks, cos_t, sin_t);
+  return (int)cudaGetLastError();
+}
+
+// GEMM out = epilogue(A @ W), A bf16 (M, K) at row stride lda. epi: 0 bias,
+// 1 swiglu, 2 gated residual. W (K, cols) at row stride ldw is bf16, or int8
+// where wscale, an fp32 scale per W column (cols,), is given. TMA reads A and
+// W: K, lda and ldo must be multiples of 8 and A, W and out 16-byte aligned;
+// N, ldw and half multiples of 8 for bf16 W, of 16 for int8 W.
+extern "C" int st_gemm(int epi, const void* A, long long lda, const void* W, long long ldw,
+                       const float* wscale, const void* bias, void* out, long long ldo,
+                       const void* gate, long long gate_sb, const void* row_mask, int M, int N,
+                       int K, int T, int half, void* stream) {
+  const long long wmul = wscale ? 15 : 7;
+  if (((K | lda | ldo) & 7) || ((N | ldw | half) & wmul)) return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<size_t>(A) | reinterpret_cast<size_t>(W) | reinterpret_cast<size_t>(out)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int wcols = epi == EPI_SWIGLU ? half + N : N;
+  if (M <= 0 || N <= 0 || K <= 0 || wcols > ldw) return (int)cudaErrorInvalidValue;
+  // 64 x 64 boxes: bf16 in the 128-byte swizzle wgmma reads, int8 unswizzled
+  // (the consumer warpgroup swizzles it as it dequantizes)
+  CUtensorMap ta, tw;
+  if (!encode_map(&ta, MapSpec{A, false, M, K, lda, GBK, GBM, true}) ||
+      !weight_map(&tw, MapSpec{W, wscale != nullptr, K, wcols, ldw, GSUB, GBK, wscale == nullptr}))
     return (int)cudaErrorInvalidValue;
   GemmArgs g{};
-  CUtensorMap ta, tw;
-  if (const int e = prepare(g, h, W, ldw, wscale, out, M, N, K, N, ta, tw)) return e;
+  g.wscale = wscale;
   g.bias = static_cast<const bf16*>(bias);
-  g.out = static_cast<bf16*>(out); g.ldo = N;
-  g.q_scale = static_cast<const bf16*>(q_scale); g.k_scale = static_cast<const bf16*>(k_scale);
-  g.cos_t = cos_t; g.sin_t = sin_t;
-  g.heads = heads; g.D = D; g.rot = rot; g.T = T;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return wscale ? dispatch_gemm<EPI_QKVG, true>(ta, tw, g, s) : dispatch_gemm<EPI_QKVG, false>(ta, tw, g, s);
-}
-
-// out (M, F) = silu(h W1 + b1) * (h W3 + b3), W13 = [W1 | W3] (K, 2F) with
-// bias (2F,); h (M, K) bf16.
-extern "C" int st_gemm_swiglu(const void* h, const void* W, long long ldw, const float* wscale, const void* bias,
-                              void* out, int M, int F, int K, void* stream) {
-  if (!bias || (F & (wscale ? 15 : 7))) return (int)cudaErrorInvalidValue;
-  GemmArgs g{};
-  CUtensorMap ta, tw;
-  if (const int e = prepare(g, h, W, ldw, wscale, out, M, F, K, 2 * F, ta, tw)) return e;
-  g.bias = static_cast<const bf16*>(bias);
-  g.out = static_cast<bf16*>(out); g.ldo = F;
-  g.half = F;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return wscale ? dispatch_gemm<EPI_SWIGLU, true>(ta, tw, g, s) : dispatch_gemm<EPI_SWIGLU, false>(ta, tw, g, s);
-}
-
-// x (M, N) += tanh(gate[m / T]) * (A @ W + bias) [* row_mask[m]], in place,
-// A (M, K); gate (B, N) rows at stride gate_sb; bias and row_mask may be null.
-extern "C" int st_gemm_residual(const void* A, const void* W, long long ldw, const float* wscale, const void* bias,
-                                void* x, const void* gate, long long gate_sb, const void* row_mask, int M, int N,
-                                int K, int T, void* stream) {
-  if (!gate || T <= 0) return (int)cudaErrorInvalidValue;
-  GemmArgs g{};
-  CUtensorMap ta, tw;
-  if (const int e = prepare(g, A, W, ldw, wscale, x, M, N, K, N, ta, tw)) return e;
-  g.bias = static_cast<const bf16*>(bias);
-  g.out = static_cast<bf16*>(x); g.ldo = N;
+  g.out = static_cast<bf16*>(out); g.ldo = ldo;
   g.gate = static_cast<const bf16*>(gate); g.gate_sb = gate_sb;
   g.row_mask = static_cast<const unsigned char*>(row_mask);
-  g.T = T;
+  g.M = M; g.N = N; g.K = K; g.T = T; g.half = half; g.wcols = wcols;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return wscale ? dispatch_gemm<EPI_RESID, true>(ta, tw, g, s) : dispatch_gemm<EPI_RESID, false>(ta, tw, g, s);
+  return wscale ? dispatch_gemm<true>(epi, ta, tw, g, s) : dispatch_gemm<false>(epi, ta, tw, g, s);
 }
 
 extern "C" const char* st_dit_block_error(int e) {

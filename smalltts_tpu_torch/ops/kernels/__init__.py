@@ -112,9 +112,8 @@ SIGNATURES = {
     },
     "dit_block": {
         "st_adaln_modulate": ([_P, _P, _P, _P, _L, _I, _I, _I, _P], _I),
-        "st_gemm_qkvg": ([_P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
-        "st_gemm_swiglu": ([_P, _P, _L, _P, _P, _P, _I, _I, _I, _P], _I),
-        "st_gemm_residual": ([_P, _P, _L, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P], _I),
+        "st_qk_norm_rope": ([_P, _L, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P], _I),
+        "st_gemm": ([_I, _P, _L, _P, _L, _P, _P, _P, _L, _P, _L, _P, _I, _I, _I, _I, _I, _P], _I),
     },
     "w8": {
         "st_w8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),

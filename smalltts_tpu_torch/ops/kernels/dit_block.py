@@ -1,11 +1,11 @@
 """The cached DiT block scan: wrappers of csrc/dit_block.cu and plain versions.
 
 Port of the Pallas TPU kernel smalltts_tpu/ops/pallas/block.py::fused_dit_scan.
-On the H100 the 12-layer scan is a host loop; each layer is 7 launches of
+On the H100 the 12-layer scan is a host loop; each layer is 8 launches of
 hand-written kernels (csrc/dit_block.cu has the source note: what bounds it,
 and what the design does about that):
 
-    adaln_modulate -> gemm_qkvg (+ q/k RMSNorm and RoPE) -> attention
+    adaln_modulate -> gemm_bias (qkvg) -> qk_norm_rope -> attention
     -> gemm_residual (to_out, row-masked) -> adaln_modulate
     -> gemm_swiglu (w13) -> gemm_residual (w2)
 
@@ -16,14 +16,14 @@ tanh(gate) * y and x + that.
 Each wrapper takes its plain version for CPU tensors (and under the
 test-only `kernels.force_plain()`), and otherwise launches its kernel or
 raises. The products go to the port's own GEMM kernel, never to cuBLAS: a
-Hopper wgmma kernel fed by TMA, with a split of K over a thread-block
-cluster chosen per product in C, and the q/k norm + RoPE / SwiGLU / gated
+Hopper wgmma kernel fed by TMA, with the tile width and a split of K over a
+thread-block cluster chosen per product in C, and the bias / SwiGLU / gated
 residual epilogues applied to the accumulators in registers.
 
 With int8 stream weights (models/dit.py::quantize_stream_weights) a
 product's leaf holds `w_q` (K, N) int8 and `scale` (1, N) fp32 in place of
 `w`; the GEMM wrappers then take `w_scale` and launch the int8-weight
-variant of the kernel, counted under their own names (`gemm_qkvg_w8`,
+variant of the kernel, counted under their own names (`gemm_bias_w8`,
 `gemm_swiglu_w8`, `gemm_residual_w8`).
 """
 
@@ -33,6 +33,8 @@ import torch
 
 from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.attention import fused_attention
+
+EPI_BIAS, EPI_SWIGLU, EPI_RESID = 0, 1, 2
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -105,6 +107,32 @@ def qk_norm_rope_plain(qkvg, q_scale, k_scale, cos, sin, eps=1e-6):
     return qkvg
 
 
+def qk_norm_rope(qkvg, q_scale, k_scale, cos, sin):
+    if kernels.use_plain(qkvg):
+        return qk_norm_rope_plain(qkvg, q_scale, k_scale, cos, sin)
+    B, T, W = qkvg.shape
+    heads, D = q_scale.shape
+    rot = cos.shape[-1]
+    if not qkvg.is_contiguous() or W < 2 * heads * D or k_scale.shape != q_scale.shape:
+        raise ValueError("qk_norm_rope: qkvg (B,T,>=2*heads*D) contiguous")
+    if cos.shape != (T, rot) or sin.shape != cos.shape or {cos.dtype, sin.dtype} != {torch.float32}:
+        raise ValueError("qk_norm_rope: cos/sin must be fp32 (T, rot)")
+    q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
+    cos, sin = cos.contiguous(), sin.contiguous()
+    _bf16_only("qk_norm_rope", qkvg, q_scale, k_scale)
+    # 16-byte loads and stores: every head's and every table row's start 16-byte aligned
+    if D % 8 or D > 256 or rot % 8 or rot > D or W % 8 or any(
+            t.data_ptr() % 16 for t in (qkvg, q_scale, k_scale, cos, sin)):
+        raise ValueError("qk_norm_rope: D a multiple of 8 up to 256, rot of 8 up to D, "
+                         "qkvg, scales and tables 16-byte aligned")
+    lib = kernels.load("dit_block")
+    status = lib.st_qk_norm_rope(qkvg.data_ptr(), W, B * T, T, heads, D, rot, q_scale.data_ptr(),
+                                 k_scale.data_ptr(), cos.data_ptr(), sin.data_ptr(), _stream(qkvg))
+    kernels.check(lib, "dit_block", status, "qk_norm_rope")
+    kernels.count_launch("qk_norm_rope")
+    return qkvg
+
+
 # ---------------------------------------------------------------------- gemm
 
 
@@ -129,11 +157,6 @@ def gemm_swiglu_plain(a, w13, b13, w_scale=None):
     return nn.silu(ab[..., :f]) * ab[..., f:]
 
 
-def gemm_qkvg_plain(h, w, b, q_scale, k_scale, cos, sin, w_scale=None):
-    """h @ w + b, then the q/k RMSNorm and RoPE (qk_norm_rope_plain)."""
-    return qk_norm_rope_plain(_product(h, w, b, w_scale), q_scale, k_scale, cos, sin)
-
-
 def gemm_residual_plain(a, w, b, x, gate, row_mask=None, w_scale=None):
     """x (B, T, N) += tanh(gate[b]) * (a @ w (+ b)) [* row_mask], in place,
     each op in x's dtype."""
@@ -144,68 +167,52 @@ def gemm_residual_plain(a, w, b, x, gate, row_mask=None, w_scale=None):
     return x
 
 
-def _weight_args(what, a, w, w_scale, n_out):
-    """Checks of a product's operands; returns (W's row stride, scale or
-    None): bf16 `w`, or int8 `w` with its fp32 per-column `w_scale` ((N,) or
-    (1, N)). TMA reads a and w: 16-byte aligned bases and row strides."""
-    K = a.shape[-1]
-    _bf16_only(what, a)
+def _gemm(name, epi, a, w, bias, out, gate=None, row_mask=None, n_out=None, T=1, half=0, w_scale=None):
+    """Launch the GEMM and count it under `name`: bf16 `w`, or int8 `w` with
+    its fp32 per-column `w_scale` ((N,) or (1, N)), counted as `name`_w8."""
+    M, K = a.numel() // a.shape[-1], a.shape[-1]
+    _bf16_only("gemm", a, out)
     if w_scale is not None:
         if w.dtype != torch.int8 or w_scale.dtype != torch.float32 or w_scale.numel() != w.shape[1]:
-            raise ValueError(f"{what}: int8 w needs an fp32 scale per column")
+            raise ValueError("gemm: int8 w needs an fp32 scale per column")
         if w_scale.device != a.device:
-            raise ValueError(f"{what}: w_scale must be on a's device")
-        if n_out % 16 or w.shape[1] % 16:
-            raise ValueError(f"{what}: int8 w needs N={n_out} and W's width in multiples of 16")
+            raise ValueError("gemm: w_scale must be on a's device")
+        if n_out % 16 or w.shape[1] % 16 or half % 16:
+            raise ValueError(f"gemm: int8 w needs N={n_out} and W's width in multiples of 16")
         w_scale = w_scale.reshape(-1).contiguous()
     else:
-        _bf16_only(what, w)
-    if not a.is_contiguous() or not w.is_contiguous():
-        raise ValueError(f"{what}: operands must be contiguous")
+        _bf16_only("gemm", w)
+    if not a.is_contiguous() or not w.is_contiguous() or not out.is_contiguous():
+        raise ValueError("gemm: operands must be contiguous")
     if w.shape[0] != K or K % 8 or n_out % 8 or w.shape[1] % 8:
-        raise ValueError(f"{what}: K={K}, N={n_out} and W's width must be multiples of 8")
-    if any(t.data_ptr() % 16 for t in (a, w)):
-        raise ValueError(f"{what}: a and w must be 16-byte aligned")
-    return w.shape[1], w_scale
-
-
-def _bias_arg(what, t):
-    if t is not None and (t.dtype != torch.bfloat16 or t.stride(-1) != 1):
-        raise ValueError(f"{what}: bias/gate must be bf16 and contiguous in N")
-    return t.data_ptr() if t is not None else None
-
-
-def _count(name, w_scale):
+        raise ValueError(f"gemm: K={K}, N={n_out} and W's width must be multiples of 8")
+    # TMA reads a and w (16-byte aligned bases and row strides), int8 W included
+    if any(t.data_ptr() % 16 for t in (a, w, out)):
+        raise ValueError("gemm: a, w and out must be 16-byte aligned")
+    for t in (bias, gate):
+        if t is not None and (t.dtype != torch.bfloat16 or t.stride(-1) != 1):
+            raise ValueError("gemm: bias/gate must be bf16 and contiguous in N")
+    mask = None
+    if row_mask is not None:
+        mask = row_mask.to(torch.bool).contiguous()
+        if mask.numel() != M:
+            raise ValueError("gemm: row_mask must hold one flag per row")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = kernels.load("dit_block")
+    status = lib.st_gemm(epi, a.data_ptr(), K, w.data_ptr(), w.shape[1], ptr(w_scale), ptr(bias),
+                         out.data_ptr(), n_out, ptr(gate), gate.stride(0) if gate is not None else 0,
+                         ptr(mask), M, n_out, K, T, half, _stream(a))
+    kernels.check(lib, "dit_block", status, "gemm")
     kernels.count_launch(name if w_scale is None else name + "_w8")
 
 
-def gemm_qkvg(h, w, b, q_scale, k_scale, cos, sin, w_scale=None):
-    """[q|k|v|gate] = h @ w + b in one launch, with the per-head RMSNorm
-    (q_scale / k_scale (heads, D)) and interleaved RoPE (cos/sin (T, rot)
-    fp32) applied to q and k. h (B, T, K); w (K, 4 heads D), bf16 or int8
-    with `w_scale`."""
-    if kernels.use_plain(h):
-        return gemm_qkvg_plain(h, w, b, q_scale, k_scale, cos, sin, w_scale)
-    what = "gemm_qkvg"
-    heads, D = q_scale.shape
-    T, N = h.shape[1], w.shape[1]
-    ldw, w_scale = _weight_args(what, h, w, w_scale, N)
-    rot = cos.shape[-1]
-    if h.dim() != 3 or N != 4 * heads * D or k_scale.shape != q_scale.shape or D % 8 or D > 128:
-        raise ValueError(f"{what}: h (B, T, K), w (K, 4 heads D), D a multiple of 8 up to 128")
-    if cos.shape != (T, rot) or sin.shape != cos.shape or cos.dtype != torch.float32 or rot % 2 or rot > D:
-        raise ValueError(f"{what}: cos/sin must be fp32 (T, rot), rot even and <= D")
-    q_scale, k_scale = q_scale.contiguous(), k_scale.contiguous()
-    cos, sin = cos.contiguous(), sin.contiguous()
-    _bf16_only(what, q_scale, k_scale)
-    out = torch.empty((*h.shape[:-1], N), device=h.device, dtype=h.dtype)
-    lib = kernels.load("dit_block")
-    status = lib.st_gemm_qkvg(h.data_ptr(), w.data_ptr(), ldw, w_scale.data_ptr() if w_scale is not None else None,
-                              _bias_arg(what, b), out.data_ptr(), q_scale.data_ptr(), k_scale.data_ptr(),
-                              cos.data_ptr(), sin.data_ptr(), h.numel() // h.shape[-1], N, h.shape[-1], T, heads, D,
-                              rot, _stream(h))
-    kernels.check(lib, "dit_block", status, what)
-    _count(what, w_scale)
+def gemm_bias(a, w, b, w_scale=None):
+    """a (..., K) @ w (K, N) + b, bf16 in, fp32 accumulation, bf16 out; an
+    int8 w with its per-column fp32 `w_scale` takes the int8-weight kernel."""
+    if kernels.use_plain(a):
+        return gemm_bias_plain(a, w, b, w_scale)
+    out = torch.empty((*a.shape[:-1], w.shape[1]), device=a.device, dtype=a.dtype)
+    _gemm("gemm_bias", EPI_BIAS, a, w, b, out, n_out=w.shape[1], w_scale=w_scale)
     return out
 
 
@@ -213,18 +220,9 @@ def gemm_swiglu(a, w13, b13, w_scale=None):
     """silu(a @ w1 + b1) * (a @ w3 + b3) with w13 = [w1 | w3] (K, 2F)."""
     if kernels.use_plain(a):
         return gemm_swiglu_plain(a, w13, b13, w_scale)
-    what = "gemm_swiglu"
     f = w13.shape[1] // 2
-    ldw, w_scale = _weight_args(what, a, w13, w_scale, f)
-    if b13 is None:
-        raise ValueError(f"{what}: needs the bias")
     out = torch.empty((*a.shape[:-1], f), device=a.device, dtype=a.dtype)
-    lib = kernels.load("dit_block")
-    status = lib.st_gemm_swiglu(a.data_ptr(), w13.data_ptr(), ldw, w_scale.data_ptr() if w_scale is not None else None,
-                                _bias_arg(what, b13), out.data_ptr(), a.numel() // a.shape[-1], f, a.shape[-1],
-                                _stream(a))
-    kernels.check(lib, "dit_block", status, what)
-    _count(what, w_scale)
+    _gemm("gemm_swiglu", EPI_SWIGLU, a, w13, b13, out, n_out=f, half=f, w_scale=w_scale)
     return out
 
 
@@ -233,23 +231,10 @@ def gemm_residual(a, w, b, x, gate, row_mask=None, w_scale=None):
     updated in place; rows are NOT masked when row_mask is None."""
     if kernels.use_plain(a):
         return gemm_residual_plain(a, w, b, x, gate, row_mask, w_scale)
-    what = "gemm_residual"
     B, T, N = x.shape
     if gate.shape != (B, N) or (row_mask is not None and row_mask.shape != (B, T)):
-        raise ValueError(f"{what}: gate (B,N), row_mask (B,T)")
-    ldw, w_scale = _weight_args(what, a, w, w_scale, N)
-    _bf16_only(what, x)
-    if not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError(f"{what}: x must be contiguous and 16-byte aligned")
-    mask = row_mask.to(torch.bool).contiguous() if row_mask is not None else None
-    lib = kernels.load("dit_block")
-    status = lib.st_gemm_residual(a.data_ptr(), w.data_ptr(), ldw,
-                                  w_scale.data_ptr() if w_scale is not None else None, _bias_arg(what, b),
-                                  x.data_ptr(), _bias_arg(what, gate), gate.stride(0),
-                                  mask.data_ptr() if mask is not None else None, B * T, N, a.shape[-1], T,
-                                  _stream(a))
-    kernels.check(lib, "dit_block", status, what)
-    _count(what, w_scale)
+        raise ValueError("gemm_residual: gate (B,N), row_mask (B,T)")
+    _gemm("gemm_residual", EPI_RESID, a, w, b, x, gate=gate, row_mask=row_mask, n_out=N, T=T, w_scale=w_scale)
     return x
 
 
@@ -275,7 +260,8 @@ def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, hea
 
     h = adaln_modulate(x, shift_msa, scale_msa)
     w, s = _weight(attn["qkvg"])
-    qkvg = gemm_qkvg(h, w, attn["qkvg"]["b"], attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin, w_scale=s)
+    qkvg = gemm_bias(h, w, attn["qkvg"]["b"], w_scale=s)
+    qk_norm_rope(qkvg, attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin)
 
     def heads_view(i):  # (B, heads, T, D) view of column block i of qkvg
         return qkvg[..., i * inner:(i + 1) * inner].unflatten(-1, (heads, head_dim)).transpose(1, 2)

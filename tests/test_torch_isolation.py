@@ -63,11 +63,12 @@ def test_kernel_wrappers_never_build_on_the_cpu():
     mod = torch.zeros(2, 64)
     cos = torch.ones(8, 8)
     h = K.adaln_modulate(a, mod, mod)
-    K.gemm_qkvg(h, torch.randn(64, 64), torch.randn(64), torch.ones(2, 8), torch.ones(2, 8), cos, cos)
+    qkvg = K.gemm_bias(h, torch.randn(64, 64), torch.randn(64))
+    K.qk_norm_rope(qkvg, torch.ones(2, 8), torch.ones(2, 8), cos, cos)
     K.gemm_swiglu(h, torch.randn(64, 32), torch.randn(32))
     K.gemm_residual(a, torch.randn(64, 64), None, h, mod)
     w_q, scale = W.quantize_w8(torch.randn(3, 64, 64))
-    K.gemm_qkvg(h, w_q[0], torch.randn(64), torch.ones(2, 8), torch.ones(2, 8), cos, cos, w_scale=scale[0])
+    K.gemm_bias(h, w_q[0], torch.randn(64), w_scale=scale[0])
     W.w8_matmul(a[0], w_q[0], scale[0])
     W.w8_matmul_stacked(a[0], w_q, scale, torch.tensor(1, dtype=torch.int32))
     W.w8_matmul_all_layers(a[0], w_q, scale)

@@ -9,14 +9,14 @@ another order); 2e-2 in bf16 (a few bf16 roundings of 2^-8 taken at other
 points; the plain version rounds where PyTorch's bf16 ops do); 1e-2 for the
 w8 products, whose one bf16 rounding may fall on the other side of a
 boundary when the fp32 sum is taken in another order (2^-8 of a value).
-The adaLN kernel, and the DiT GEMM's q/k norm + RoPE and gated residual
-through an identity weight (where the product is exact), are also held bit
-for bit: at most 1e-4 of elements may differ. A difference starts as one
-flipped rounding (fp32 sums in another order, the card's rsqrt and tanh in
-the plain version) and grows by the ops after it: one bf16 ulp for the
+The adaLN and q/k norm kernels, and the DiT GEMM's gated residual through
+an identity weight (where the product is exact), are also held bit for bit:
+at most 1e-4 of elements may differ. A difference starts as one flipped
+rounding (fp32 sums in another order, the card's rsqrt and tanh in the
+plain version) and grows by the ops after it: one bf16 ulp for the
 residual, two of n * (1 + scale) for the adaLN (a flip of n scaled by up to
-2), three of the larger value of a RoPE pair for qkvg, four for SwiGLU
-(both factors).
+2), three of the larger value of a RoPE pair for the q/k norm, four for
+SwiGLU (both factors).
 """
 
 import math
@@ -113,10 +113,7 @@ def test_gemm_kernels(dev, K_, N):
     if N == 4800:
         assert rel(K.gemm_swiglu(a, w, b), K.gemm_swiglu_plain(a, w, b)) <= 2e-2
         return
-    if N == 3840:
-        qk = qk_tables(g, dev, 8, 120, T, 64)
-        assert rel(K.gemm_qkvg(a, w, b, *qk), K.gemm_qkvg_plain(a, w, b, *qk)) <= 2e-2
-        return
+    assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
     x = randn((B, T, N), g, dev, torch.bfloat16)
     gate = randn((B, N), g, dev, torch.bfloat16)
     mask = key_mask(B, T, g, dev)
@@ -131,8 +128,7 @@ def test_gemm_ragged_rows(dev):
     a = randn((8, 15, 960), g, dev, torch.bfloat16)
     w = randn((960, 3840), g, dev, torch.bfloat16, 0.03)
     b = randn((3840,), g, dev, torch.bfloat16)
-    qk = qk_tables(g, dev, 8, 120, 15, 64)
-    assert rel(K.gemm_qkvg(a, w, b, *qk), K.gemm_qkvg_plain(a, w, b, *qk)) <= 2e-2
+    assert rel(K.gemm_bias(a, w, b), K.gemm_bias_plain(a, w, b)) <= 2e-2
 
 
 W8_ROWS = (1, 8, 9, 16, 40, 64, 65, 200, 320)  # around the 8-, 32- and 64-row tiles of the tensor-core kernel
@@ -219,25 +215,21 @@ def test_w8_stacked_reads_a_device_index_without_a_sync(dev, M):
 
 @pytest.mark.parametrize("K_,N", [(960, 3840), (960, 4800), (960, 960), (2400, 960)])
 def test_int8_gemm_kernels(dev, K_, N):
-    """The int8-weight GEMM, each form, against its plain version: the
+    """The int8-weight GEMM, each epilogue, against its plain version: the
     weight dequantized as bf16(bf16(q) * bf16(scale)) before the product."""
     B, T = 8, 40
     g = gen(dev, 3 * N + K_)
+    a = randn((B, T, K_), g, dev, torch.bfloat16)
     w_q, scale = W.quantize_w8(randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_)))
     scale = scale[None]  # (1, N), as a layer of the (L, 1, N) stream scales
     b = randn((N,), g, dev, torch.bfloat16, 0.1)
-    a = randn((B, T, K_), g, dev, torch.bfloat16)
-    if N in (3840, 4800):
-        name = "gemm_swiglu_w8" if N == 4800 else "gemm_qkvg_w8"
-        qk = qk_tables(g, dev, 8, 120, T, 64)
-        n0 = kernels.LAUNCHES.get(name, 0)
-        if N == 4800:
-            got, want = K.gemm_swiglu(a, w_q, b, w_scale=scale), K.gemm_swiglu_plain(a, w_q, b, w_scale=scale)
-        else:
-            got, want = K.gemm_qkvg(a, w_q, b, *qk, w_scale=scale), K.gemm_qkvg_plain(a, w_q, b, *qk, w_scale=scale)
-        assert kernels.LAUNCHES[name] == n0 + 1
-        assert rel(got, want) <= 2e-2
+    if N == 4800:
+        n0 = kernels.LAUNCHES.get("gemm_swiglu_w8", 0)
+        got = K.gemm_swiglu(a, w_q, b, w_scale=scale)
+        assert kernels.LAUNCHES["gemm_swiglu_w8"] == n0 + 1
+        assert rel(got, K.gemm_swiglu_plain(a, w_q, b, w_scale=scale)) <= 2e-2
         return
+    assert rel(K.gemm_bias(a, w_q, b, w_scale=scale), K.gemm_bias_plain(a, w_q, b, w_scale=scale)) <= 2e-2
     x = randn((B, T, N), g, dev, torch.bfloat16)
     gate = randn((B, N), g, dev, torch.bfloat16)
     mask = key_mask(B, T, g, dev)
@@ -251,8 +243,7 @@ def test_w8_wrappers_reject_fp32_on_the_card(dev):
     x = torch.zeros((4, 64), device=dev)
     for call in (lambda: W.w8_matmul(x, w_q[0], scale[0]), lambda: W.w8_matmul_all_layers(x, w_q, scale),
                  lambda: W.w8_matmul_stacked(x, w_q, scale, 1),
-                 lambda: K.gemm_residual(x[None], w_q[0], None, torch.zeros((1, 4, 32), device=dev),
-                                         torch.zeros((1, 32), device=dev), w_scale=scale[0])):
+                 lambda: K.gemm_bias(x[None], w_q[0], torch.zeros(32, device=dev), w_scale=scale[0])):
         with pytest.raises(ValueError, match="bf16"):
             call()
 
@@ -263,33 +254,54 @@ def test_int8_gemm_rejects_a_misaligned_weight(dev):
     stays usable."""
     a = torch.zeros((2, 8, 64), device=dev, dtype=torch.bfloat16)
     flat = torch.zeros((64 * 64 + 16,), device=dev, dtype=torch.int8)
-    scale, gate = torch.ones((64,), device=dev), torch.ones((2, 64), device=dev, dtype=torch.bfloat16)
-    x = torch.ones((2, 8, 64), device=dev, dtype=torch.bfloat16)
+    scale, b = torch.ones((64,), device=dev), torch.zeros((64,), device=dev, dtype=torch.bfloat16)
     for off in (1, 8):
         w_q = flat[off:off + 64 * 64].view(64, 64)
         with pytest.raises(ValueError, match="aligned"):
-            K.gemm_residual(a, w_q, None, x, gate, w_scale=scale)
-    got = K.gemm_residual(a, flat[16:].view(64, 64), None, x, gate, w_scale=scale)
+            K.gemm_bias(a, w_q, b, w_scale=scale)
+    got = K.gemm_bias(a, flat[16:].view(64, 64), b, w_scale=scale)
     torch.cuda.synchronize()
-    assert bool((got == 1).all())
+    assert float(got.abs().max()) == 0.0
 
 
 def test_gemm_rejects_fp32_on_the_card(dev):
     a = torch.zeros((2, 8, 64), device=dev)
     with pytest.raises(ValueError):
-        K.gemm_residual(a, torch.zeros((64, 64), device=dev), None, a.clone(), torch.zeros((2, 64), device=dev))
+        K.gemm_bias(a, torch.zeros((64, 64), device=dev), torch.zeros((64,), device=dev))
 
 
 def test_norm_kernels_reject_fp32_on_the_card(dev):
-    """adaln_modulate and the qkvg product (with its q/k norm) are bf16 only."""
     x = torch.zeros((2, 8, 64), device=dev)
-    mod = torch.zeros((2, 64), device=dev)
     with pytest.raises(ValueError, match="bf16"):
-        K.adaln_modulate(x, mod, mod)
-    w = torch.zeros((64, 64), device=dev, dtype=torch.bfloat16)
-    cos = torch.zeros((8, 8), device=dev)
+        K.adaln_modulate(x, torch.zeros((2, 64), device=dev), torch.zeros((2, 64), device=dev))
+    qkvg = torch.zeros((2, 8, 4 * 64), device=dev)
+    cos = torch.zeros((8, 16), device=dev)
     with pytest.raises(ValueError, match="bf16"):
-        K.gemm_qkvg(x, w, None, torch.ones((2, 8), device=dev), torch.ones((2, 8), device=dev), cos, cos)
+        K.qk_norm_rope(qkvg, torch.ones((1, 64), device=dev), torch.ones((1, 64), device=dev), cos, cos)
+
+
+def test_qk_norm_rope_rejects_a_misaligned_scale(dev):
+    """The kernel loads the norm scales, the RoPE tables and the head 16
+    bytes at a time: a scale view at an odd element offset (which
+    .contiguous() leaves where it is) is refused by the wrapper and by the C
+    entry, and the card stays usable."""
+    g = gen(dev, 5)
+    heads, D, T = 2, 64, 8
+    qkvg = randn((2, T, 4 * heads * D), g, dev, torch.bfloat16)
+    qs, ks, cos, sin = qk_tables(g, dev, heads, D, T, 16)
+    flat = torch.ones((heads * D + 1,), device=dev, dtype=torch.bfloat16)
+    odd = flat[1:].view(heads, D)
+    with pytest.raises(ValueError, match="aligned"):
+        K.qk_norm_rope(qkvg.clone(), odd, ks, cos, sin)
+    lib = kernels.load("dit_block")
+    status = lib.st_qk_norm_rope(qkvg.data_ptr(), 4 * heads * D, 2 * T, T, heads, D, 16, odd.data_ptr(),
+                                 ks.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    assert status != 0
+    want = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos, sin)
+    got = K.qk_norm_rope(qkvg.clone(), qs, ks, cos, sin)
+    torch.cuda.synchronize()
+    assert rel(got, want) <= 2e-2
 
 
 def test_linear_bf16_on_the_card_rounds_once(dev):
@@ -350,15 +362,14 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
     assert int(out.abs().max()) > 0
 
 
-# the DiT's four products: K, W's width, form
-PRODUCTS = {"qkvg": (960, 3840, "qkvg"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
+# the DiT's four products: K, W's width, epilogue
+PRODUCTS = {"qkvg": (960, 3840, "bias"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
             "w2": (2400, 960, "resid")}
-NAMES = {"qkvg": "gemm_qkvg", "swiglu": "gemm_swiglu", "resid": "gemm_residual", "resid_masked": "gemm_residual"}
 
 
-def run_product(dev, form, B, T, K_, N, w8, seed, heads=8, rot=64):
-    """One GEMM form on the card against its plain version; bf16 or int8 W
-    ((1, N) scales, as a layer of the stream weights). qkvg has N = 4 heads D."""
+def run_product(dev, epi, B, T, K_, N, w8, seed):
+    """One GEMM epilogue on the card against its plain version; bf16 or
+    int8 W ((1, N) scales, as a layer of the stream weights)."""
     g = gen(dev, seed)
     a = randn((B, T, K_), g, dev, torch.bfloat16)
     w = randn((K_, N), g, dev, torch.float32, 1 / math.sqrt(K_))
@@ -368,17 +379,16 @@ def run_product(dev, form, B, T, K_, N, w8, seed, heads=8, rot=64):
     else:
         w, scale = w.to(torch.bfloat16), None
     b = randn((N,), g, dev, torch.bfloat16, 0.1)
-    name = NAMES[form] + ("_w8" if w8 else "")
+    name = {"bias": "gemm_bias", "swiglu": "gemm_swiglu"}.get(epi, "gemm_residual") + ("_w8" if w8 else "")
     n0 = kernels.LAUNCHES.get(name, 0)
-    if form == "qkvg":
-        qk = qk_tables(g, dev, heads, N // (4 * heads), T, rot)
-        got, want = K.gemm_qkvg(a, w, b, *qk, w_scale=scale), K.gemm_qkvg_plain(a, w, b, *qk, w_scale=scale)
-    elif form == "swiglu":
+    if epi == "bias":
+        got, want = K.gemm_bias(a, w, b, w_scale=scale), K.gemm_bias_plain(a, w, b, w_scale=scale)
+    elif epi == "swiglu":
         got, want = K.gemm_swiglu(a, w, b, w_scale=scale), K.gemm_swiglu_plain(a, w, b, w_scale=scale)
     else:
         x = randn((B, T, N), g, dev, torch.bfloat16)
         gate = randn((B, N), g, dev, torch.bfloat16)
-        mask, bias = (key_mask(B, T, g, dev), None) if form == "resid_masked" else (None, b)
+        mask, bias = (key_mask(B, T, g, dev), None) if epi == "resid_masked" else (None, b)
         want = K.gemm_residual_plain(a, w, bias, x.clone(), gate, mask, w_scale=scale)
         got = K.gemm_residual(a, w, bias, x.clone(), gate, mask, w_scale=scale)
     torch.cuda.synchronize()
@@ -395,22 +405,17 @@ def test_gemm_products_at_served_rows(dev, product, M, w8):
     200 are ragged (not multiples of the 64-row tile); w13's output (2400)
     and w2's K (2400) end in half tiles. w2 at M = 40, 128 and 200 splits K
     over a cluster of 4, 4 and 3 ranks (the merge through distributed shared
-    memory); the other products run one rank per tile; qkvg one block per
-    head (int8: every other head's tile starts 8 bytes past a 16-byte
-    boundary)."""
-    K_, N, form = PRODUCTS[product]
-    run_product(dev, form, 8, M // 8, K_, N, w8, seed=M + K_ + N)
+    memory); the other products run one rank per tile."""
+    K_, N, epi = PRODUCTS[product]
+    run_product(dev, epi, 8, M // 8, K_, N, w8, seed=M + K_ + N)
 
 
 @pytest.mark.parametrize("w8", [False, True])
-@pytest.mark.parametrize("epi", ["qkvg", "swiglu", "resid", "resid_masked"])
+@pytest.mark.parametrize("epi", ["bias", "swiglu", "resid", "resid_masked"])
 def test_gemm_ragged_tails(dev, epi, w8):
-    """K = 72 and N = 208 (qkvg: one head of D = 56, N = 224, RoPE on 16
-    lanes): the last k tile is mostly past the edge (TMA zero fill), the last
-    column tile of the residual holds 16 columns (masked stores); one row
-    block."""
-    N = {"qkvg": 224, "swiglu": 416}.get(epi, 208)
-    run_product(dev, epi, 2, 9, 72, N, w8, seed=99, heads=1, rot=16)
+    """N = 208 and K = 72: the last column tile and the last k tile are
+    mostly past the edge (TMA zero fill, masked stores); one row block."""
+    run_product(dev, epi, 2, 9, 72, 416 if epi == "swiglu" else 208, w8, seed=99)
 
 
 def ulps_apart(got, want, before=None):
@@ -420,6 +425,12 @@ def ulps_apart(got, want, before=None):
     mag = want.abs() if before is None else torch.maximum(want.abs(), before.float().abs())
     ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
     return float((got != want).float().mean()), float(((got - want).abs() / ulp).max())
+
+
+def pair_max(y):
+    """|y| widened to the larger of each RoPE pair (d, d + 1)."""
+    y = y.float().abs().unflatten(-1, (-1, 2))
+    return y.amax(-1, keepdim=True).expand(y.shape).flatten(-2)
 
 
 def identity(K_, copies, w8, dev):
@@ -456,10 +467,11 @@ def test_adaln_kernel_rounds_like_plain(dev, M):
 @pytest.mark.parametrize("w8", [False, True])
 @pytest.mark.parametrize("M", [40, 128, 200, 320])
 def test_qkvg_rounding_points_on_an_identity_weight(dev, M, w8):
-    """W = [I | I | I | I] after the adaLN kernel: the product is h itself,
-    so the adaLN (four roundings), bias, q/k RMSNorm and RoPE must give the
-    plain version's bits: at most 1e-4 of elements differ, by at most three
-    ulps of the larger of the pair a RoPE rotation mixes."""
+    """W = [I | I | I | I] after the adaLN kernel, then the q/k norm kernel:
+    the product is h itself, so the adaLN (four roundings), bias, q/k
+    RMSNorm and RoPE must give the plain versions' bits: at most 1e-4 of
+    elements differ, by at most three ulps of the larger of the pair a RoPE
+    rotation mixes."""
     B, T = rows_of(M)
     H = 960
     g = gen(dev, 31 + M)
@@ -467,12 +479,33 @@ def test_qkvg_rounding_points_on_an_identity_weight(dev, M, w8):
     w, scale = identity(H, 4, w8, dev)
     b = randn((4 * H,), g, dev, torch.bfloat16, 0.1)
     qs, ks, cos, sin = qk_tables(g, dev, 8, 120, T, 64)
-    got = K.gemm_qkvg(K.adaln_modulate(x, sh, sc), w, b, qs, ks, cos, sin, w_scale=scale)
-    h = K.adaln_modulate_plain(x, sh, sc)
-    want = K.gemm_qkvg_plain(h, w, b, qs, ks, cos, sin, w_scale=scale)
-    y = K.gemm_qkvg_plain(h, w, b, qs, ks, cos[:, :0], sin[:, :0], w_scale=scale).float()
-    pair = y.unflatten(-1, (-1, 2)).abs().amax(-1, keepdim=True).expand(*y.shape[:-1], -1, 2).flatten(-2)
-    share, worst = ulps_apart(got, want, pair)
+    got = K.qk_norm_rope(K.gemm_bias(K.adaln_modulate(x, sh, sc), w, b, w_scale=scale), qs, ks, cos, sin)
+    qkvg = K.gemm_bias_plain(K.adaln_modulate_plain(x, sh, sc), w, b, w_scale=scale)
+    want = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos, sin)
+    unrotated = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos[:, :0], sin[:, :0])
+    share, worst = ulps_apart(got, want, pair_max(unrotated))
+    assert share <= 1e-4 and worst <= 3.0, (share, worst)
+
+
+@pytest.mark.parametrize("heads,D,rot,T", [(8, 120, 64, 40), (8, 120, 64, 16), (1, 56, 16, 9), (2, 256, 64, 12),
+                                           (3, 64, 0, 5), (4, 8, 8, 33)])
+def test_qk_norm_rope_kernel_shapes(dev, heads, D, rot, T):
+    """The q/k norm kernel alone, in place, on a qkvg buffer of 4 heads D
+    columns, bit-equal to the plain version up to 1e-4 of elements three
+    ulps of a RoPE pair away: one half-warp a head (D 120: 15 of 16 lanes;
+    D 256: two 16-byte chunks a lane; D 8: one), RoPE on none, some or all
+    lanes; v and gate untouched."""
+    g = gen(dev, heads * D + rot + T)
+    qkvg = randn((3, T, 4 * heads * D), g, dev, torch.bfloat16, 2.0)
+    qs, ks, cos, sin = qk_tables(g, dev, heads, D, T, rot)
+    n0 = kernels.LAUNCHES.get("qk_norm_rope", 0)
+    got = K.qk_norm_rope(qkvg.clone(), qs, ks, cos, sin)
+    want = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos, sin)
+    unrotated = K.qk_norm_rope_plain(qkvg.clone(), qs, ks, cos[:, :0], sin[:, :0])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["qk_norm_rope"] == n0 + 1
+    assert torch.equal(got[..., 2 * heads * D:], qkvg[..., 2 * heads * D:])
+    share, worst = ulps_apart(got, want, pair_max(unrotated))
     assert share <= 1e-4 and worst <= 3.0, (share, worst)
 
 

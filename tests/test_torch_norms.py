@@ -94,7 +94,7 @@ def qkvg_weights(rs, identity):
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_fused_qkvg_plain_matches_jax(dtype):
-    """The adaLN, then the qkvg form (the product, the q/k RMSNorm and RoPE)
+    """The adaLN, then the qkvg product and the q/k RMSNorm and RoPE
     against `_apply_adaln_zero` then `_self_qkv_gate`: bf16 on an identity
     weight, fp32 on a random one."""
     jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (jnp.float32, torch.float32)
@@ -107,7 +107,8 @@ def test_fused_qkvg_plain_matches_jax(dtype):
     xt, mt = to_torch(x, td), to_torch(mod, td)
     cos, sin = PD.rope_cos_sin(PCFG, T, "cpu")
     h = K.adaln_modulate_plain(xt, mt[:, :H], mt[:, H:2 * H])
-    got = K.gemm_qkvg_plain(h, to_torch(w, td), to_torch(b, td), to_torch(nsc[0], td), to_torch(nsc[1], td), cos, sin)
+    got = K.qk_norm_rope_plain(K.gemm_bias_plain(h, to_torch(w, td), to_torch(b, td)), to_torch(nsc[0], td),
+                               to_torch(nsc[1], td), cos, sin)
     assert got.shape == (B, T, 4 * H) and got.dtype == td
     check = assert_rounds_like if dtype == "bf16" else assert_rel
     for i, want in enumerate((q, k, v)):
