@@ -20,17 +20,27 @@
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
-   path SmallTTS(pcm16_out=True, w8_modulation=True, w8_stream=True). The
-   launch counters, reset just before each, must show every kernel of that
-   path and the scan's exact count, 384 launches a batch (4 scans x 12
-   layers x 8), with no int8 GEMM on the bf16 path and no bf16 GEMM on the
-   int8 one; one batch is held against the same
+   path SmallTTS(pcm16_out=True, w8_modulation=True, w8_stream=True). Each
+   bucket shape runs as a CUDA graph, captured the first time it is used.
+   The launch counters, reset just before each, must show every kernel of
+   that path; the launches that the graph replays make (the counts taken
+   while each graph was captured, times its replays) must be the scan's
+   exact count, 384 launches a batch (4 scans x 12 layers x 8), with no
+   int8 GEMM on the bf16 path and no bf16 GEMM on the int8 one; one batch
+   is held against the same
    batch with the plain versions forced; synthesize_padded(fetch=False)
    must queue a batch with no synchronizing call, and one batch is profiled
    (host dispatch time, wall time, device busy time): the profiler must see
    every counted GEMM and attention launch on the port's kernels and no
    library attention kernel. The int8 batch is also held against the bf16
    batch on the same noise.
+   Then phase serve http (see `serve_http`): the bf16 model warmed over the
+   serving contract (48 graphs), the port's TTSServer on a local socket
+   answering 8 concurrent /synthesize requests and one chunked
+   /synthesize/stream with no capture in the request path, a trust-mode
+   server's 402, a replayed batch against the eager function bit for bit,
+   and eager against replayed host dispatch, wall, device busy and idle
+   share.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -57,6 +67,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 MEM_BW = 3.35e12                      # H100 SXM HBM3, bytes/s
@@ -603,6 +614,7 @@ def main() -> int:
                 return self.inner.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, **kw)
 
         kernels.reset_launches()
+        replays0 = {k: g.replays for k, g in tts._graphs.items()}
         t_serve = time.perf_counter()
         refs = [tts.encode_reference(w) for w in waves]
         batcher = Batcher(Recorder(tts), max_batch=8)
@@ -621,6 +633,8 @@ def main() -> int:
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t_serve
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        replayed, n_replays = graph_launches(tts, replays0)
+        check(n_replays == len(batches), f"{n_replays} graph replays for {len(batches)} batches")
         for out, d in zip(outs, durations):
             n = frames_for_duration(d) * HOP_SIZE
             check(out.dtype == np.int16 and out.shape == (1, n), f"result {out.dtype} {out.shape}, want int16 (1, {n})")
@@ -628,8 +642,10 @@ def main() -> int:
         print(f"  {len(outs)} requests answered in {serve_s:.3f} s (reference encode included)")
         print(f"  per-request latency ms (submit -> result): {json.dumps([round(v, 3) for v in lat_ms])}")
         print(f"  batches: {json.dumps(batches)}")
-        print(f"  launches during the serving phase: {json.dumps(launches)}", flush=True)
-        return launches, batches, refs
+        print(f"  launches during the serving phase: {json.dumps(launches)} (each new bucket's eager run before "
+              f"its capture included); made by the {n_replays} graph replays, from the counts taken at capture: "
+              f"{json.dumps(replayed)}; {tts.compile_cache_size()} graphs", flush=True)
+        return launches, replayed, batches, refs
 
     def scan_launches(launches, gemms):
         """The scan is a host loop that launches nothing itself: the launches
@@ -641,10 +657,11 @@ def main() -> int:
         return total, list(names) + ["attention (one per qk_norm_rope launch)"]
 
     def check_scan_counts(launches, n_b, tts, sfx):
-        """The exact launch counts of n_b batches: 4 scans a batch of 12
-        layers, each two adaLNs, qkvg, the q/k norm, w13 and two residuals
-        (+ one attention): 384 a batch; none of the other weight type's
-        GEMMs."""
+        """The exact launch counts of n_b batches, as their graph replays
+        make them (the counts taken at capture, times the replays): 4 scans
+        a batch of 12 layers, each two adaLNs, qkvg, the q/k norm, w13 and
+        two residuals (+ one attention): 384 a batch; none of the other
+        weight type's GEMMs."""
         per = n_b * tts.num_steps * tts.cfg.dit.n_blocks
         other = "_w8" if not sfx else ""
         want = {"adaln_modulate": 2 * per, "qk_norm_rope": per, f"gemm_bias{sfx}": per, f"gemm_swiglu{sfx}": per,
@@ -675,8 +692,6 @@ def main() -> int:
         check(bool(torch.isfinite(lat_k).all()) and lat_rel <= 5e-2, f"serving latents rel-L2 {lat_rel:.3e}")
 
         # where one batch's time goes: wall clock unprofiled, device busy from the profiler
-        from torch.profiler import ProfilerActivity, profile
-
         def one_batch(fetch=True):
             return tts.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, fetch=fetch)
 
@@ -692,15 +707,9 @@ def main() -> int:
         print("  synthesize_padded(fetch=False) queued a batch with no synchronizing call", flush=True)
         dispatch, walls = batch_host_ms(one_batch, 5)
         kernels.reset_launches()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            one_batch()
+        busy, kern = profile_batch(one_batch)
         counted = {k: v for k, v in kernels.LAUNCHES.items() if v}
-        kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
-                       if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0),
-                      key=lambda r: -r[1])
-        busy = sum(r[1] for r in kern)
-        ours = sum(r[1] for r in kern if any(n in r[0] for n in ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel",
-                                                                              "gemm_wgmma_kernel", W8_TC, W8_STREAM)))
+        ours = sum(r[1] for r in kern if any(n in r[0] for n in PORT_KERNELS))
 
         def seen(match):  # launches the profiler saw of kernels whose names hold one of `match`
             return sum(c for k, _, c in kern if any(m in k for m in match))
@@ -723,9 +732,9 @@ def main() -> int:
 
     # bf16 serving: every kernel of this path launched
     tts = build("bf16")
-    launches, batches, refs = serve(tts)
+    launches, replayed, batches, refs = serve(tts)
     check(not any(launches.get(n) for n in W8_TPU), "an int8 kernel ran on the bf16 path")
-    check_scan_counts(launches, len(batches), tts, "")
+    check_scan_counts(replayed, len(batches), tts, "")
     unserved = {n: launches.get(n, 0) for n in ("w8_matmul", "w8_matmul_stacked")}  # no serving path calls them
     for e in entries:
         if e["name"] == "fused_dit_scan":
@@ -745,10 +754,10 @@ def main() -> int:
     # int8 serving: the w8 product once per batch, the int8 GEMM for every
     # product of the scan, and no bf16 GEMM
     tts = build("w8", w8_modulation=True, w8_stream=True)
-    launches, batches, _ = serve(tts)
-    check(launches.get("w8_matmul_all_layers", 0) == len(batches),
-          f"w8_matmul_all_layers launched {launches.get('w8_matmul_all_layers', 0)} times for {len(batches)} batches")
-    check_scan_counts(launches, len(batches), tts, "_w8")
+    launches, replayed, batches, _ = serve(tts)
+    check(replayed.get("w8_matmul_all_layers", 0) == len(batches),
+          f"w8_matmul_all_layers replayed {replayed.get('w8_matmul_all_layers', 0)} times for {len(batches)} batches")
+    check_scan_counts(replayed, len(batches), tts, "_w8")
     for e in entries:
         if e["name"] == "fused_dit_scan_w8":
             e["launches"], e["launches_of"] = scan_launches(launches, tuple(n + "_w8" for n in GEMMS))
@@ -771,12 +780,333 @@ def main() -> int:
           f"(must be > 0 and <= {W8_VS_BF16_TOL}: the int8 weight rounding)", flush=True)
     check(0.0 < w8_rel <= W8_VS_BF16_TOL, f"int8 vs bf16 latents rel-L2 {w8_rel:.3e}")
     del tts
+    torch.cuda.empty_cache()
+
+    # the port's HTTP server on the bf16 path, its contract warmed first; then its command line
+    serve_http(torch, dev, entries)
+    torch.cuda.empty_cache()
+    serve_main(entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+
+def serve_http(torch, dev, entries):
+    """Phase serve http: the full-width bf16 SmallTTS (seed-0 weights, as
+    the bf16 phase) warmed over the serving contract, one CUDA graph per
+    bucket, then the port's TTSServer on 127.0.0.1 in a thread, payments
+    disabled: /ready, 8 concurrent POST /synthesize (multipart WAV + text,
+    ?duration= 2 and 5), one chunked /synthesize/stream of three sentences,
+    /stats; no graph may be captured in the request path. Then an unpaid
+    request to a trust-mode server (402), one padded batch replayed against
+    the eager synthesize fn on the same noise (bit for bit), and eager
+    against replayed timing of 5 batches each, with one batch of each
+    profiled."""
+    import asyncio
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from smalltts_tpu_torch.data.bucketing import HOP_SIZE, frames_for_duration
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.serving.audio_io import encode_wav
+    from smalltts_tpu_torch.serving.batcher import Request, pad_group
+    from smalltts_tpu_torch.serving.server import TTSServer
+    from smalltts_tpu_torch.serving.x402 import X402Config
+
+    print("phase serve http: SmallTTS(pcm16_out=True), default BackboneConfig/CodecConfig, bf16, seed 0, "
+          "behind the port's TTSServer")
+    tts = full_width_tts(torch, dev)
+    torch.cuda.synchronize()
+    reserved0, allocated0 = torch.cuda.memory_reserved(), torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    n_shapes = tts.warmup(batch_sizes=(1, 8))
+    warm_s = time.perf_counter() - t0
+    n_graphs = tts.compile_cache_size()
+    pool = graph_pool_bytes(torch, tts)
+    print(f"  warmup: {n_shapes} shapes, {n_graphs} CUDA graphs in {warm_s:.2f} s; graph pool "
+          f"{pool / 2 ** 20 if pool is not None else 'not reported'} MiB; reserved "
+          f"{(torch.cuda.memory_reserved() - reserved0) / 2 ** 20:.1f} MiB and allocated "
+          f"{(torch.cuda.memory_allocated() - allocated0) / 2 ** 20:.1f} MiB more than before", flush=True)
+    check(n_shapes == n_graphs == 48, f"warmup: {n_shapes} shapes, {n_graphs} graphs, want 48")
+
+    durations, waves, _ = serve_requests()
+    texts = ["The quick brown fox jumps over the lazy dog.", "Hello there, how are you today?",
+             "A journey of a thousand miles begins with a single step.", "Good morning!",
+             "She sells sea shells by the sea shore, and the shells she sells are surely sea shells.",
+             "It was the best of times, it was the worst of times.", "Please call me back at noon.",
+             "Every morning the small dog waits by the door for the postman to arrive with the letters."]
+    srv = TTSServer(tts=tts, x402_cfg=X402Config(mode="disabled"), max_batch=8)
+    srv._ensure_pipeline()
+    loop = asyncio.new_event_loop()
+    server = loop.run_until_complete(asyncio.start_server(srv._serve_conn, "127.0.0.1", 0))
+    port = server.sockets[0].getsockname()[1]
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+    try:
+        status, _, body, _ = http(port, "GET", "/ready")
+        check(status == 200 and body == b"ready", f"/ready answered {status} {body[:80]!r}")
+
+        def synth(i):
+            d = durations[i]
+            form, ctype = multipart_form([("audio", encode_wav(waves[i], 24_000)), ("text", texts[i].encode())])
+            t_req = time.perf_counter()
+            status, hdrs, body, _ = http(port, "POST", f"/synthesize?duration={d:g}", form, {"content-type": ctype})
+            ms = (time.perf_counter() - t_req) * 1e3
+            check(status == 200 and hdrs.get("content-type") == "audio/wav", f"request {i}: {status} {body[:200]!r}")
+            channels, rate, bits = wav_format(body)
+            samples = np.frombuffer(body[44:], np.int16)
+            n = frames_for_duration(d) * HOP_SIZE
+            check((channels, rate, bits) == (1, 24_000, 16) and samples.size == n,
+                  f"request {i}: {channels} ch {rate} Hz {bits} bit, {samples.size} samples, want 1/24000/16, {n}")
+            check(int(np.abs(samples).max()) > 0, f"request {i}: an all-zero waveform")
+            return ms
+
+        with ThreadPoolExecutor(8) as pool_:
+            lat = list(pool_.map(synth, range(8)))
+        print(f"  8 concurrent /synthesize, each 200 audio/wav 24 kHz mono int16 of the expected length; "
+              f"latency ms: {json.dumps([round(v, 3) for v in lat])}", flush=True)
+
+        form, ctype = multipart_form([("audio", encode_wav(waves[8], 24_000)),
+                                      ("text", b"The first sentence is here. Then a second one follows it. "
+                                               b"And the third sentence ends the stream.")])
+        t_req = time.perf_counter()
+        status, hdrs, chunks, t_first = http(port, "POST", "/synthesize/stream?duration=12", form,
+                                             {"content-type": ctype})
+        total_ms, ttfb_ms = (time.perf_counter() - t_req) * 1e3, (t_first - t_req) * 1e3
+        check(status == 200 and hdrs.get("transfer-encoding") == "chunked" and isinstance(chunks, list)
+              and len(chunks) >= 2, f"/synthesize/stream: {status} {hdrs}, {len(chunks)} chunks")
+        check(int(np.abs(np.frombuffer(b"".join(chunks)[44:], np.int16)).max()) > 0, "stream: all-zero audio")
+        print(f"  /synthesize/stream: {len(chunks)} chunks, {sum(map(len, chunks))} bytes, first chunk after "
+              f"{ttfb_ms:.3f} ms, all after {total_ms:.3f} ms", flush=True)
+        status, _, body, _ = http(port, "GET", "/stats")
+        print(f"  /stats: {body.decode()}", flush=True)
+        check(tts.compile_cache_size() == n_graphs,
+              f"a graph was captured in the request path ({tts.compile_cache_size()} != {n_graphs})")
+        print(f"  no capture in the request path: {tts.compile_cache_size()} graphs", flush=True)
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+        server.close()
+        loop.run_until_complete(server.wait_closed())
+        loop.close()
+        srv._batcher.close()
+        srv._pool.shutdown(wait=True)
+
+    gate = TTSServer(tts=object(), x402_cfg=X402Config(mode="trust"))
+    status, hdrs, body = asyncio.run(gate.handle("POST", "/synthesize", {"duration": "5"}, {}, b""))
+    gate._pool.shutdown(wait=True)
+    check(status == 402 and dict(hdrs).get("payment-required") and body == b"",
+          f"unpaid request in trust mode: {status}")
+    print("  trust-mode server: an unpaid /synthesize answers 402 with a payment-required header", flush=True)
+
+    # one padded batch (8, r 64, p 384, t 40): replay against the eager function on the same noise
+    _, waves_, ids = serve_requests()
+    group = [Request(tts.encode_reference(w), (tok * 4)[:200], 5.0) for w, tok in zip(waves_[:8], ids[:8])]
+    args = pad_group(group, 8)[:6]
+    check((args[0].shape[0], args[0].shape[1], args[2].shape[1], args[5]) == (8, 64, 384, 40),
+          f"padded batch {args[0].shape} {args[2].shape} t {args[5]}")
+    g = torch.Generator(device=dev).manual_seed(3)
+    noises = torch.randn((tts.num_steps, 8, 40, 64), generator=g, device=dev).to(tts.dtype)
+
+    def eager(fetch=True, noises=None):
+        with torch.inference_mode():
+            out = tts._synthesize_fn(tts.params, tts.codec_params, tts._tensor(args[0], tts.dtype),
+                                     tts._tensor(args[1], torch.int32), tts._tensor(args[2], torch.int64),
+                                     tts._tensor(args[3], torch.int32), tts._tensor(args[4], torch.int32),
+                                     tts._noises(8, 40) if noises is None else noises, t_bucket=40)
+        return out if not fetch else out.cpu().numpy()
+
+    def replayed(fetch=True, noises=None):
+        return tts.synthesize_padded(*args, fetch=fetch, noises=noises)
+
+    got, want = replayed(False, noises), eager(False, noises)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    print(f"  replay vs eager, batch (8, r 64, p 384, t 40), same noise: {n_diff} of {got.numel()} int16 samples "
+          f"differ (max |diff| {int((got.int() - want.int()).abs().max())})", flush=True)
+    check(n_diff == 0, f"replay differs from eager on {n_diff} samples")
+
+    rows = {}
+    for name, fn in (("eager", eager), ("replayed", replayed)):
+        fn()
+        dispatch, walls = batch_host_ms(fn, 5)
+        busy, kern = profile_batch(fn)
+        wall_med = _median(walls)
+        rows[name] = dict(dispatch_ms=dispatch, wall_ms=walls, dispatch_ms_median=_median(dispatch),
+                          wall_ms_median=wall_med, device_busy_ms=busy,
+                          idle_share=(1.0 - busy / wall_med) if busy else None)
+        if name == "replayed":
+            ours = [(k, t, c) for k, t, c in kern if any(m in k for m in PORT_KERNELS)]
+            rows[name]["port_kernels"] = [dict(kernel=k[:90], ms=t, count=c) for k, t, c in ours]
+            check(bool(ours), "the profiled replay shows none of the port's kernels")
+        print(f"  {name} batch (8, 64, 384, 40): {json.dumps(rows[name])}", flush=True)
+    # the graph alone on the device clock, unprofiled: an upper bound on the replayed batch's busy time (the
+    # profiler adds time to the kernels it traces inside a graph)
+    graph = tts._graphs[(8, 64, 384, 40)].graph
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spans = []
+    for _ in range(5):
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        spans.append(e0.elapsed_time(e1))
+    rows["replayed"]["graph_span_ms"] = spans
+    print(f"  the batch's graph alone, CUDA events around replay(), 5 times (ms): {json.dumps(spans)}; share of the "
+          f"replayed batch's median wall outside the graph's median span: "
+          f"{1.0 - _median(spans) / rows['replayed']['wall_ms_median']:.4f}", flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["serve_http"] = dict(warmup_s=warm_s, graphs=n_graphs, graph_pool_bytes=pool, request_ms=lat,
+                                   stream_ttfb_ms=ttfb_ms, stream_chunks=len(chunks),
+                                   dispatch_ms_median={k: v["dispatch_ms_median"] for k, v in rows.items()},
+                                   wall_ms_median={k: v["wall_ms_median"] for k, v in rows.items()},
+                                   idle_share={k: v["idle_share"] for k, v in rows.items()},
+                                   device_busy_ms={k: v["device_busy_ms"] for k, v in rows.items()},
+                                   graph_span_ms=_median(spans))
+    del tts
+    kernels.reset_launches()
+
+
+def serve_main(entries, timeout_s=600):
+    """Phase serve main: `python -m smalltts_tpu_torch.serving.server
+    --warmup` in a process of its own, with its default flags (batch
+    classes 1, 8 and 32) on a free local port, as a user starts the server:
+    /ready polled until it answers 200, one /synthesize, then SIGTERM, on
+    which it drains and exits 0. Prints the seconds to /ready, the card's
+    memory in use then (nvidia-smi) and the server's own summary lines."""
+    import signal
+    import socket
+
+    import numpy as np
+
+    from smalltts_tpu_torch.serving.audio_io import encode_wav
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    print(f"phase serve main: python -m smalltts_tpu_torch.serving.server --warmup --host 127.0.0.1 --port {port}",
+          flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "smalltts_tpu_torch.serving.server", "--warmup",
+                             "--host", "127.0.0.1", "--port", str(port)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+    reader.start()
+    try:
+        ready_s = None
+        while ready_s is None and time.perf_counter() - t0 < timeout_s:
+            check(proc.poll() is None, f"the server exited with {proc.returncode}:\n" + "".join(lines[-30:]))
+            try:
+                if http(port, "GET", "/ready")[0] == 200:
+                    ready_s = time.perf_counter() - t0
+            except OSError:
+                pass
+            time.sleep(1.0)
+        check(ready_s is not None, f"the server was not ready after {timeout_s} s")
+        mem = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,memory.total", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        rs = np.random.RandomState(1)
+        form, ctype = multipart_form([("audio", encode_wav((0.1 * rs.randn(72_000)).astype(np.float32), 24_000)),
+                                      ("text", b"The server answers its first request.")])
+        t_req = time.perf_counter()
+        status, hdrs, body, _ = http(port, "POST", "/synthesize?duration=3", form, {"content-type": ctype})
+        req_ms = (time.perf_counter() - t_req) * 1e3
+        check(status == 200 and hdrs.get("content-type") == "audio/wav" and len(body) > 44
+              and int(np.abs(np.frombuffer(body[44:], np.int16)).max()) > 0, f"/synthesize: {status} {body[:200]!r}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        check(rc == 0, f"the server exited with {rc} on SIGTERM")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        reader.join(timeout=60)
+    summary = [ln.rstrip() for ln in lines if not ln.startswith("warmup ")]
+    print(f"  ready after {ready_s:.2f} s (process start, model init, warmup); card memory used then: {mem}; "
+          f"one /synthesize (3 s) {req_ms:.3f} ms; exit 0 on SIGTERM", flush=True)
+    print("  server output: " + json.dumps(summary[-12:]), flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["serve_main"] = dict(ready_s=ready_s, memory_used=mem, request_ms=req_ms)
+
+
+PORT_KERNELS = ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel", "gemm_wgmma_kernel", W8_TC, W8_STREAM)
+
+
+def profile_batch(fn):
+    """(device busy ms, [(kernel, ms, count)] by time) of one call of `fn`
+    under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0), key=lambda r: -r[1])
+    return sum(r[1] for r in kern), kern
+
+
+def graph_pool_bytes(torch, tts):
+    """Bytes of the memory segments in the pipeline's shared graph pool, from
+    the allocator's snapshot; None where the snapshot names no pools."""
+    pool = tuple(tts._graph_pool) if tts._graph_pool is not None else None
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs if tuple(sg.get("segment_pool_id", ())) == pool)
+
+
+def multipart_form(fields, boundary="smokeboundary"):
+    body = b"".join(f'--{boundary}\r\nContent-Disposition: form-data; name="{n}"\r\n\r\n'.encode() + v + b"\r\n"
+                    for n, v in fields)
+    return body + f"--{boundary}--\r\n".encode(), f"multipart/form-data; boundary={boundary}"
+
+
+def wav_format(body):
+    """(channels, sample rate, bits per sample) of a 44-byte PCM WAV header."""
+    import struct
+
+    return struct.unpack_from("<H", body, 22)[0], struct.unpack_from("<I", body, 24)[0], \
+        struct.unpack_from("<H", body, 34)[0]
+
+
+def http(port, method, path, body=b"", headers=None):
+    """One HTTP/1.1 request on a socket of its own -> (status, headers, body,
+    time of the first body chunk). A chunked body comes back as the list of
+    its chunks."""
+    import socket
+
+    hdrs = {"host": "127.0.0.1", "content-length": str(len(body)), "connection": "close", **(headers or {})}
+    with socket.create_connection(("127.0.0.1", port), timeout=600) as sock:
+        sock.sendall(f"{method} {path} HTTP/1.1\r\n".encode()
+                     + "".join(f"{k}: {v}\r\n" for k, v in hdrs.items()).encode() + b"\r\n" + body)
+        f = sock.makefile("rb")
+        status = int(f.readline().split()[1])
+        got = {}
+        while True:
+            line = f.readline()
+            if line in (b"\r\n", b""):
+                break
+            k, v = line.decode("latin-1").split(":", 1)
+            got[k.strip().lower()] = v.strip()
+        if got.get("transfer-encoding") == "chunked":
+            chunks, t_first = [], None
+            while True:
+                size = int(f.readline().split(b";")[0], 16)
+                if size == 0:
+                    break
+                chunks.append(f.read(size))
+                f.readline()
+                t_first = t_first or time.perf_counter()
+            return status, got, chunks, t_first
+        data = f.read(int(got.get("content-length", 0)))
+        return status, got, data, time.perf_counter()
 
 
 def _arg(flag):
@@ -806,6 +1136,19 @@ def full_width_tts(torch, dev, **opts):
     gb = torch.Generator(device=dev).manual_seed(0)
     params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
     return SmallTTS(params, pcm16_out=True, seed=0, **opts)
+
+
+def graph_launches(tts, replays0):
+    """(launches, replays) of the pipeline's CUDA graphs since `replays0`
+    ({bucket: replays} taken before): each graph's counts, taken while it
+    was captured, times its replays since then."""
+    total, n = {}, 0
+    for key, g in tts._graphs.items():
+        k = g.replays - replays0.get(key, 0)
+        n += k
+        for name, v in g.launches.items():
+            total[name] = total.get(name, 0) + v * k
+    return {name: v for name, v in total.items() if v}, n
 
 
 def batch_host_ms(one_batch, n):
@@ -841,6 +1184,9 @@ def worker(torch, batches=5):
     def one_batch(fetch=True):
         return tts.synthesize_padded(*args, fetch=fetch)
 
+    if hasattr(tts, "warmup"):  # a tree with CUDA graphs: the bucket's graph is captured here
+        tts.warmup(batch_sizes=(8,), t_buckets=(args[5],), r_buckets=(args[0].shape[1],),
+                   p_buckets=(args[2].shape[1],))
     for _ in range(2):  # warm-up: cuDNN picks its algorithms, the tables are made
         one_batch()
     dispatch, walls = batch_host_ms(one_batch, batches)

@@ -8,7 +8,9 @@
 // PV with the fp32 probabilities; output in the input dtype. An optional
 // second key/value source with its own key mask shares the one max and
 // denominator (the two-piece softmax of block.py:344-377), and an optional
-// gate multiplies the output by sigmoid(gate) before it is stored.
+// gate multiplies the output, rounded to the input dtype, by sigmoid(gate)
+// = 1 / (1 + exp(-gate)) with each op rounded to it, as the DiT's XLA path
+// does (models/dit.py::_attend).
 //
 // What bounds it on the H100: bytes at the DiT's shapes. One DiT launch (B 8,
 // H 8, Tq 40, keys T + 448, D 120) reads 14 MB of cross K/V (4.1 us at 3.35
@@ -179,7 +181,7 @@ __global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
   for (int c = 0; c < DPT; ++c) {
     const int d = sub + 8 * c;
     float o = acc[c] * inv;
-    if (g) o *= 1.f / (1.f + expf(-g[d]));
+    if (g) o = __fmul_rn(o, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[d]))));  // o * (1 / (1 + exp(-g)))
     out[d] = o;
   }
 }
@@ -200,6 +202,17 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------------ bf16, tensor cores
+
+// o * sigmoid(g) for a pair, rounded where the reference's bf16 path rounds
+// (smalltts_tpu/models/dit.py::_attend): o is the attention output already
+// rounded to bf16; exp(-g), 1 + that and its reciprocal are each rounded to
+// bf16, and so is the product. expf (not __expf) and the _rn forms keep
+// every step one correctly rounded operation, never a contracted FMA.
+__device__ __forceinline__ __nv_bfloat162 gate_bf16x2(__nv_bfloat162 o, float g0, float g1) {
+  const __nv_bfloat162 e = __floats2bfloat162_rn(expf(-g0), expf(-g1));
+  const float2 d = __bfloat1622float2(__hadd2_rn(__float2bfloat162_rn(1.f), e));
+  return __hmul2_rn(o, __floats2bfloat162_rn(__fdiv_rn(1.f, d.x), __fdiv_rn(1.f, d.y)));
+}
 
 constexpr int FNW = 4;             // warps per block, 16 query rows each
 constexpr int FBQ = 16 * FNW;      // query rows per block
@@ -432,15 +445,15 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
   // load after a store would wait for it, one round trip at a time.
   bf16* op = static_cast<bf16*>(a.out) + b * a.so[0] + h * a.so[1];
   const bf16* gp = a.gate ? static_cast<const bf16*>(a.gate) + b * a.sg[0] + h * a.sg[1] : nullptr;
-  auto gated = [&](int t, int d, float& v0, float& v1) {  // * sigmoid(gate)
-    if (gp) {
-      const bf16* gr = gp + (long long)t * a.sg[2] + d;
-      v0 *= 1.f / (1.f + expf(-__bfloat162float(gr[0])));
-      v1 *= 1.f / (1.f + expf(-__bfloat162float(gr[1])));
-    }
+  // the output pair in bf16, times sigmoid(gate) where a gate is given
+  auto gated = [&](int t, int d, float v0, float v1) {
+    const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
+    if (!gp) return o;
+    const bf16* gr = gp + (long long)t * a.sg[2] + d;
+    return gate_bf16x2(o, __bfloat162float(gr[0]), __bfloat162float(gr[1]));
   };
-  auto store = [&](int t, int d, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(op + (long long)t * a.so[2] + d) = __floats2bfloat162_rn(v0, v1);
+  auto store = [&](int t, int d, __nv_bfloat162 o) {
+    *reinterpret_cast<__nv_bfloat162*>(op + (long long)t * a.so[2] + d) = o;
   };
 
   if (nsplit == 1) {  // one split: normalize, gate and store from registers
@@ -453,9 +466,7 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
       for (int dn = 0; dn < DP / 8; ++dn) {
         const int d = 8 * dn + 2 * t4;
         if (d >= D) continue;
-        float v0 = o[dn][2 * r] * inv, v1 = o[dn][2 * r + 1] * inv;
-        gated(t, d, v0, v1);
-        store(t, d, v0, v1);
+        store(t, d, gated(t, d, o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv));
       }
     }
     return;
@@ -504,27 +515,27 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
   // a thread merges at most EPT column pairs: rows [r0, r1) x D / 2 pairs <= 32 x 64 at 2+ splits
   constexpr int EPT = (FBQ / 2) * (DP / 2) / FNT;
   const int hd = D / 2, n_el = (r1 - r0) * hd;
-  float2 res[EPT];
+  __nv_bfloat162 res[EPT];
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
     const int idx = tid + e * FNT, rr = idx / hd, d = 2 * (idx % hd), row = r0 + rr;
-    res[e] = make_float2(0.f, 0.f);
     if (idx >= n_el) continue;
     float2 pj[FMAXSPLIT];
 #pragma unroll
     for (int j = 0; j < FMAXSPLIT; ++j) pj[j] = j < nsplit ? ld_cluster2(part + row * Lay::OST + d, j) : make_float2(0.f, 0.f);
+    float2 sum = make_float2(0.f, 0.f);
 #pragma unroll
     for (int j = 0; j < FMAXSPLIT; ++j) {
       const float wj = w_s[rr * FMAXSPLIT + j];
-      res[e].x += wj * pj[j].x;
-      res[e].y += wj * pj[j].y;
+      sum.x += wj * pj[j].x;
+      sum.y += wj * pj[j].y;
     }
-    gated(q0 + row, d, res[e].x, res[e].y);
+    res[e] = gated(q0 + row, d, sum.x, sum.y);
   }
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
     const int idx = tid + e * FNT;
-    if (idx < n_el) store(q0 + r0 + idx / hd, 2 * (idx % hd), res[e].x, res[e].y);
+    if (idx < n_el) store(q0 + r0 + idx / hd, 2 * (idx % hd), res[e]);
   }
   cluster_sync();  // no rank leaves while another reads its shared memory
 }

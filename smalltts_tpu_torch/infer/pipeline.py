@@ -5,6 +5,13 @@ encoding, the 4-step DMD loop through the hand-written DiT and attention
 kernels, and the fp32 codec decode, on one device. Inputs snap to the same
 fixed-shape buckets as the JAX package (data.bucketing).
 
+On the card each bucket shape (batch, r, p, t) runs as one captured CUDA
+graph, the counterpart of the one XLA executable per bucket of the JAX
+package: `warmup` captures the serving contract (`contract_shapes`), a
+shape not captured yet is captured the first time it runs, and
+`compile_cache_size` counts the graphs. On the CPU nothing is captured;
+there `compile_cache_size` counts the bucket shapes that have run.
+
 The pipeline runs on the card unless the caller passes `device="cpu"`; with
 no card it raises rather than quietly running on the CPU.
 """
@@ -13,8 +20,8 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
-from typing import Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +43,7 @@ from smalltts_tpu_torch.models.dit import (
     quantize_modulations,
     quantize_stream_weights,
 )
+from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.utils.transfer import to_device
 
@@ -56,6 +64,20 @@ class Timing:
     denoise_ms: float = 0.0
     codec_dec_ms: float = 0.0
     total_ms: float = 0.0
+
+
+@dataclass
+class _Graph:
+    """One bucket shape captured as a CUDA graph: its static inputs, noise
+    and output, the kernel launches each replay makes (counted while it was
+    captured) and its replays."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple
+    noises: torch.Tensor
+    out: torch.Tensor
+    launches: Dict[str, int] = field(default_factory=dict)
+    replays: int = 0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -156,6 +178,13 @@ class SmallTTS:
                                                  pcm16=pcm16_out)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 2)
         self._gen_lock = threading.Lock()
+        # (batch, r, p, t) -> _Graph on the card; the shapes run on the CPU
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._shapes_run: set = set()
+        # one lock around capture and replay + output copy: a graph's static
+        # buffers hold one batch at a time
+        self._graph_lock = threading.Lock()
+        self._graph_pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
 
     # ------------------------------------------------------------- helpers
 
@@ -170,6 +199,8 @@ class SmallTTS:
             torch.cuda.synchronize(self.device)
 
     def _tensor(self, x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
         return to_device(np.asarray(x), self.device).to(dtype)
 
     # ------------------------------------------------------------- public API
@@ -192,21 +223,126 @@ class SmallTTS:
     def synthesize_padded(self, ref_latents, ref_lengths, phonemes, phoneme_lengths, seq_lengths,
                           t_bucket: int, fetch: bool = True, noises=None):
         """Batched bucket-padded synthesis -> (B, 1, t_bucket * hop) waveform
-        (float32; int16 when built with pcm16_out=True). `fetch=False` returns
-        the device tensor without waiting for the device. `noises`
-        (steps, B, t_bucket, 64) replaces the generator's noise."""
+        (float32; int16 when built with pcm16_out=True). On the card the
+        bucket shape runs as its CUDA graph, captured on first use.
+        `fetch=False` returns the device tensor without waiting for the
+        device. `noises` (steps, B, t_bucket, 64), an array or a tensor,
+        replaces the generator's noise."""
         b = len(seq_lengths)
         with torch.inference_mode():
-            noises = (self._noises(b, t_bucket) if noises is None
-                      else self._tensor(noises, self.dtype))
-            audio = self._synthesize_fn(
-                self.params, self.codec_params,
-                self._tensor(ref_latents, self.dtype), self._tensor(ref_lengths, torch.int32),
-                self._tensor(phonemes, torch.int64), self._tensor(phoneme_lengths, torch.int32),
-                self._tensor(seq_lengths, torch.int32), noises, t_bucket=t_bucket)
+            inputs = (self._tensor(ref_latents, self.dtype), self._tensor(ref_lengths, torch.int32),
+                      self._tensor(phonemes, torch.int64), self._tensor(phoneme_lengths, torch.int32),
+                      self._tensor(seq_lengths, torch.int32))
+            key = (b, inputs[0].shape[1], inputs[2].shape[1], t_bucket)
+            if self.device.type == "cuda":
+                audio = self._replay(key, inputs, noises)
+            else:
+                noises = (self._noises(b, t_bucket) if noises is None
+                          else self._tensor(noises, self.dtype))
+                audio = self._synthesize_fn(self.params, self.codec_params, *inputs, noises,
+                                            t_bucket=t_bucket)
+                with self._graph_lock:
+                    self._shapes_run.add(key)
         if not fetch:
             return audio
         return audio.cpu().numpy()
+
+    def _replay(self, key, inputs, noises):
+        """Run bucket shape `key` as its CUDA graph, captured first if it has
+        not been: the inputs and the noise (drawn by the locked generator, as
+        the eager path draws it, or the caller's) go into the graph's static
+        buffers, the graph is replayed, and a copy of its static output,
+        queued right after the replay, is returned, so that the next batch of
+        the same bucket cannot overwrite a result not fetched yet."""
+        with self._graph_lock:
+            g = self._graphs.get(key)
+            if g is None:
+                g = self._graphs[key] = self._capture(key, inputs)
+            for static, x in zip(g.inputs, inputs):
+                static.copy_(x)
+            g.noises.copy_(self._noises(key[0], key[3]) if noises is None
+                           else self._tensor(noises, self.dtype))
+            g.graph.replay()
+            g.replays += 1
+            kernels.add_launches(g.launches)
+            return g.out.clone()
+
+    def _capture(self, key, inputs) -> _Graph:
+        """Capture the eager synthesize fn at bucket shape `key` into a CUDA
+        graph, in the memory pool that every graph of this pipeline shares
+        (replays are serialized on one stream, and each graph keeps its
+        static tensors alive). An eager run on a side stream comes first:
+        cuDNN chooses its algorithms and the kernels set their attributes
+        and tables there, outside the capture. The capture checks only this
+        thread's CUDA calls, so the batcher's fetch thread may copy a result
+        to the host meanwhile. A failed capture raises."""
+        static = tuple(x.clone() for x in inputs)
+        noises = torch.zeros((self.num_steps, key[0], key[3], self.cfg.latent_dim), dtype=self.dtype,
+                             device=self.device)
+
+        def run():
+            return self._synthesize_fn(self.params, self.codec_params, *static, noises, t_bucket=key[3])
+
+        stream = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            run()
+        stream.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with kernels.recording() as launches, torch.cuda.graph(graph, pool=self._graph_pool,
+                                                               capture_error_mode="thread_local"):
+            out = run()
+        return _Graph(graph, static, noises, out, launches)
+
+    def contract_shapes(self, batch_sizes: Sequence[int] = (1, 8),
+                        t_buckets: Sequence[int] = LATENT_BUCKETS,
+                        r_buckets: Sequence[int] = SERVING_REF_BUCKETS,
+                        p_buckets: Sequence[int] = SERVING_PHONEME_BUCKETS):
+        """The serving shape contract: every (batch, r, p, t) tuple a request
+        can reach after bucketing. warmup() captures exactly this set."""
+        return [(bs, rb, pb, tb) for bs in batch_sizes for rb in r_buckets for pb in p_buckets
+                for tb in t_buckets]
+
+    def warmup(self, batch_sizes: Sequence[int] = (1, 8), t_buckets: Sequence[int] = LATENT_BUCKETS,
+               r_buckets: Sequence[int] = SERVING_REF_BUCKETS, p_buckets: Sequence[int] = SERVING_PHONEME_BUCKETS,
+               progress: bool = False, workers: int = 8) -> int:
+        """Run every shape of the serving contract once, so that no
+        in-contract request captures a CUDA graph in the request path (on
+        the CPU, so that each shape has run). The reference encoder runs
+        once per ref bucket first, on `workers` threads. Returns the number
+        of shape tuples visited. The shapes run one at a time, largest first
+        (batch x latent bucket, then phonemes, then refs): the graphs share
+        one memory pool, and each smaller graph then reuses blocks that a
+        larger one freed instead of growing the pool."""
+        shapes = self.contract_shapes(batch_sizes, t_buckets, r_buckets, p_buckets)
+        shapes.sort(key=lambda s: (s[0] * s[3], s[0] * s[2], s[0] * s[1]), reverse=True)
+
+        def warm_encoder(rb):
+            self.encode_reference(np.zeros((rb * HOP_SIZE,), np.float32))
+
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max(1, workers)) as pool:
+            list(pool.map(warm_encoder, r_buckets))
+        for i, (bs, rb, pb, tb) in enumerate(shapes):
+            if progress:
+                print(f"warmup {i + 1}/{len(shapes)}: batch={bs} r={rb} p={pb} t={tb}", flush=True)
+            self.synthesize_padded(np.zeros((bs, rb, self.cfg.latent_dim), np.float32),
+                                   np.full((bs,), rb, np.int32), np.zeros((bs, pb), np.int32),
+                                   np.full((bs,), 1, np.int32), np.full((bs,), min(tb, 1), np.int32), tb,
+                                   fetch=False)
+            # wait per shape, so warmup() returns (and /ready flips) with
+            # nothing still queued on the device
+            self._sync()
+        return len(shapes)
+
+    def compile_cache_size(self) -> int:
+        """CUDA graphs captured, one per bucket shape, on the card; the
+        bucket shapes that have run, on the CPU (tests assert this stays
+        flat across in-contract traffic)."""
+        with self._graph_lock:
+            return len(self._graphs) if self.device.type == "cuda" else len(self._shapes_run)
 
     def _bucketize(self, ref_latents, phoneme_ids, duration_sec):
         seq_len = frames_for_duration(duration_sec)
@@ -265,3 +401,37 @@ class SmallTTS:
         timing.codec_dec_ms = (t4 - t3) * 1e3
         timing.total_ms = (t4 - t0) * 1e3
         return audio, timing
+
+    def forward(self, conditionings: List[np.ndarray], transcriptions: list, texts: list,
+                duration_sec: float = 3.0, max_batch: int = 8) -> List[np.ndarray]:
+        """Batch API prepending transcription tokens to text tokens. Items
+        are packed into `synthesize_padded` calls exactly as the serving
+        batcher groups and pads them: everything shares one latent bucket
+        (one duration), refs and phonemes pad to the group's serving
+        buckets, and each chunk of `max_batch` items is one call on a batch
+        class that warmup() captures."""
+        from smalltts_tpu_torch.serving.batcher import Request, group_requests, pad_group
+        from smalltts_tpu_torch.text import get_token_ids
+
+        def tok(x):
+            return get_token_ids(x) if isinstance(x, str) else list(map(int, x))
+
+        requests = [Request(np.asarray(cond, np.float32), tok(trans) + tok(text), duration_sec)
+                    for cond, trans, text in zip(conditionings, transcriptions, texts)]
+        for r in requests:
+            if len(r.ref_latents) > SERVING_REF_BUCKETS[-1]:
+                import warnings
+
+                warnings.warn(f"reference audio is {len(r.ref_latents)} latent frames; truncating to the "
+                              f"largest serving bucket {SERVING_REF_BUCKETS[-1]} — pass a shorter clip",
+                              stacklevel=2)
+        index = {id(r): i for i, r in enumerate(requests)}
+        results: List[np.ndarray] = [None] * len(requests)
+        for group in group_requests(requests, max_batch):
+            ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, _ = pad_group(group, max_batch)
+            audio = self.synthesize_padded(ref, ref_lens, ph, ph_lens, seq_lens, t_bucket)
+            for i, r in enumerate(group):
+                results[index[id(r)]] = audio[i, :, : int(seq_lens[i]) * HOP_SIZE]
+        return results
+
+    __call__ = forward

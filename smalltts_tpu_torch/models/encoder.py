@@ -61,7 +61,7 @@ def _self_attention(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
     k = apply_rope_pairs(nn.rmsnorm(p["k_norm"], k, cfg.norm_eps), rope_cos[:t], rope_sin[:t])
     out = nn.sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_mask=mask)
     out = out.transpose(1, 2).reshape(b, t, h * d)
-    out = out * torch.sigmoid(gate)
+    out = out * nn.sigmoid(gate)
     return nn.linear(p["wo"], out)
 
 

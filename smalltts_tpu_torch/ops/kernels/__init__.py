@@ -7,9 +7,11 @@ into `ops/kernels/build/`, under a file lock, and loaded with ctypes.
 Every wrapper takes its plain PyTorch version only for tensors on the CPU;
 for a CUDA tensor it launches its kernel or raises. `LAUNCHES` counts the
 launches per wrapper name: a wrapper adds one where it launches, nowhere
-else. `force_plain()` is a test-only switch that routes CUDA tensors through
-the plain versions, so a run can be held against the same run without the
-kernels.
+else. Under a CUDA graph capture (`recording()`) a wrapper's count goes to
+the graph instead, and each replay adds the graph's counts
+(`add_launches`). `force_plain()` is a test-only switch that routes CUDA
+tensors through the plain versions, so a run can be held against the same
+run without the kernels.
 """
 
 from __future__ import annotations
@@ -40,12 +42,40 @@ _plain = threading.local()
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+    counts = getattr(_plain, "recording", None)  # a CUDA graph capture in this thread
+    if counts is None:
+        counts = LAUNCHES
+    with _lock:
+        counts[name] = counts.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    for k in list(LAUNCHES):
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in list(LAUNCHES):
+            LAUNCHES[k] = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add `counts` to LAUNCHES: the launches a CUDA graph makes each time
+    it is replayed, which no wrapper sees."""
+    with _lock:
+        for k, v in counts.items():
+            LAUNCHES[k] = LAUNCHES.get(k, 0) + v
+
+
+@contextlib.contextmanager
+def recording():
+    """Count this thread's wrapper calls into a dict of their own, not into
+    LAUNCHES: while a CUDA graph is captured a wrapper records its kernel
+    into the graph and launches nothing. Yields that dict, the launches
+    each replay of the graph makes."""
+    counts: Dict[str, int] = {}
+    prev = getattr(_plain, "recording", None)
+    _plain.recording = counts
+    try:
+        yield counts
+    finally:
+        _plain.recording = prev
 
 
 @contextlib.contextmanager

@@ -21,7 +21,7 @@ from typing import Optional
 
 import torch
 
-from smalltts_tpu_torch.ops import kernels
+from smalltts_tpu_torch.ops import kernels, nn
 
 NAME = "attention"
 HEAD_DIMS = (64, 120, 128)
@@ -33,7 +33,8 @@ def attention_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=No
     """The same function in plain PyTorch. q (B,H,Tq,D); k/v (B,H,S,D);
     key_mask (B,S) bool. fp32 scores x 1/sqrt(D), masked keys replaced by
     -1e9, fp32 softmax shared over both sources, PV with fp32 probabilities,
-    times sigmoid(gate) (B,H,Tq,D) when given, output in q's dtype."""
+    output in q's dtype; with a gate (B,H,Tq,D), that output times
+    sigmoid(gate) in q's dtype, each op rounded (`_gated`)."""
     kf, vf, mask = k.float(), v.float(), key_mask
     if k2 is not None:
         kf = torch.cat([kf, k2.float()], dim=2)
@@ -41,10 +42,14 @@ def attention_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=No
         mask = torch.cat([key_mask, key_mask2], dim=1)
     scores = torch.matmul(q.float(), kf.transpose(-1, -2)) * (1.0 / math.sqrt(q.shape[-1]))
     scores = torch.where(mask[:, None, None, :], scores, -1e9)
-    out = torch.matmul(torch.softmax(scores, dim=-1), vf)
-    if gate is not None:
-        out = out * torch.sigmoid(gate.float())
-    return out.to(q.dtype)
+    return _gated(torch.matmul(torch.softmax(scores, dim=-1), vf), q.dtype, gate)
+
+
+def _gated(out, dtype, gate):
+    """out rounded to `dtype`, then times sigmoid(gate) in `dtype`, each op
+    rounded: the order of the DiT's XLA path (models/dit.py::_attend)."""
+    out = out.to(dtype)
+    return out if gate is None else out * nn.sigmoid(gate.to(dtype))
 
 
 def attention_split_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, gate=None, *, splits):
@@ -57,8 +62,8 @@ def attention_split_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, g
     count from the shape and gives every split a tile; here any count may be
     given, so a split may hold none (m = -inf, l = 0). The splits merge in
     rank order: M = max_j m_j, w_j = exp(m_j - M) (0 where m_j = -inf), O =
-    sum_j (w_j / sum_i w_i l_i) O_j, then times sigmoid(gate). Output in
-    q's dtype."""
+    sum_j (w_j / sum_i w_i l_i) O_j, in q's dtype, then times sigmoid(gate)
+    as `_gated` rounds it."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qf = q.float()
     tiles = [(kk[:, :, j:j + KEY_TILE].float(), vv[:, :, j:j + KEY_TILE].float(), mm[:, j:j + KEY_TILE])
@@ -84,9 +89,7 @@ def attention_split_plain(q, k, v, key_mask, k2=None, v2=None, key_mask2=None, g
     w = [torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - mx)) for m, _, _ in parts]
     total = sum(wj * l for wj, (_, l, _) in zip(w, parts))
     out = sum((wj / total) * o for wj, (_, _, o) in zip(w, parts))
-    if gate is not None:
-        out = out * torch.sigmoid(gate.float())
-    return out.to(q.dtype)
+    return _gated(out, q.dtype, gate)
 
 
 def _strides(t: torch.Tensor, name: str):

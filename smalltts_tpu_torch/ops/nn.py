@@ -113,14 +113,27 @@ def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 
     return (y.float() + p["b"].float()[:, None]).to(x.dtype).transpose(1, 2)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """1 / (1 + exp(-x)), each op rounded to x's dtype: the op chain of JAX's
+    sigmoid, which in bf16 gives other values than torch.sigmoid's one
+    rounding."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """x * (1 / (1 + exp(-x))), each op rounded to x's dtype: the op chain of
-    JAX's silu, which in bf16 gives other values than F.silu's one rounding."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """x * sigmoid(x), each op rounded to x's dtype (JAX's silu chain)."""
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """JAX's softplus, logaddexp(x, 0): max(x, 0) + log1p(exp(-|x - 0|)),
+    each op rounded to x's dtype (F.softplus rounds once)."""
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    return torch.maximum(x, zero) + torch.log1p(torch.exp(-torch.abs(x - zero)))
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.tanh(F.softplus(x))
+    return x * torch.tanh(softplus(x))
 
 
 def layer(tree, l: int):

@@ -74,3 +74,53 @@ def test_kernel_wrappers_never_build_on_the_cpu():
     W.w8_matmul_all_layers(a[0], w_q, scale)
     assert kernels.LAUNCHES == before
     assert not kernels._libs
+
+
+NEW_HOST_MODULES = ["smalltts_tpu_torch.text", "smalltts_tpu_torch.text.numbers", "smalltts_tpu_torch.text.normalizer",
+                    "smalltts_tpu_torch.text.phonemize", "smalltts_tpu_torch.serving.multipart",
+                    "smalltts_tpu_torch.serving.audio_io", "smalltts_tpu_torch.serving.eth",
+                    "smalltts_tpu_torch.serving.x402", "smalltts_tpu_torch.infer.long_form",
+                    "smalltts_tpu_torch.serving.server", "smalltts_tpu_torch.infer.pipeline"]
+
+# a CPU TTSServer answering one /synthesize through a tiny pipeline, the
+# text frontend and the Batcher, with neither JAX nor the JAX package blocked
+SERVE = """
+import asyncio, sys
+import numpy as np
+from smalltts_tpu_torch.infer.pipeline import SmallTTS
+from smalltts_tpu_torch.models.backbone import BackboneConfig
+from smalltts_tpu_torch.models.codec import CodecConfig
+from smalltts_tpu_torch.models.dit import DiTConfig
+from smalltts_tpu_torch.models.encoder import EncoderConfig
+from smalltts_tpu_torch.serving.audio_io import encode_wav
+from smalltts_tpu_torch.serving.server import TTSServer
+enc = EncoderConfig(model_size=32, num_layers=1, num_heads=2, intermediate_size=64, norm_eps=1e-6)
+cfg = BackboneConfig(latent_dim=64, hidden_dim=64, phoneme_dim=32, text=enc, style=enc,
+                     dit=DiTConfig(latent_dim=64, phoneme_dim=32, hidden_dim=64, n_blocks=1, heads=4, rot_dim=8,
+                                   conv_groups=16))
+tts = SmallTTS(cfg=cfg, codec_cfg=CodecConfig(latent_dim=64, channels=(16, 16, 16, 8, 8, 4)), device="cpu",
+               pcm16_out=True)
+srv = TTSServer(tts=tts)
+wav = encode_wav(0.1 * np.sin(np.arange(12000) / 9.0), 24000)
+body = (b'--B\\r\\nContent-Disposition: form-data; name="audio"\\r\\n\\r\\n' + wav
+        + b'\\r\\n--B\\r\\nContent-Disposition: form-data; name="text"\\r\\n\\r\\nHello there.\\r\\n--B--\\r\\n')
+status, headers, out = asyncio.run(srv.handle("POST", "/synthesize", {"duration": "1"},
+                                              {"content-type": "multipart/form-data; boundary=B"}, body))
+srv._batcher.close()
+assert status == 200 and dict(headers)["content-type"] == "audio/wav", (status, out[:200])
+"""
+
+
+def _loaded(names):
+    return "assert not {k.split('.')[0] for k in sys.modules} & {'jax', 'jaxlib', 'smalltts_tpu'}, " + repr(names) + "\n"
+
+
+def test_new_host_modules_and_a_cpu_server_request_load_no_jax():
+    """Importing each module of the text frontend, the HTTP server and long
+    form, and then serving one CPU request, loads neither JAX nor the JAX
+    package (nothing is blocked here: a fallback import would show)."""
+    code = "import importlib, sys\n" + "".join(f"importlib.import_module({m!r})\n" + _loaded(m)
+                                              for m in NEW_HOST_MODULES)
+    code += SERVE + _loaded("after a CPU TTSServer request")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]

@@ -329,8 +329,10 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
     """synthesize_padded(fetch=False) returns the card's tensor without
     waiting for the card: PyTorch raises on any synchronizing call in
     "error" sync-debug mode. Small widths that the kernels take (DiT head dim
-    120, encoder head dim 64); the second batch's buckets are new, so the
-    tables made on first use are covered too."""
+    120, encoder head dim 64). A captured bucket replays; a capture itself
+    synchronizes the card, so the eager function that is captured runs
+    there too, at buckets it has not run, which covers the tables made on
+    first use."""
     import numpy as np
 
     from smalltts_tpu_torch.infer.pipeline import SmallTTS
@@ -351,14 +353,22 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
         return (rs.randn(2, R, 64).astype(np.float32), np.array([R, R // 2]), rs.randint(1, 198, (2, P)),
                 np.array([P, P // 3]), np.array([T, T // 2]), T)
 
-    tts.synthesize_padded(*batch(64, 128, 16))  # builds the kernels
+    tts.synthesize_padded(*batch(64, 128, 16))  # builds the kernels, captures the bucket's graph
+    tts.synthesize_padded(*batch(256, 384, 40))
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = tts.synthesize_padded(*batch(256, 384, 40), fetch=False)
+        out = tts.synthesize_padded(*batch(256, 384, 40), fetch=False)  # a replay
+        # the eager function, as captured, at buckets it has not run: its tables are made on first use
+        r, rl, ph, pl, sl, T = batch(128, 128, 80)
+        eager = tts._synthesize_fn(tts.params, tts.codec_params, tts._tensor(r, tts.dtype),
+                                   tts._tensor(rl, torch.int32), tts._tensor(ph, torch.int64),
+                                   tts._tensor(pl, torch.int32), tts._tensor(sl, torch.int32), tts._noises(2, T),
+                                   t_bucket=T)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert out.is_cuda and out.dtype == torch.int16 and out.shape == (2, 1, 40 * 3200)
+    assert eager.shape == (2, 1, 80 * 3200)
     assert int(out.abs().max()) > 0
 
 
@@ -592,3 +602,29 @@ def test_attention_split_merge(dev, B, Tq, S2, splits):
     assert bool(torch.isfinite(buf).all())
     assert rel(out, A.attention_plain(q, k, v, m1, k2, v2, m2, gate=gate)) <= TOL[torch.bfloat16]
     assert rel(out, A.attention_split_plain(q, k, v, m1, k2, v2, m2, gate=gate, splits=splits)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [16, 40])
+def test_attention_gate_rounds_like_plain(dev, dtype, T):
+    """The gated DiT attention at the served shapes (cross Sc 448, where the
+    bf16 kernel splits the keys over a cluster): within the attention
+    tolerance of the plain version, and the gate stage alone, applied by the
+    plain `_gated` to the kernel's own ungated output, equal to the kernel's
+    gated output on all but 1e-4 of elements and within one ulp there (the
+    card's exp in PyTorch and in the kernel may round a hair apart)."""
+    B, H, Sc, D = 8, 8, 448, 120
+    g = gen(dev, 90 + T)
+    q, k, v = (randn((B, H, T, D), g, dev, dtype) for _ in range(3))
+    gate = randn((B, H, T, D), g, dev, dtype, 2.0)
+    k2, v2 = (randn((B, H, Sc, D), g, dev, dtype) for _ in range(2))
+    m1, m2 = key_mask(B, T, g, dev), key_mask(B, Sc, g, dev)
+    got = A.fused_attention(q, k, v, m1, k2, v2, m2, gate=gate)
+    ungated = A.fused_attention(q, k, v, m1, k2, v2, m2)
+    assert rel(got, A.attention_plain(q, k, v, m1, k2, v2, m2, gate=gate)) <= TOL[dtype]
+    stage = A._gated(ungated, dtype, gate)
+    if dtype == torch.float32:
+        assert rel(got, stage) <= 1e-6
+    else:
+        share, worst = ulps_apart(got, stage)
+        assert share <= 1e-4 and worst <= 1.0, (share, worst)

@@ -1,7 +1,9 @@
 """The adaLN, q/k norm and gated-residual arithmetic of the port's DiT scan
 (smalltts_tpu_torch/ops/kernels/dit_block.py) on the CPU, against the JAX
 package's bf16 path (`_apply_adaln_zero`, `_self_qkv_gate`, `_ff`,
-`_block_core`'s residual) at the model's width, 960.
+`_block_core`'s residual) at the model's width, 960; and the bf16 sigmoid,
+mish, encoder attention gate and DiT attention gate, bit for bit against
+the JAX functions under jax.jit.
 
 In bf16 the JAX path rounds after every op; the port's plain versions, which
 the card's kernels are held to bit for bit, round at the same points. The
@@ -25,8 +27,14 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from smalltts_tpu.models import dit as JD  # noqa: E402
+from smalltts_tpu.models import encoder as JE  # noqa: E402
+from smalltts_tpu.models.style_encoder import STYLE_ENCODER_CONFIG  # noqa: E402
+from smalltts_tpu.models.text_encoder import TEXT_ENCODER_CONFIG  # noqa: E402
 from smalltts_tpu.ops import nn as JN  # noqa: E402
 from smalltts_tpu_torch.models import dit as PD  # noqa: E402
+from smalltts_tpu_torch.models import encoder as PE  # noqa: E402
+from smalltts_tpu_torch.ops import nn as PN  # noqa: E402
+from smalltts_tpu_torch.ops.kernels import attention as A  # noqa: E402
 from smalltts_tpu_torch.ops.kernels import dit_block as K  # noqa: E402
 
 CFG = JD.DiTConfig()
@@ -155,3 +163,82 @@ def test_gated_residual_bf16_rounds_where_jax_rounds(masked):
     K.gemm_residual_plain(to_torch(a, torch.bfloat16), to_torch(np.eye(H), torch.bfloat16), None, xt,
                           to_torch(gate, torch.bfloat16), torch.from_numpy(mask) if masked else None)
     assert np.array_equal(to_np(xt), to_np(want))
+
+
+def bf16_pair(seed, shape=(8, 40, H)):
+    """x ~ N(0, 4) in bf16, as a torch tensor and a JAX array of the same bits."""
+    x = (2.0 * np.random.RandomState(seed).randn(*shape)).astype(np.float32)
+    return to_torch(x, torch.bfloat16), to_jax(x, jnp.bfloat16)
+
+
+def test_sigmoid_bf16_bit_equal_to_jax():
+    """nn.sigmoid's op chain is jax.nn.sigmoid in bf16; torch.sigmoid, which
+    rounds once, differs on about a third of the elements."""
+    xt, xj = bf16_pair(4)
+    want = to_np(jax.jit(jax.nn.sigmoid)(xj))
+    assert np.array_equal(to_np(PN.sigmoid(xt)), want)
+    assert not np.array_equal(to_np(torch.sigmoid(xt)), want)
+
+
+def test_mish_bf16_bit_equal_to_jax():
+    """nn.mish (softplus as logaddexp(x, 0), each op rounded) is the JAX
+    package's mish in bf16; F.softplus, which rounds once, is not."""
+    xt, xj = bf16_pair(5)
+    want = to_np(jax.jit(JN.mish)(xj))
+    assert np.array_equal(to_np(PN.mish(xt)), want)
+    assert not np.array_equal(to_np(xt * torch.tanh(torch.nn.functional.softplus(xt))), want)
+
+
+@pytest.mark.parametrize("ecfg", [TEXT_ENCODER_CONFIG, STYLE_ENCODER_CONFIG], ids=["text", "style"])
+def test_encoder_attention_gate_bf16_bit_equal_to_jax(ecfg):
+    """The encoder's self-attention in bf16 at its own width (512): one token
+    a row, so the softmax is exactly 1 and the attention output is v; wv and
+    wo are identities and the gate weight a permutation, so every product is
+    exact and what remains is out * sigmoid(gate)'s rounding."""
+    m = ecfg.model_size
+    rs = np.random.RandomState(6)
+    x = (2.0 * rs.randn(320, 1, m)).astype(np.float32)
+    w = {"wq": rs.randn(m, m) / np.sqrt(m), "wk": rs.randn(m, m) / np.sqrt(m), "wv": np.eye(m),
+         "gate": np.eye(m)[rs.permutation(m)], "wo": np.eye(m)}
+    norms = {"q_norm": np.ones(ecfg.head_dim), "k_norm": np.ones(ecfg.head_dim)}
+    pj = {**{k: {"w": to_jax(v, jnp.bfloat16)} for k, v in w.items()},
+          **{k: {"scale": to_jax(v, jnp.bfloat16)} for k, v in norms.items()}}
+    pt = {**{k: {"w": to_torch(v, torch.bfloat16)} for k, v in w.items()},
+          **{k: {"scale": to_torch(v, torch.bfloat16)} for k, v in norms.items()}}
+    cos, sin = np.ones((1, ecfg.head_dim // 2), np.float32), np.zeros((1, ecfg.head_dim // 2), np.float32)
+    mask = np.ones((320, 1), bool)
+    want = jax.jit(lambda p, x: JE._self_attention(p, ecfg, x, jnp.asarray(mask), jnp.asarray(cos),
+                                                   jnp.asarray(sin)))(pj, to_jax(x, jnp.bfloat16))
+    pcfg = PE.EncoderConfig(**dataclasses.asdict(ecfg))
+    got = PE._self_attention(pt, pcfg, to_torch(x, torch.bfloat16), torch.from_numpy(mask), torch.from_numpy(cos),
+                             torch.from_numpy(sin))
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(to_np(got), to_np(want))
+
+
+@pytest.mark.parametrize("splits", [None, 1, 3])
+def test_dit_attention_gate_bf16_bit_equal_to_jax(monkeypatch, splits):
+    """attention_plain (splits None) and attention_split_plain with a gate
+    against the JAX package's `_attend` on the same rounded attention output
+    (its sdpa is replaced by that output; to_out is the identity): the
+    output rounded to bf16, then sigmoid(gate) and the product, each op
+    rounded. One rounding of the fp32 product differs on ~40% of elements."""
+    rs = np.random.RandomState(7 + (splits or 0))
+    heads, hd, Tq, S, S2 = CFG.heads, CFG.head_dim, 40, 40, 128
+    q, k, v, gate = (to_torch(rs.randn(B, heads, n, hd).astype(np.float32), torch.bfloat16)
+                     for n in (Tq, S, S, Tq))
+    gate = (2.0 * gate.float()).to(torch.bfloat16)
+    k2, v2 = (to_torch(rs.randn(B, heads, S2, hd).astype(np.float32), torch.bfloat16) for _ in range(2))
+    m1 = torch.arange(S)[None] < torch.tensor([S, 23])[:, None]
+    m2 = torch.arange(S2)[None] < torch.tensor([S2, 70])[:, None]
+    attend = A.attention_plain if splits is None else (lambda *a, **kw: A.attention_split_plain(*a, **kw, splits=splits))
+    out = attend(q, k, v, m1, k2, v2, m2)
+    got = attend(q, k, v, m1, k2, v2, m2, gate=gate)
+    assert out.dtype == got.dtype == torch.bfloat16
+    monkeypatch.setattr(JD.nn, "sdpa", lambda *a, **kw: to_jax(to_np(out), jnp.bfloat16))
+    gate_rows = to_jax(to_np(gate.transpose(1, 2).reshape(B, Tq, H)), jnp.bfloat16)
+    p_attn = {"to_out": {"w": to_jax(np.eye(H), jnp.bfloat16)}}
+    want = jax.jit(lambda g: JD._attend(p_attn, g, None, None, None, jnp.ones((B, Tq), bool), None))(gate_rows)
+    assert np.array_equal(to_np(got.transpose(1, 2).reshape(B, Tq, H)), to_np(want))
+    parent = (out.float() * torch.sigmoid(gate.float())).to(torch.bfloat16)  # one rounding of the fp32 product
+    assert not np.array_equal(to_np(parent), to_np(got))
