@@ -41,6 +41,21 @@
    server's 402, a replayed batch against the eager function bit for bit,
    and eager against replayed host dispatch, wall, device busy and idle
    share.
+   Phase serve imf (after the int8 phase): the same weights with an
+   r_gate leaf drawn from N(0, 0.1), an IMF checkpoint, served by
+   SmallTTS(pcm16_out=True) with sampler="auto", which must choose IMF-2:
+   the audio backend must be the native C++ library (built from
+   smalltts_tpu_torch/native), the 10 requests through the Batcher with
+   exactly 192 scan launches a batch (2 steps x 12 layers x 8), kernels
+   against plain on one batch, replay against eager bit for bit on (8, r 64,
+   p 384, t 40), the gated DMD-4 (sampler="dmd", 384 a batch) and int8
+   IMF-2 (within 5e-2 rel-L2 of the bf16 latents) on the same weights, and
+   IMF-2's host dispatch, wall and graph span beside the gated DMD-4's.
+   After serve main, phases onnx codec and imported (see `onnx_phases`):
+   the native codec exported by torch.onnx.export and run by OnnxCodec
+   against the native codec, SmallTTS(codec=OnnxCodec) through its CUDA
+   graph, and ImportedSmallTTS on the backbone's exported condition
+   encoder and denoiser against the torch modules.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -684,9 +699,9 @@ def main() -> int:
         args = (tts.params, tts.cfg, tt(ref, tts.dtype), tt(ref_lens, torch.int32), tt(ph, torch.int64),
                 tt(ph_lens, torch.int32), tt(seq_lens, torch.int32))
         with torch.inference_mode():
-            lat_k = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
+            lat_k = sample_latents(*args, num_steps=tts.num_steps, noises=noises, sampler=tts.sampler)
             with kernels.force_plain():
-                lat_p = sample_latents(*args, num_steps=tts.num_steps, noises=noises)
+                lat_p = sample_latents(*args, num_steps=tts.num_steps, noises=noises, sampler=tts.sampler)
         lat_rel = float((lat_k.float() - lat_p.float()).norm() / lat_p.float().norm())
         print(f"  batch of 8 (t_bucket {t_bucket}) kernels vs plain: latents rel-L2 {lat_rel:.3e} (tolerance 5e-2)")
         check(bool(torch.isfinite(lat_k).all()) and lat_rel <= 5e-2, f"serving latents rel-L2 {lat_rel:.3e}")
@@ -782,10 +797,71 @@ def main() -> int:
     del tts
     torch.cuda.empty_cache()
 
+    # an IMF checkpoint: IMF-2 ("auto"), the gated DMD-4 and int8 IMF-2 on the same weights
+    t_phase = time.perf_counter()
+    from smalltts_tpu_torch import native
+    from smalltts_tpu_torch.serving import audio_io
+
+    check(audio_io.backend() is native, "audio_io.backend() is the numpy module: the native audio library did not build")
+    print("phase serve imf: SmallTTS(pcm16_out=True) on the seed-0 weights plus an r_gate drawn from N(0, 0.1), "
+          f"default BackboneConfig/CodecConfig, bf16; audio backend {audio_io.backend().__name__}")
+    tts = full_width_tts(torch, dev, r_gate=True)
+    check((tts.sampler, tts.num_steps) == ("imf", 2), f"auto chose {tts.sampler}-{tts.num_steps}, want imf-2")
+    print(f"  sampler='auto' on a checkpoint with r_gate: {tts.sampler}, {tts.num_steps} steps", flush=True)
+    launches, replayed, batches, _ = serve(tts)
+    check_scan_counts(replayed, len(batches), tts, "")
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["launches_imf_serve"] = scan_launches(launches, GEMMS)[0]
+        elif e["name"] in ("attention",) + SCAN_KERNELS:
+            e["launches_imf_serve"] = launches.get(e["name"], 0)
+    imf_noise = torch.randn((1, 8, group_args[5], 64), generator=g, device=dev).to(tts.dtype)
+    lat_imf = batch_checks(tts, group_args, imf_noise)
+    big = padded_batch(tts)
+    n_big = torch.randn((1,) + big[0].shape[:1] + (big[5], 64), generator=g, device=dev).to(tts.dtype)
+    got, want = tts.synthesize_padded(*big, fetch=False, noises=n_big), eager_batch(tts, big, n_big)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    print(f"  IMF-2 replay vs eager, batch (8, r 64, p 384, t 40), same noise: {n_diff} of {got.numel()} int16 "
+          "samples differ", flush=True)
+    check(n_diff == 0 and int(want.abs().max()) > 0, f"IMF replay differs from eager on {n_diff} samples")
+    rows = {"imf-2": graph_timing(torch, tts, big)}
+    del tts
+    dmd = full_width_tts(torch, dev, r_gate=True, sampler="dmd")
+    check((dmd.sampler, dmd.num_steps) == ("dmd", 4), f"sampler='dmd' gave {dmd.sampler}-{dmd.num_steps}")
+    rows["dmd-4 gated"] = graph_timing(torch, dmd, big)
+    check_scan_counts(dmd._graphs[bucket_key(big)].launches, 1, dmd, "")  # the counts of one replay
+    del dmd
+    w8 = full_width_tts(torch, dev, r_gate=True, w8_modulation=True, w8_stream=True)
+    tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    with torch.inference_mode():
+        lat_w8 = sample_latents(w8.params, w8.cfg, tt(group_args[0], w8.dtype), tt(group_args[1], torch.int32),
+                                tt(group_args[2], torch.int64), tt(group_args[3], torch.int32),
+                                tt(group_args[4], torch.int32), num_steps=2, noises=imf_noise, sampler="imf")
+    w8_rel = float((lat_w8.float() - lat_imf.float()).norm() / lat_imf.float().norm())
+    print(f"  int8 IMF-2 vs bf16 IMF-2 batch, same inputs and noise: latents rel-L2 {w8_rel:.3e} "
+          f"(must be > 0 and <= {W8_VS_BF16_TOL})", flush=True)
+    check(0.0 < w8_rel <= W8_VS_BF16_TOL, f"int8 vs bf16 IMF latents rel-L2 {w8_rel:.3e}")
+    out = w8.synthesize_padded(*group_args)
+    w8_launches = w8._graphs[bucket_key(group_args)].launches
+    check(out.dtype == np.int16 and int(np.abs(out).max()) > 0, "int8 IMF batch: an all-zero waveform")
+    check(w8_launches.get("w8_matmul_all_layers", 0) == 1, f"int8 IMF graph: {json.dumps(w8_launches)}")
+    check_scan_counts(w8_launches, 1, w8, "_w8")
+    del w8
+    torch.cuda.empty_cache()
+    print(f"  batch (8, 64, 384, 40), IMF-2 beside the gated DMD-4 on the same weights: {json.dumps(rows)}")
+    print(f"  phase serve imf: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["serve_imf"] = dict(batch=[8, 64, 384, 40], int8_vs_bf16_rel_l2=w8_rel,
+                                  **{k: {m: v[m] for m in ("dispatch_ms_median", "wall_ms_median", "graph_span_ms")}
+                                     for k, v in rows.items()})
+
     # the port's HTTP server on the bf16 path, its contract warmed first; then its command line
     serve_http(torch, dev, entries)
     torch.cuda.empty_cache()
     serve_main(entries)
+    onnx_phases(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -813,7 +889,6 @@ def serve_http(torch, dev, entries):
     from smalltts_tpu_torch.data.bucketing import HOP_SIZE, frames_for_duration
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.serving.audio_io import encode_wav
-    from smalltts_tpu_torch.serving.batcher import Request, pad_group
     from smalltts_tpu_torch.serving.server import TTSServer
     from smalltts_tpu_torch.serving.x402 import X402Config
 
@@ -904,21 +979,12 @@ def serve_http(torch, dev, entries):
     print("  trust-mode server: an unpaid /synthesize answers 402 with a payment-required header", flush=True)
 
     # one padded batch (8, r 64, p 384, t 40): replay against the eager function on the same noise
-    _, waves_, ids = serve_requests()
-    group = [Request(tts.encode_reference(w), (tok * 4)[:200], 5.0) for w, tok in zip(waves_[:8], ids[:8])]
-    args = pad_group(group, 8)[:6]
-    check((args[0].shape[0], args[0].shape[1], args[2].shape[1], args[5]) == (8, 64, 384, 40),
-          f"padded batch {args[0].shape} {args[2].shape} t {args[5]}")
+    args = padded_batch(tts)
     g = torch.Generator(device=dev).manual_seed(3)
     noises = torch.randn((tts.num_steps, 8, 40, 64), generator=g, device=dev).to(tts.dtype)
 
     def eager(fetch=True, noises=None):
-        with torch.inference_mode():
-            out = tts._synthesize_fn(tts.params, tts.codec_params, tts._tensor(args[0], tts.dtype),
-                                     tts._tensor(args[1], torch.int32), tts._tensor(args[2], torch.int64),
-                                     tts._tensor(args[3], torch.int32), tts._tensor(args[4], torch.int32),
-                                     tts._noises(8, 40) if noises is None else noises, t_bucket=40)
-        return out if not fetch else out.cpu().numpy()
+        return eager_batch(tts, args, noises, fetch)
 
     def replayed(fetch=True, noises=None):
         return tts.synthesize_padded(*args, fetch=fetch, noises=noises)
@@ -1037,6 +1103,160 @@ def serve_main(entries, timeout_s=600):
             e["serve_main"] = dict(ready_s=ready_s, memory_used=mem, request_ms=req_ms)
 
 
+ONNX_CODEC_TOL = 1e-5  # fp32, TF32 off in both: the same convolutions, some sums in another order
+IMPORTED_TOL = 1e-4  # fp32 through 4 denoiser steps and the codec: op chains the exporter split differently
+
+
+def onnx_phases(torch, dev, entries):
+    """Phases onnx codec and imported, each printing its seconds.
+
+    onnx codec: the port's full-width native codec (default CodecConfig, fp32,
+    seed weights) wrapped with the VibeVoice contract (onnxtorch.export) and
+    exported by torch.onnx.export with dynamic batch and time axes; OnnxCodec
+    on the card against the native codec on the same latents and waveform
+    (max |diff| / max |native| <= ONNX_CODEC_TOL); then SmallTTS(codec=
+    OnnxCodec) on the seed-0 backbone, one padded batch through its CUDA
+    graph against the eager fn (bit for bit), and its graph timing beside
+    the native-codec pipeline's on the same batch.
+
+    imported: the seed-0 backbone in fp32, its condition encoder and cached
+    DiT step exported with the published positional contract (plain
+    versions of the kernels; the ten denoiser inputs all used, the RoPE from
+    the `rope` input) and the decoder above; ImportedSmallTTS on the card
+    with injected noise against the same recurrence over the torch modules
+    the graphs came from (max |diff| / max |want| <= IMPORTED_TOL)."""
+    import tempfile
+
+    import numpy as np
+
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, codec_encode, init_codec
+    from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, ConditionEncoder, Denoiser, export
+    from smalltts_tpu_torch.onnxtorch.interp import highest_precision
+    from smalltts_tpu_torch.onnxtorch.pipeline import ImportedSmallTTS, _rope_freqs
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.schedule import get_alpha_sigma
+
+    def rel(got, want):
+        return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+    t_phase = time.perf_counter()
+    print("phase onnx codec: the native codec (default CodecConfig, fp32, seed 1 weights, as SmallTTS(seed=0) "
+          "draws them) exported by torch.onnx.export, then OnnxCodec on the card", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {n: os.path.join(tmp, n + ".onnx") for n in ("encoder", "decoder", "condition_encoder", "denoiser")}
+        ccfg = CodecConfig()
+        g = torch.Generator(device=dev).manual_seed(1)
+        cp = init_codec(g, ccfg, device=dev)
+        hop = ccfg.hop
+        t0 = time.perf_counter()
+        with kernels.force_plain():
+            for name, module, example, axes in (
+                    ("encoder", CodecEncoder(cp, ccfg), torch.zeros((1, 1, 4 * hop), device=dev), {0: "b", 2: "t"}),
+                    ("decoder", CodecDecoder(cp, ccfg), torch.zeros((1, 4, 64), device=dev), {0: "b", 1: "t"})):
+                blob = export(module, (example,), dynamic_axes={"x": axes}, input_names=["x"])
+                with open(paths[name], "wb") as f:
+                    f.write(blob)
+        export_s = time.perf_counter() - t0
+        codec = OnnxCodec(paths["encoder"], paths["decoder"], device=dev)
+        print(f"  exported in {export_s:.2f} s with dynamic batch and time axes (example: 4 frames; run below at "
+              f"40 and 64): {os.path.getsize(paths['encoder'])} and {os.path.getsize(paths['decoder'])} bytes; "
+              f"{codec.describe()}", flush=True)
+        lat = torch.randn((8, 40, 64), generator=g, device=dev)
+        wav = 0.1 * torch.randn((1, 1, 64 * hop), generator=g, device=dev)
+        with torch.inference_mode():
+            dec_err = rel(codec.decode_fn(codec.params, lat), codec_decode(cp, lat, ccfg))
+            enc_err = rel(codec.encode_fn(codec.params, wav), codec_encode(cp, wav, ccfg))
+        print(f"  OnnxCodec vs the native codec: decode (8, 40, 64) {dec_err:.3e}, encode (1, 1, 64 x hop) "
+              f"{enc_err:.3e} (max |diff| / max |native|, tolerance {ONNX_CODEC_TOL})", flush=True)
+        check(dec_err <= ONNX_CODEC_TOL and enc_err <= ONNX_CODEC_TOL, f"OnnxCodec: {dec_err:.3e}, {enc_err:.3e}")
+        tts = full_width_tts(torch, dev, codec=codec)
+        check(tts.onnx_codec is codec, "SmallTTS did not take the OnnxCodec")
+        args = padded_batch(tts)
+        noises = torch.randn((tts.num_steps, 8, 40, 64), generator=g, device=dev).to(tts.dtype)
+        got, want = tts.synthesize_padded(*args, fetch=False, noises=noises), eager_batch(tts, args, noises)
+        torch.cuda.synchronize()
+        n_diff = int((got != want).sum())
+        print(f"  SmallTTS(codec=OnnxCodec) replay vs eager, batch (8, r 64, p 384, t 40), same noise: {n_diff} of "
+              f"{got.numel()} int16 samples differ", flush=True)
+        check(n_diff == 0 and int(want.abs().max()) > 0, f"ONNX-codec replay differs from eager on {n_diff} samples")
+        rows = {"onnx codec": graph_timing(torch, tts, args)}
+        del tts
+        native_tts = full_width_tts(torch, dev, codec="native")
+        native_out = native_tts.synthesize_padded(*args, fetch=False, noises=noises)
+        rows["native codec"] = graph_timing(torch, native_tts, args)
+        lsb = int((native_out.int() - got.int()).abs().max())
+        del native_tts
+        torch.cuda.empty_cache()
+        print(f"  the same batch through the ONNX and the native codec: max |diff| {lsb} LSB; "
+              f"{json.dumps(rows)}", flush=True)
+        print(f"  phase onnx codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+        t_phase = time.perf_counter()
+        print("phase imported: ImportedSmallTTS on the seed-0 backbone's condition encoder and cached DiT step "
+              "(fp32, exported with the published positional contract) and the decoder above", flush=True)
+        cfg = BackboneConfig()
+        gb = torch.Generator(device=dev).manual_seed(0)
+        bp = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
+        cond, den, dec = ConditionEncoder(bp, cfg), Denoiser(bp, cfg), CodecDecoder(cp, ccfg)
+        del bp
+        rs = np.random.RandomState(0)
+        R, P, dur = 64, 200, 5.0
+        S = int(dur * 24_000 / 3_200)
+        ref = rs.randn(R, 64).astype(np.float32)
+        tokens = rs.randint(1, 198, P).tolist()
+        mask_p = torch.ones((1, P), dtype=torch.bool, device=dev)
+        cargs = (torch.from_numpy(ref[None]).to(dev), torch.tensor([R], device=dev),
+                 torch.tensor([tokens], device=dev), mask_p)
+        rope = torch.from_numpy(_rope_freqs(S)).to(dev)
+        t0 = time.perf_counter()
+        with kernels.force_plain(), highest_precision():
+            with torch.no_grad():
+                kv = cond(*cargs)
+            for name, module, example in (("condition_encoder", cond, cargs), (
+                    "denoiser", den, (torch.zeros((1, S, 64), device=dev), torch.ones((1, S), dtype=torch.bool,
+                                      device=dev), torch.tensor([0.5], device=dev), *kv, mask_p, rope))):
+                with open(paths[name], "wb") as f:
+                    f.write(export(module, example))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imported = ImportedSmallTTS(paths["condition_encoder"], paths["denoiser"], paths["decoder"], device=dev)
+        load_s = time.perf_counter() - t0
+        n_in = len(imported.denoiser.input_names)
+        print(f"  exported in {export_s:.2f} s ({os.path.getsize(paths['condition_encoder'])} and "
+              f"{os.path.getsize(paths['denoiser'])} bytes; R {R}, P {P}, S {S} fixed by the tracer), loaded in "
+              f"{load_s:.2f} s; denoiser graph: {len(imported.denoiser.model.graph.nodes)} nodes, {n_in} inputs",
+              flush=True)
+        check(n_in == 10, f"the denoiser graph has {n_in} inputs, want the contract's 10")
+        noises = rs.randn(4, 1, S, 64).astype(np.float32)
+        t0 = time.perf_counter()
+        got = imported.synthesize(ref, tokens, dur, noises=noises)
+        synth_s = time.perf_counter() - t0
+        with kernels.force_plain(), highest_precision(), torch.inference_mode():
+            ts = torch.linspace(1.0, 0.0, 4, device=dev)
+            alphas, sigmas = get_alpha_sigma(ts)
+            x = torch.zeros((1, S, 64), device=dev)
+            mask = torch.ones((1, S), dtype=torch.bool, device=dev)
+            for i in range(4):
+                x_t = alphas[i] * x + sigmas[i] * torch.from_numpy(noises[i]).to(dev)
+                x = alphas[i] * x_t - sigmas[i] * den(x_t, mask, ts[i:i + 1], *kv, mask_p, rope)
+            want = dec(x)[0].cpu().numpy()
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        print(f"  ImportedSmallTTS vs the torch modules, same noise: waveform {got.shape}, max |diff| / max |want| "
+              f"{err:.3e} (tolerance {IMPORTED_TOL}); synthesize {synth_s:.2f} s", flush=True)
+        check(got.shape == (1, S * hop) and bool(np.isfinite(got).all()) and err <= IMPORTED_TOL,
+              f"imported: {got.shape}, {err:.3e}")
+        del cond, den, dec, imported
+        torch.cuda.empty_cache()
+        print(f"  phase imported: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["onnx"] = dict(codec_decode_rel=dec_err, codec_encode_rel=enc_err, imported_rel=err,
+                             **{k: {m: v[m] for m in ("dispatch_ms_median", "wall_ms_median", "graph_span_ms")}
+                                for k, v in rows.items()})
+
+
 PORT_KERNELS = ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel", "gemm_wgmma_kernel", W8_TC, W8_STREAM)
 
 
@@ -1127,15 +1347,74 @@ def serve_requests():
     return durations, waves, ids
 
 
-def full_width_tts(torch, dev, **opts):
+def full_width_tts(torch, dev, r_gate=False, **opts):
     """SmallTTS at full width (default BackboneConfig / CodecConfig, bf16) on
-    weights drawn from seed 0."""
+    weights drawn from seed 0; with `r_gate`, an IMF checkpoint of the same
+    weights: an r_gate leaf drawn next from N(0, 0.1)."""
     from smalltts_tpu_torch.infer.pipeline import SmallTTS
     from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
 
     gb = torch.Generator(device=dev).manual_seed(0)
     params = redraw_zero_init(init_backbone(gb, BackboneConfig(), device=dev), gb)
+    if r_gate:
+        params["r_gate"] = 0.1 * torch.randn((BackboneConfig().hidden_dim,), generator=gb, device=dev)
     return SmallTTS(params, pcm16_out=True, seed=0, **opts)
+
+
+def padded_batch(tts):
+    """The serve requests' first 8 references and phoneme ids (each repeated
+    to 200), at 5 s, padded as the batcher pads them: the bucket (8, r 64,
+    p 384, t 40). Returns synthesize_padded's positional arguments."""
+    from smalltts_tpu_torch.serving.batcher import Request, pad_group
+
+    _, waves, ids = serve_requests()
+    group = [Request(tts.encode_reference(w), (tok * 4)[:200], 5.0) for w, tok in zip(waves[:8], ids[:8])]
+    args = pad_group(group, 8)[:6]
+    check(bucket_key(args) == (8, 64, 384, 40), f"padded batch bucket {bucket_key(args)}")
+    return args
+
+
+def bucket_key(args):
+    """(batch, r, p, t) of synthesize_padded's positional arguments."""
+    return (len(args[4]), args[0].shape[1], args[2].shape[1], args[5])
+
+
+def eager_batch(tts, args, noises=None, fetch=False):
+    """The pipeline's eager synthesize fn (what its graphs capture) on one
+    padded batch, with `noises` or the pipeline's generator's."""
+    import torch
+
+    ref, ref_lens, ph, ph_lens, seq_lens, t_bucket = args
+    with torch.inference_mode():
+        out = tts._synthesize_fn(tts.params, tts.codec_params, tts._tensor(ref, tts.dtype),
+                                 tts._tensor(ref_lens, torch.int32), tts._tensor(ph, torch.int64),
+                                 tts._tensor(ph_lens, torch.int32), tts._tensor(seq_lens, torch.int32),
+                                 tts._noises(len(seq_lens), t_bucket) if noises is None else noises,
+                                 t_bucket=t_bucket)
+    return out.cpu().numpy() if fetch else out
+
+
+def graph_timing(torch, tts, args, n=5):
+    """One padded batch as its CUDA graph (captured here if new): host
+    dispatch and wall ms of `n` batches (batch_host_ms), and the graph alone
+    on the device clock, CUDA events around replay(), `n` times."""
+
+    def one_batch(fetch=True):
+        return tts.synthesize_padded(*args, fetch=fetch)
+
+    one_batch()
+    dispatch, walls = batch_host_ms(one_batch, n)
+    graph = tts._graphs[bucket_key(args)].graph
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spans = []
+    for _ in range(n):
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        spans.append(e0.elapsed_time(e1))
+    return dict(dispatch_ms=dispatch, wall_ms=walls, graph_spans_ms=spans, dispatch_ms_median=_median(dispatch),
+                wall_ms_median=_median(walls), graph_span_ms=_median(spans))
 
 
 def graph_launches(tts, replays0):

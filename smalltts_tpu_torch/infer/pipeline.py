@@ -1,9 +1,10 @@
 """SmallTTS: the user-facing inference pipeline (port of smalltts_tpu/infer/pipeline.py).
 
 `synthesize_padded` is the serving batcher's entry point: condition
-encoding, the 4-step DMD loop through the hand-written DiT and attention
-kernels, and the fp32 codec decode, on one device. Inputs snap to the same
-fixed-shape buckets as the JAX package (data.bucketing).
+encoding, the few-step sampler (DMD-4, or IMF-2 for an IMF checkpoint)
+through the hand-written DiT and attention kernels, and the fp32 codec
+decode (the native codec, or an imported ONNX one), on one device. Inputs
+snap to the same fixed-shape buckets as the JAX package (data.bucketing).
 
 On the card each bucket shape (batch, r, p, t) runs as one captured CUDA
 graph, the counterpart of the one XLA executable per bucket of the JAX
@@ -35,7 +36,7 @@ from smalltts_tpu_torch.data.bucketing import (
     pad_to,
     pick_bucket,
 )
-from smalltts_tpu_torch.infer.sampler import NUM_STEPS, _sample_loop, draw_noises, make_synthesize_fn
+from smalltts_tpu_torch.infer.sampler import NUM_STEPS, _latents, draw_noises, make_synthesize_fn, noise_draws
 from smalltts_tpu_torch.models.backbone import BackboneConfig, encode_conditions, init_backbone
 from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, codec_encode, init_codec
 from smalltts_tpu_torch.models.dit import (
@@ -45,7 +46,7 @@ from smalltts_tpu_torch.models.dit import (
 )
 from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.masking import length_mask
-from smalltts_tpu_torch.utils.transfer import to_device
+from smalltts_tpu_torch.utils.transfer import resolve_device, to_device
 
 CHARS_PER_SECOND = 11.5
 
@@ -80,15 +81,6 @@ class _Graph:
     replays: int = 0
 
 
-def resolve_device(device=None) -> torch.device:
-    """None means the card; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("SmallTTS runs on a CUDA card and none is available; "
-                           "pass device='cpu' to run on the CPU explicitly")
-    return dev
-
-
 def _cast_tree(tree, dtype, device):
     """Floating leaves -> `dtype` on `device`; others keep their dtype."""
     if isinstance(tree, dict):
@@ -100,12 +92,13 @@ def _cast_tree(tree, dtype, device):
 
 
 class SmallTTS:
-    """DMD 4-step inference (no CFG) on one device.
+    """Few-step inference (no CFG) on one device.
 
     Weights: the port's parameter trees (utils.convert.params_from_jax turns
     the JAX package's trees into them), `.npz` checkpoints of the JAX
     package, or nothing for a seeded random init at `cfg`'s size. Floating
-    backbone params are cast to bf16 on the card and fp32 on the CPU, and
+    backbone params are cast to `dtype` (default bf16 on the card, fp32 on
+    the CPU; the card's kernels take bf16 only), and
     the block projections are fused into the serving layout the DiT kernels
     read; the codec runs in fp32.
 
@@ -116,7 +109,20 @@ class SmallTTS:
       runs through the w8 kernel;
     - `w8_stream`: the scan's four weight streams (qkvg, to_out, w13, w2)
       are stored int8 (models.dit.quantize_stream_weights) and the scan's
-      GEMM kernel dequantizes them in shared memory."""
+      GEMM kernel dequantizes them in shared memory.
+
+    `sampler`, as in the JAX package: "dmd" (the 4-step fresh-noise loop;
+    on an IMF checkpoint each step evaluates u(x, t, t) with the
+    (1 + r_gate) embedding), "imf" (the integral-velocity student,
+    train/imf.imf_sample; the checkpoint must carry r_gate) or "auto":
+    "imf" when the params carry r_gate, else "dmd". `num_steps` defaults to
+    2 for "imf" and 4 for "dmd"; an explicit value is always honoured.
+
+    `codec`, as in the JAX package: "native" (models/codec.py), "onnx" or
+    an onnxtorch.codec.OnnxCodec (the imported VibeVoice codec of
+    $SMALLTTS_ASSETS/codec/*.onnx, fp32 with TF32 off), or "auto": "onnx"
+    when those assets are present and no native codec weights were passed,
+    else "native"."""
 
     def __init__(
         self,
@@ -130,14 +136,15 @@ class SmallTTS:
         num_steps: Optional[int] = None,
         seed: int = 0,
         sampler: str = "auto",
+        codec="auto",
+        dtype=None,
         pcm16_out: bool = False,
         w8_modulation: bool = False,
         w8_stream: bool = False,
         device=None,
     ) -> None:
         self.device = resolve_device(device)
-        if sampler not in ("auto", "dmd"):
-            raise ValueError(f"sampler {sampler!r} is not ported; use 'dmd' or 'auto'")
+        from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec, assets_present
         from smalltts_tpu_torch.utils import checkpoint as ckpt
         from smalltts_tpu_torch.utils.config_io import backbone_config_from_meta, codec_config_from_meta
         from smalltts_tpu_torch.utils.convert import params_from_jax
@@ -148,12 +155,27 @@ class SmallTTS:
             codec_cfg = codec_config_from_meta(ckpt.load_meta(codec_checkpoint))
         self.cfg = cfg or BackboneConfig()
         self.codec_cfg = codec_cfg or CodecConfig()
-        # the card's kernels take bf16 only; the CPU runs fp32, as the tests compare it
-        self.dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        # the card's kernels take bf16 only; the CPU runs fp32 unless `dtype` says otherwise
+        if dtype is None:
+            dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        self.dtype = dtype
 
         if backbone_params is None and checkpoint:
             backbone_params = params_from_jax(ckpt.load_pytree(checkpoint), self.cfg)
-        if codec_params is None and codec_checkpoint:
+        # the codec backend, chosen as the JAX package chooses it
+        self.onnx_codec = None
+        if isinstance(codec, OnnxCodec):
+            self.onnx_codec = codec
+        elif codec == "onnx":
+            self.onnx_codec = OnnxCodec(device=self.device)
+        elif codec == "auto":
+            if codec_params is None and codec_checkpoint is None and assets_present():
+                self.onnx_codec = OnnxCodec(device=self.device)
+        elif codec != "native":
+            raise ValueError(f"codec must be 'native'/'onnx'/'auto'/OnnxCodec, got {codec!r}")
+        if self.onnx_codec is not None:
+            codec_params = self.onnx_codec.params
+        elif codec_params is None and codec_checkpoint:
             codec_params = params_from_jax(ckpt.load_pytree(codec_checkpoint), self.codec_cfg)
         if backbone_params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -162,8 +184,10 @@ class SmallTTS:
             gen = torch.Generator(device=self.device).manual_seed(seed + 1)
             codec_params = init_codec(gen, self.codec_cfg, device=self.device)
         params = _cast_tree(backbone_params, self.dtype, self.device)
-        if "r_gate" in params:
-            raise ValueError("IMF checkpoints need the imf sampler, which is not ported")
+        if sampler == "auto":
+            sampler = "imf" if "r_gate" in params else "dmd"
+        if sampler == "imf" and "r_gate" not in params:
+            raise ValueError("sampler='imf' needs an IMF checkpoint: the params carry no r_gate leaf")
         params = fuse_serving_projections(params)
         if w8_modulation:
             params = quantize_modulations(params)
@@ -171,11 +195,14 @@ class SmallTTS:
             params = quantize_stream_weights(params)
         self.params = params
         self.codec_params = _cast_tree(codec_params, torch.float32, self.device)
-        self.num_steps = NUM_STEPS if num_steps is None else num_steps
-        self.sampler = "dmd"
+        if num_steps is None:
+            num_steps = 2 if sampler == "imf" else NUM_STEPS
+        self.sampler = sampler
+        self.num_steps = num_steps
         self.pcm16_out = pcm16_out
-        self._synthesize_fn = make_synthesize_fn(self.cfg, self.codec_cfg, self.num_steps,
-                                                 pcm16=pcm16_out)
+        self._synthesize_fn = make_synthesize_fn(
+            self.cfg, self.codec_cfg, self.num_steps, sampler=sampler, pcm16=pcm16_out,
+            decode_fn=None if self.onnx_codec is None else self.onnx_codec.decode_fn)
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 2)
         self._gen_lock = threading.Lock()
         # (batch, r, p, t) -> _Graph on the card; the shapes run on the CPU
@@ -188,11 +215,21 @@ class SmallTTS:
 
     # ------------------------------------------------------------- helpers
 
+    def _encode(self, audio: torch.Tensor) -> torch.Tensor:
+        if self.onnx_codec is not None:
+            return self.onnx_codec.encode_fn(self.codec_params, audio)
+        return codec_encode(self.codec_params, audio, self.codec_cfg)
+
+    def _decode(self, latents: torch.Tensor) -> torch.Tensor:
+        if self.onnx_codec is not None:
+            return self.onnx_codec.decode_fn(self.codec_params, latents)
+        return codec_decode(self.codec_params, latents, self.codec_cfg)
+
     def _noises(self, batch: int, t_bucket: int) -> torch.Tensor:
         # concurrent callers must each get fresh noise: one locked generator
         with self._gen_lock:
             return draw_noises(self.num_steps, batch, t_bucket, self.cfg.latent_dim, self.dtype,
-                               self.device, self._gen)
+                               self.device, self._gen, self.sampler)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -208,7 +245,8 @@ class SmallTTS:
     def encode_reference(self, audio_24k: np.ndarray) -> np.ndarray:
         """Mono 24 kHz waveform (T,) -> reference latents (T', 64). The
         waveform pads to a serving ref bucket's worth of samples and is cut
-        beyond the largest bucket."""
+        beyond the largest bucket. The ONNX encoder encodes it when the
+        pipeline has one."""
         t = len(audio_24k)
         frames = max(-(-t // HOP_SIZE), 1)
         bucket = pick_bucket(frames, SERVING_REF_BUCKETS)
@@ -217,7 +255,7 @@ class SmallTTS:
         n = min(t, bucket * HOP_SIZE)
         audio[0, 0, :n] = audio_24k[:n]
         with torch.inference_mode():
-            lat = codec_encode(self.codec_params, self._tensor(audio, torch.float32), self.codec_cfg)
+            lat = self._encode(self._tensor(audio, torch.float32))
             return lat[0, :frames].cpu().numpy()
 
     def synthesize_padded(self, ref_latents, ref_lengths, phonemes, phoneme_lengths, seq_lengths,
@@ -226,8 +264,9 @@ class SmallTTS:
         (float32; int16 when built with pcm16_out=True). On the card the
         bucket shape runs as its CUDA graph, captured on first use.
         `fetch=False` returns the device tensor without waiting for the
-        device. `noises` (steps, B, t_bucket, 64), an array or a tensor,
-        replaces the generator's noise."""
+        device. `noises` (draws, B, t_bucket, 64), an array or a tensor,
+        replaces the generator's noise: one draw a step for "dmd", the start
+        noise alone for "imf" (sampler.noise_draws)."""
         b = len(seq_lengths)
         with torch.inference_mode():
             inputs = (self._tensor(ref_latents, self.dtype), self._tensor(ref_lengths, torch.int32),
@@ -277,8 +316,8 @@ class SmallTTS:
         thread's CUDA calls, so the batcher's fetch thread may copy a result
         to the host meanwhile. A failed capture raises."""
         static = tuple(x.clone() for x in inputs)
-        noises = torch.zeros((self.num_steps, key[0], key[3], self.cfg.latent_dim), dtype=self.dtype,
-                             device=self.device)
+        noises = torch.zeros((noise_draws(self.sampler, self.num_steps), key[0], key[3], self.cfg.latent_dim),
+                             dtype=self.dtype, device=self.device)
 
         def run():
             return self._synthesize_fn(self.params, self.codec_params, *static, noises, t_bucket=key[3])
@@ -390,12 +429,12 @@ class SmallTTS:
             self._sync()
             t2 = time.perf_counter()
             timing.cond_enc_ms = (t2 - t1) * 1e3
-            latents = _sample_loop(self.params, self.cfg, cond, self._tensor([seq_len], torch.int32),
-                                   t_bucket, self.num_steps, self._noises(1, t_bucket))
+            latents = _latents(self.params, self.cfg, cond, self._tensor([seq_len], torch.int32), t_bucket,
+                               self.num_steps, self._noises(1, t_bucket), self.sampler)
             self._sync()
             t3 = time.perf_counter()
             timing.denoise_ms = (t3 - t2) * 1e3
-            audio = codec_decode(self.codec_params, latents.float(), self.codec_cfg)
+            audio = self._decode(latents.float())
             audio = audio.cpu().numpy()[0, :, : seq_len * HOP_SIZE]
         t4 = time.perf_counter()
         timing.codec_dec_ms = (t4 - t3) * 1e3

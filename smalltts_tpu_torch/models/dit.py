@@ -251,13 +251,14 @@ def rope_cos_sin(cfg: DiTConfig, seq_len: int, device) -> Tuple[torch.Tensor, to
 
 
 def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cross_v, cross_mask,
-                       step_mods=None):
+                       step_mods=None, rope=None):
     """Denoise-step forward over the precomputed cross K/V (dit.py:515-578).
 
     cross_k/v (L, B, heads, Sc, D) hold the [ref | text] keys concatenated
     once per utterance, cross_mask (B, Sc) their mask. `step_mods` =
     (mods (L, 6H), final (2H)) from precompute_step_modulations; without it
-    the modulations are computed from `time_embedding` (B, H)."""
+    the modulations are computed from `time_embedding` (B, H). `rope`, the
+    (cos, sin) tables (T, rot_dim), defaults to rope_cos_sin's."""
     b = x.shape[0]
     x = _input_embed(p["input_embed"], cfg, x, mask)
     if step_mods is None:
@@ -268,7 +269,7 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
         mods_i, final_i = step_mods
         mods = mods_i[:, None, :].expand(mods_i.shape[0], b, mods_i.shape[-1])
         final = final_i[None, :].expand(b, final_i.shape[-1])
-    cos, sin = rope_cos_sin(cfg, x.shape[1], x.device)
+    cos, sin = rope_cos_sin(cfg, x.shape[1], x.device) if rope is None else rope
     x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, p["blocks"], cos, sin,
                        heads=cfg.heads, head_dim=cfg.head_dim)
     return _adaln_final_from_mod(final, x)

@@ -93,9 +93,9 @@ def qk_norm_rope_plain(qkvg, q_scale, k_scale, cos, sin, eps=1e-6):
     B, T, _ = qkvg.shape
     heads, D = q_scale.shape
     rot = cos.shape[-1]
+    segs = []
     for i, scl in enumerate((q_scale, k_scale)):
-        seg = qkvg[..., i * heads * D:(i + 1) * heads * D].reshape(B, T, heads, D)
-        xf = seg.float()
+        xf = qkvg[..., i * heads * D:(i + 1) * heads * D].reshape(B, T, heads, D).float()
         inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
         y = (xf * inv * scl.float()).to(qkvg.dtype)
         yr = y[..., :rot].float()
@@ -103,7 +103,10 @@ def qk_norm_rope_plain(qkvg, q_scale, k_scale, cos, sin, eps=1e-6):
         swapped = torch.stack([-pairs[..., 1], pairs[..., 0]], dim=-1).reshape(yr.shape)
         c, s = cos[None, :, None, :], sin[None, :, None, :]
         y = torch.cat([(yr * c + swapped * s).to(qkvg.dtype), y[..., rot:]], dim=-1)
-        seg.copy_(y)
+        segs.append(y.reshape(B, T, heads * D))
+    # one write of the whole tensor, not of views of it: torch.onnx.export's
+    # tracer follows an in-place copy into a tensor, not into its views
+    qkvg.copy_(torch.cat(segs + [qkvg[..., 2 * heads * D:]], dim=-1))
     return qkvg
 
 
@@ -261,23 +264,25 @@ def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, hea
     h = adaln_modulate(x, shift_msa, scale_msa)
     w, s = _weight(attn["qkvg"])
     qkvg = gemm_bias(h, w, attn["qkvg"]["b"], w_scale=s)
-    qk_norm_rope(qkvg, attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin)
+    # each in-place op's result is read from its return value, the same
+    # tensor: the ONNX exporter's tracer follows writes only that way
+    qkvg = qk_norm_rope(qkvg, attn["q_norm"]["scale"], attn["k_norm"]["scale"], cos, sin)
 
     def heads_view(i):  # (B, heads, T, D) view of column block i of qkvg
         return qkvg[..., i * inner:(i + 1) * inner].unflatten(-1, (heads, head_dim)).transpose(1, 2)
 
     att = torch.empty((B, T, inner), device=x.device, dtype=x.dtype)
-    fused_attention(heads_view(0), heads_view(1), heads_view(2), mask,
-                    cross_k, cross_v, cross_mask, gate=heads_view(3),
-                    out=att.unflatten(-1, (heads, head_dim)).transpose(1, 2))
+    att = fused_attention(heads_view(0), heads_view(1), heads_view(2), mask,
+                          cross_k, cross_v, cross_mask, gate=heads_view(3),
+                          out=att.unflatten(-1, (heads, head_dim)).transpose(1, 2))
+    att = att.transpose(1, 2).reshape(B, T, inner)  # a view of the (B, T, inner) buffer
     w, s = _weight(attn["to_out"])
-    gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s)
+    x = gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s)
     h = adaln_modulate(x, shift_mlp, scale_mlp)
     w, s = _weight(ff["w13"])
     mid = gemm_swiglu(h, w, ff["w13"]["b"], w_scale=s)
     w, s = _weight(ff["w2"])
-    gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s)
-    return x
+    return gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s)
 
 
 def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin, *,
@@ -295,6 +300,6 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     used = {"attn": {k: blocks["attn"][k] for k in ("qkvg", "to_out", "q_norm", "k_norm")},
             "ff": {k: blocks["ff"][k] for k in ("w13", "w2")}}
     for l in range(L):
-        block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
-                    heads, head_dim)
+        x = block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
+                        heads, head_dim)
     return x

@@ -6,14 +6,13 @@ rubato SincFixedIn resample -> 24 kHz; hound 16-bit PCM writer with clamp)
 and the Python HQ resampler (src/smalltts/infer/utils.py:7-23 — sinc-kaiser,
 width 1024, rolloff 0.94, beta 14.7697).
 
+A native C++ implementation (smalltts_tpu_torch/native) is used when built;
+this module is the pure numpy/scipy reference implementation and fallback.
 WAV covers PCM 16/24/32-bit + float32, the formats the serving contract
 accepts.
 
 The PyTorch port's own copy of smalltts_tpu/serving/audio_io.py, with its
-imports pointing at smalltts_tpu_torch. One departure: the JAX package's
-`backend()` picks its native C++ audio library (smalltts_tpu/native) when
-that is built; the port has no copy of that library, so `backend()` is
-always this numpy module.
+imports pointing at smalltts_tpu_torch.
 """
 
 from __future__ import annotations
@@ -51,9 +50,13 @@ def check_resample_input(n_samples: int, sr_in: int) -> None:
 
 
 def backend():
-    """The audio backend every consumer (the server among them) routes
-    through, so the same wav always decodes via the same code path: this
-    module."""
+    """The one chooser between the native C++ audio library and this
+    module: every consumer (the server among them) routes through here, so
+    the same wav always decodes via the same code path."""
+    from smalltts_tpu_torch import native
+
+    if native.lib() is not None:
+        return native
     import smalltts_tpu_torch.serving.audio_io as audio_io
 
     return audio_io

@@ -1,4 +1,5 @@
-"""Host-to-device copies that do not wait for the device."""
+"""The device an entry point runs on, and host-to-device copies that do not
+wait for the device."""
 
 from __future__ import annotations
 
@@ -17,3 +18,12 @@ def to_device(a, device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def resolve_device(device=None) -> torch.device:
+    """None means the card; a CUDA device without a card raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("SmallTTS runs on a CUDA card and none is available; "
+                           "pass device='cpu' to run on the CPU explicitly")
+    return dev

@@ -12,6 +12,13 @@ card. On a card machine, which has no JAX:
 - A first-use capture runs while another thread copies results to the host.
 - The launch counts taken while a full-width batch of 8 is captured are the
   scan's 384 (4 steps x 12 layers x 8 launches) and each replay adds them.
+- An IMF checkpoint (r_gate drawn from N(0, 0.1)) serves through IMF-2: its
+  full-width graph replays equal to eager, bit for bit, with 192 scan
+  launches a batch of 8 (2 steps x 12 layers x 8).
+- A SmallTTS with the ONNX codec (the port's codec exported, then
+  interpreted): its graph replays equal to eager, bit for bit, and the
+  interpreted decoder equals the native codec within 1e-5 of the largest
+  sample (fp32, TF32 off).
 """
 
 import threading
@@ -75,8 +82,11 @@ def eager(tts, args, noises):
 
 
 def noise(tts, args, seed):
+    from smalltts_tpu_torch.infer.sampler import noise_draws
+
     g = torch.Generator(device=tts.device).manual_seed(seed)
-    return torch.randn((tts.num_steps, len(args[4]), args[5], 64), generator=g, device=tts.device).to(tts.dtype)
+    return torch.randn((noise_draws(tts.sampler, tts.num_steps), len(args[4]), args[5], 64), generator=g,
+                       device=tts.device).to(tts.dtype)
 
 
 @pytest.mark.parametrize("width", ["small", "full"])
@@ -157,3 +167,66 @@ def test_capture_counts_384_scan_launches_a_batch_of_8(dev, full_tts):
     tts.synthesize_padded(*args)
     assert g.replays == r0 + 2
     assert {k: kernels.LAUNCHES.get(k, 0) for k in want} == {k: 2 * v for k, v in want.items()}
+
+
+@pytest.fixture(scope="module")
+def imf_tts(dev):
+    """Full width, bf16, seed-0 weights with an r_gate from N(0, 0.1)."""
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = redraw_zero_init(init_backbone(g, BackboneConfig(), device=dev), g)
+    params["r_gate"] = 0.1 * torch.randn((BackboneConfig().hidden_dim,), generator=g, device=dev)
+    return SmallTTS(params, pcm16_out=True, seed=0)
+
+
+def test_imf_replay_equals_eager_with_192_scan_launches(dev, imf_tts):
+    tts = imf_tts
+    assert (tts.sampler, tts.num_steps) == ("imf", 2)
+    args = batch(8, 64, 384, 40, seed=10)
+    n = noise(tts, args, 11)
+    assert n.shape == (1, 8, 40, 64)
+    got = tts.synthesize_padded(*args, fetch=False, noises=n)
+    want = eager(tts, args, n)
+    torch.cuda.synchronize()
+    assert int(want.abs().max()) > 0 and torch.equal(got, want)
+    g = tts._graphs[(8, 64, 384, 40)]
+    per = tts.num_steps * tts.cfg.dit.n_blocks
+    counts = {"adaln_modulate": 2 * per, "qk_norm_rope": per, "gemm_bias": per, "gemm_swiglu": per,
+              "gemm_residual": 2 * per}
+    assert {k: g.launches.get(k, 0) for k in counts} == counts
+    assert sum(counts.values()) + g.launches["qk_norm_rope"] == 192
+
+
+def test_onnx_codec_replay_equals_eager(dev, tmp_path):
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.models.codec import codec_decode, init_codec
+    from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, export
+
+    base = small_tts(dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cp = init_codec(g, base.codec_cfg, device=dev)
+    hop = base.codec_cfg.hop
+    with kernels.force_plain():
+        (tmp_path / "encoder.onnx").write_bytes(export(CodecEncoder(cp, base.codec_cfg), (torch.zeros((1, 1, 4 * hop),
+                                                device=dev),), dynamic_axes={"audio": {0: "b", 2: "t"}},
+                                                input_names=["audio"]))
+        (tmp_path / "decoder.onnx").write_bytes(export(CodecDecoder(cp, base.codec_cfg), (torch.zeros((1, 4, 64),
+                                                device=dev),), dynamic_axes={"latents": {0: "b", 1: "t"}},
+                                                input_names=["latents"]))
+    codec = OnnxCodec(str(tmp_path / "encoder.onnx"), str(tmp_path / "decoder.onnx"))
+    lat = torch.randn((2, 16, 64), generator=g, device=dev)
+    got, want = codec.decode_fn(codec.params, lat), codec_decode(cp, lat, base.codec_cfg)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    tts = SmallTTS(base.params, cfg=base.cfg, codec_cfg=base.codec_cfg, codec=codec, pcm16_out=True)
+    assert tts.onnx_codec is codec
+    args = batch(2, 64, 128, 16, seed=12)
+    n = noise(tts, args, 13)
+    out = tts.synthesize_padded(*args, fetch=False, noises=n)
+    again = tts.synthesize_padded(*args, fetch=False, noises=n)
+    ref = eager(tts, args, n)
+    torch.cuda.synchronize()
+    assert tts.compile_cache_size() == 1 and int(ref.abs().max()) > 0
+    assert torch.equal(out, ref) and torch.equal(again, ref)

@@ -33,7 +33,7 @@ def test_every_module_imports_without_jax():
 
 @pytest.mark.parametrize("pattern", [r"\bjax\b", r"\bsmalltts_tpu\."])
 def test_no_source_names_jax_or_the_jax_package(pattern):
-    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith((".py", ".cu"))]
+    files = [os.path.join(d, f) for d, _, fs in os.walk(PKG) for f in fs if f.endswith((".py", ".cu", ".cuh", ".cc"))]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
     hits = [f"{os.path.relpath(f, ROOT)}:{i}" for f in files
             for i, line in enumerate(open(f, encoding="utf-8"), 1) if re.search(pattern, line)]
@@ -80,7 +80,11 @@ NEW_HOST_MODULES = ["smalltts_tpu_torch.text", "smalltts_tpu_torch.text.numbers"
                     "smalltts_tpu_torch.text.phonemize", "smalltts_tpu_torch.serving.multipart",
                     "smalltts_tpu_torch.serving.audio_io", "smalltts_tpu_torch.serving.eth",
                     "smalltts_tpu_torch.serving.x402", "smalltts_tpu_torch.infer.long_form",
-                    "smalltts_tpu_torch.serving.server", "smalltts_tpu_torch.infer.pipeline"]
+                    "smalltts_tpu_torch.serving.server", "smalltts_tpu_torch.infer.pipeline",
+                    "smalltts_tpu_torch.native", "smalltts_tpu_torch.onnxtorch", "smalltts_tpu_torch.onnxtorch.proto",
+                    "smalltts_tpu_torch.onnxtorch.interp", "smalltts_tpu_torch.onnxtorch.codec",
+                    "smalltts_tpu_torch.onnxtorch.pipeline", "smalltts_tpu_torch.utils.onnx_import",
+                    "smalltts_tpu_torch.train.imf"]
 
 # a CPU TTSServer answering one /synthesize through a tiny pipeline, the
 # text frontend and the Batcher, with neither JAX nor the JAX package blocked
@@ -116,11 +120,15 @@ def _loaded(names):
 
 
 def test_new_host_modules_and_a_cpu_server_request_load_no_jax():
-    """Importing each module of the text frontend, the HTTP server and long
-    form, and then serving one CPU request, loads neither JAX nor the JAX
-    package (nothing is blocked here: a fallback import would show)."""
+    """Importing each module of the text frontend, the HTTP server, long
+    form, the native audio library, the ONNX import path and the IMF
+    sampler, building the native library, and then serving one CPU request,
+    loads neither JAX nor the JAX package (nothing is blocked here: a
+    fallback import would show)."""
     code = "import importlib, sys\n" + "".join(f"importlib.import_module({m!r})\n" + _loaded(m)
                                               for m in NEW_HOST_MODULES)
+    code += ("from smalltts_tpu_torch import native\nfrom smalltts_tpu_torch.serving import audio_io\n"
+             "assert native.lib() is not None and audio_io.backend() is native\n" + _loaded("after the native build"))
     code += SERVE + _loaded("after a CPU TTSServer request")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -372,6 +372,54 @@ def test_synthesize_padded_queues_a_batch_without_a_sync(dev):
     assert int(out.abs().max()) > 0
 
 
+@pytest.mark.parametrize("sampler", ["imf", "dmd"])
+def test_imf_checkpoint_latents_kernels_vs_plain(dev, sampler):
+    """An IMF checkpoint (r_gate from N(0, 0.1)) at small widths that the
+    kernels take: IMF-2 and the gated DMD-4 with the kernels against the
+    same batch with the plain versions forced, on the same noise (rel-L2
+    5e-2, the serve phases' bound for bf16 latents through every step), and
+    an IMF batch queues without a synchronizing call."""
+    import numpy as np
+
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.infer.sampler import noise_draws, sample_latents
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.codec import CodecConfig
+    from smalltts_tpu_torch.models.dit import DiTConfig
+    from smalltts_tpu_torch.models.encoder import EncoderConfig
+
+    enc = EncoderConfig(model_size=128, num_layers=2, num_heads=2, intermediate_size=256, norm_eps=1e-6)
+    cfg = BackboneConfig(hidden_dim=240, phoneme_dim=128, text=enc, style=enc,
+                         dit=DiTConfig(phoneme_dim=128, hidden_dim=240, n_blocks=2, heads=2))
+    g = gen(dev, 14)
+    params = redraw_zero_init(init_backbone(g, cfg, device=dev), g)
+    params["r_gate"] = 0.1 * torch.randn((240,), generator=g, device=dev)
+    tts = SmallTTS(params, cfg=cfg, codec_cfg=CodecConfig(channels=(16, 16, 16, 8, 8, 4)), pcm16_out=True,
+                   sampler="auto" if sampler == "imf" else sampler)
+    assert tts.sampler == sampler and tts.num_steps == (2 if sampler == "imf" else 4)
+    rs = np.random.RandomState(1)
+    T_ = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    args = (tts.params, cfg, T_(rs.randn(2, 64, 64), tts.dtype), T_([64, 30], torch.int32),
+            T_(rs.randint(1, 198, (2, 128)), torch.int64), T_([128, 40], torch.int32), T_([16, 9], torch.int32))
+    noises = torch.randn((noise_draws(sampler, tts.num_steps), 2, 16, 64), generator=g, device=dev).to(tts.dtype)
+    with torch.inference_mode():
+        lat_k = sample_latents(*args, num_steps=tts.num_steps, noises=noises, sampler=sampler)
+        with kernels.force_plain():
+            lat_p = sample_latents(*args, num_steps=tts.num_steps, noises=noises, sampler=sampler)
+    rel_l2 = float((lat_k.float() - lat_p.float()).norm() / lat_p.float().norm())
+    assert bool(torch.isfinite(lat_k).all()) and rel_l2 <= 5e-2
+    b = (rs.randn(2, 64, 64).astype(np.float32), np.array([64, 30]), rs.randint(1, 198, (2, 128)),
+         np.array([128, 40]), np.array([16, 9]), 16)
+    tts.synthesize_padded(*b)  # captures the bucket's graph
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tts.synthesize_padded(*b, fetch=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.dtype == torch.int16 and int(out.abs().max()) > 0
+
+
 # the DiT's four products: K, W's width, epilogue
 PRODUCTS = {"qkvg": (960, 3840, "bias"), "to_out": (960, 960, "resid_masked"), "w13": (960, 4800, "swiglu"),
             "w2": (2400, 960, "resid")}

@@ -28,7 +28,6 @@ import pytest
 import torch
 
 from smalltts_tpu.infer.pipeline import SmallTTS as JSmallTTS
-from smalltts_tpu.serving import audio_io as j_audio_io
 from smalltts_tpu.serving.server import TTSServer as JServer
 from smalltts_tpu.serving.x402 import X402Config as JX402Config
 from smalltts_tpu.text import phonemize as j_phonemize
@@ -87,13 +86,11 @@ class StubTTS:
 
 def both(mode="disabled", **kw):
     """(port server, JAX server), each around its own stub, one tokenizer.
-    The JAX server decodes audio with its numpy module, as the port does:
-    the JAX package's native C++ audio library, which it takes where it is
-    built, words its decode errors otherwise and is not ported."""
+    Each decodes audio with its own audio_io.backend(): the native C++
+    library in both, where it builds."""
     tok = kw.pop("tokenizer", lambda text: [1 + (ord(c) % 90) for c in text][:300])
-    jserver = JServer(tts=StubTTS(), x402_cfg=JX402Config(mode=mode), tokenizer=tok, **kw)
-    jserver.audio = j_audio_io
-    return TTSServer(tts=StubTTS(), x402_cfg=X402Config(mode=mode), tokenizer=tok, **kw), jserver
+    return (TTSServer(tts=StubTTS(), x402_cfg=X402Config(mode=mode), tokenizer=tok, **kw),
+            JServer(tts=StubTTS(), x402_cfg=JX402Config(mode=mode), tokenizer=tok, **kw))
 
 
 def same(servers, method, path, query=None, headers=None, body=b""):
