@@ -56,6 +56,10 @@
    against the native codec, SmallTTS(codec=OnnxCodec) through its CUDA
    graph, and ImportedSmallTTS on the backbone's exported condition
    encoder and denoiser against the torch modules.
+   Then phases train teacher and teacher sampler (see `train_phases`): the
+   port's train_teacher at full width, 5 steps at batch 2 in fp32 with one
+   save and 5 at batch 16 in bf16, and the many-step CFG sampler, 32 steps
+   at batch 2 in bf16.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -862,6 +866,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_main(entries)
     onnx_phases(torch, dev, entries)
+    torch.cuda.empty_cache()
+    train_phases(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -1258,6 +1264,300 @@ def onnx_phases(torch, dev, entries):
 
 
 PORT_KERNELS = ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel", "gemm_wgmma_kernel", W8_TC, W8_STREAM)
+
+
+def train_phases(torch, dev, entries):
+    """Phase train teacher: the full-width teacher step (default
+    BackboneConfig, 328M) through the port's own entry points.
+
+    - Kernels against plain: teacher_loss and its gradients on seed-0
+      weights (zero-init leaves re-drawn) and a dummy batch, with the
+      kernels and with kernels.force_plain(), fp32 at batch 2 and bf16 at
+      batch 16: loss within 1e-5 relative (bf16 1e-2), each module's
+      gradient within 1e-4 rel-L2 (bf16 5e-2); the bf16 backward must run
+      through matmul_f32's autograd Function.
+    - train_teacher on the dummy loader, seed 0: 5 steps at batch 2 in fp32
+      with one save (the last step, into a temporary directory that is
+      removed), then 5 steps at batch 16 in bf16. Counters reset before
+      each: exactly 32 attention launches a step (8 text, 12 style, 12 DiT
+      layers; the backward is PyTorch ops) and no other kernel. The loss
+      finite, params changed from their init, EMA equal to params bit for
+      bit (decay 0 through step 101), the saved EMA and params reloading
+      equal. Median step ms over steps 2-5, latent frames a second (batch x
+      256 padded frames a step), peak max_memory_allocated; then one more
+      step profiled (step_profile: host dispatch, synchronizing calls,
+      wall, device busy, idle share, top kernels).
+    - The attention kernel's forward and the PyTorch backward
+      (attention_backward) at the step's three shapes, beside
+      scaled_dot_product_attention's forward and backward: device time per
+      call, every kernel of the call summed (timed).
+
+    Phase teacher sampler: make_teacher_sampler, 32 steps at batch 2 in
+    bf16 on the seed-0 weights (zero-init leaves re-drawn), 3x CFG batch,
+    t 256, ref 64, phonemes 198: latents against force_plain (5e-2 rel-L2),
+    exact launch counts (the scan's 8 a layer, 32 steps x 12 layers; 20
+    encoder attentions and one a layer a step), wall ms."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.infer.teacher_sampler import make_teacher_sampler
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels import attention as A
+    from smalltts_tpu_torch.ops.precision import cast_floats
+    from smalltts_tpu_torch.train.optim import teacher_optimizer
+    from smalltts_tpu_torch.train.teacher import (TeacherTrainConfig, make_teacher_step, teacher_draws, teacher_loss,
+                                                  train_teacher)
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.config_io import backbone_config_from_meta
+    from smalltts_tpu_torch.utils.convert import params_from_jax
+
+    cfg = BackboneConfig()
+    attn = next(e for e in entries if e["name"] == "attention")
+    t_phase = time.perf_counter()
+    print("phase train teacher: train_teacher, default BackboneConfig (328M), seed 0, dummy loader; "
+          "kernels vs plain first", flush=True)
+
+    def batch_of(b, seed=0):
+        return {k: torch.as_tensor(v, device=dev) for k, v in
+                dummy_batch(np.random.default_rng(seed), DummyDataConfig(batch_size=b)).items() if k != "texts"}
+
+    def node_names(root):
+        seen, stack, names = set(), [root], {}
+        while stack:
+            fn = stack.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            names[type(fn).__name__] = names.get(type(fn).__name__, 0) + 1
+            stack.extend(f for f, _ in fn.next_functions)
+        return names
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    leaves = ckpt.flatten_pytree(redraw_zero_init(init_backbone(gen, cfg, device=dev), gen))
+    for dtype, b, tol_loss, tol_g in (("float32", 2, 1e-5, 1e-4), ("bfloat16", 16, 1e-2, 5e-2)):
+        batch = batch_of(b)
+        draws = teacher_draws(torch.Generator(device=dev).manual_seed(1), batch)
+        res = []
+        for plain in (False, True):
+            req = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
+            with kernels.force_plain() if plain else torch.enable_grad():
+                loss = teacher_loss(ckpt.unflatten_pytree(req), cfg, batch, draws,
+                                    TeacherTrainConfig(compute_dtype=dtype))
+                nodes = node_names(loss.grad_fn)
+                grads = torch.autograd.grad(loss, list(req.values()))
+            res.append((float(loss.detach()), dict(zip(req, grads)), nodes))
+            del req, loss, grads
+        (loss_k, g_k, nodes), (loss_p, g_p, _) = res
+        sums = {}
+        for n, g in g_k.items():
+            m = "/".join(n.split("/")[:2])
+            a, c = sums.get(m, (0.0, 0.0))
+            sums[m] = (a + float((g - g_p[n]).norm()) ** 2, c + float(g_p[n].norm()) ** 2)
+        errs = {m: (a / max(c, 1e-60)) ** 0.5 for m, (a, c) in sums.items()}
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        print(f"  {dtype} batch {b}: loss {loss_k:.6f} (plain {loss_p:.6f}, rel {loss_rel:.3e}, tolerance {tol_loss}); "
+              f"per-module gradient rel-L2 (tolerance {tol_g}): {json.dumps({m: float(f'{e:.3e}') for m, e in errs.items()})}; "
+              f"autograd nodes: _AttentionBackward {nodes.get('_AttentionBackward', 0)}, "
+              f"_MatmulF32Backward {nodes.get('_MatmulF32Backward', 0)}", flush=True)
+        check(np.isfinite(loss_k) and loss_rel <= tol_loss, f"{dtype} teacher loss kernels vs plain rel {loss_rel:.3e}")
+        check(max(errs.values()) <= tol_g, f"{dtype} gradients kernels vs plain: {errs}")
+        check(nodes.get("_AttentionBackward", 0) == 32, f"{dtype}: {nodes.get('_AttentionBackward', 0)} attention nodes")
+        if dtype == "bfloat16":
+            check(nodes.get("_MatmulF32Backward", 0) > 0, "the bf16 backward did not run through matmul_f32's Function")
+        attn.setdefault("train_kernels_vs_plain", {})[f"{dtype} B{b}"] = dict(
+            loss=loss_k, loss_plain=loss_p, loss_rel=loss_rel, grad_rel_l2_max=max(errs.values()))
+        del g_k, g_p, res
+        torch.cuda.empty_cache()
+    del leaves
+
+    def step_profile(tcfg, b, params, ema):
+        """One more step on the trained state, outside train_teacher: its host
+        dispatch (queued with sync-debug "warn": the synchronizing calls it
+        makes are counted), its wall time (median of 3, synchronized), and
+        one profiled step's device busy time and top kernels."""
+        import warnings
+
+        tx, _ = teacher_optimizer(params, tcfg.num_steps)
+        step, state = make_teacher_step(cfg, tx, tcfg), tx.init(params)
+        batch = batch_of(b, seed=5)
+        draws = teacher_draws(torch.Generator(device=dev).manual_seed(5), batch)
+        one = lambda: step(params, state, ema, batch, draws, np.float32(0.0))  # noqa: E731
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                one()
+                dispatch = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sorted({str(w.message)[:120] for w in caught if "synchroniz" in str(w.message)})
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy, kern = profile_batch(lambda: (one(), torch.cuda.synchronize()))
+        wall = statistics.median(walls)
+        attn_ms = sum(t for k, t, _ in kern if any(m in k for m in ATTN_KERNELS))
+        return dict(dispatch_ms=dispatch, sync_calls=syncs, wall_ms=walls, device_busy_ms=busy,
+                    idle_share=1.0 - busy / wall, attention_kernel_ms=attn_ms, kernels=sum(c for _, _, c in kern),
+                    top=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:10]])
+
+    tmp = tempfile.mkdtemp(prefix="teacher_smoke_")
+    runs = {}
+    try:
+        for dtype, b, save in (("float32", 2, True), ("bfloat16", 16, False)):
+            steps = 5
+            stamps, losses = [], []
+
+            def on_step(step, loss):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                losses.append(loss)
+
+            tcfg = TeacherTrainConfig(num_steps=steps, batch_size=b, save_every=steps - 1 if save else 10 ** 9,
+                                      compute_dtype=dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            params, ema = train_teacher(tcfg, cfg, seed=0, checkpoint_dir=tmp, device=dev, on_step=on_step)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            peak = torch.cuda.max_memory_allocated()
+            losses = [float(x) for x in losses]
+            step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps, stamps[1:])]
+            med = statistics.median(step_ms)
+            check(launches == {"attention": 32 * steps}, f"train teacher {dtype} launches {launches}, "
+                  f"want {{'attention': {32 * steps}}}")
+            check(all(np.isfinite(losses)), f"train teacher {dtype}: losses {losses}")
+            g0 = torch.Generator(device=dev).manual_seed(0)
+            init = ckpt.flatten_pytree(init_backbone(g0, cfg, device=dev))
+            flat_p, flat_e = ckpt.flatten_pytree(params), ckpt.flatten_pytree(ema)
+            changed = sum(not torch.equal(flat_p[k], v) for k, v in init.items())
+            check(changed > 0 and not torch.equal(flat_p["velocity/w"], init["velocity/w"]),
+                  f"train teacher {dtype}: params did not change ({changed} leaves)")
+            check(all(torch.equal(flat_p[k], flat_e[k]) for k in flat_p), f"train teacher {dtype}: EMA != params")
+            del init
+            row = dict(dtype=dtype, batch=b, steps=steps, losses=losses, step_ms=step_ms, step_ms_median=med,
+                       latent_frames_per_s=b * 256 / (med / 1e3), peak_memory_bytes=peak, wall_s=wall,
+                       leaves_changed=f"{changed} of {len(flat_p)}", launches=launches)
+            if save:
+                t_load = time.perf_counter()
+                for name, tree in (("checkpoint_ema.npz", flat_e), ("checkpoint_latest.npz", flat_p)):
+                    path = os.path.join(tmp, name)
+                    back = ckpt.flatten_pytree(params_from_jax(ckpt.load_pytree(path),
+                                                               backbone_config_from_meta(ckpt.load_meta(path))))
+                    check(back.keys() == tree.keys() and all(torch.equal(back[k], tree[k].cpu()) for k in tree),
+                          f"{name} does not reload equal")
+                state = ckpt.load_train_state(os.path.join(tmp, "train_state.npz"))
+                check(int(state["step"]) == steps - 1 and int(state["opt_state"]["count"]) == steps,
+                      f"train_state step {int(state['step'])} count {int(state['opt_state']['count'])}")
+                row["saved_bytes"] = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)
+                                         if f.endswith(".npz"))
+                row["reload_s"] = time.perf_counter() - t_load
+                del state
+            row["profile"] = step_profile(tcfg, b, params, ema)
+            print(f"  train_teacher {dtype} batch {b}: {json.dumps(row)}", flush=True)
+            runs[f"{dtype} B{b}"] = row
+            del params, ema, flat_p, flat_e
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    attn["train_teacher"] = runs
+    attn["launches_train_teacher"] = {k: r["launches"].get("attention", 0) for k, r in runs.items()}
+
+    # the attention's forward and backward at the step's shapes, beside SDPA's
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(2)
+    for dtype, B in ((torch.float32, 2), (torch.bfloat16, 16)):
+        for label, H, Tq, S, D in (("text P=198", 4, 198, 198, 128), ("style R=64", 8, 64, 64, 64),
+                                   ("dit T=256 + 64 + 198", 8, 256, 518, 120)):
+            q, k, v = (torch.randn((B, H, n, D), generator=g, device=dev).to(dtype) for n in (Tq, S, S))
+            dout = torch.randn((B, H, Tq, D), generator=g, device=dev).to(dtype)
+            m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+            out = A.fused_attention(q, k, v, m)
+            ms = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)[0]
+            bwd_ms, bwd_wall, _ = timed(lambda: A.attention_backward(q, k, v, m, out, dout), 10)
+            qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+            o_lib = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=m[:, None, None, :])
+            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m[:, None, None, :]), 20)[0]
+            lib_bwd_ms, lib_bwd_wall, _ = timed(
+                lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dout, retain_graph=True), 10)
+            kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+            b_ms, b_by = bound(nbytes(q, k, v, m, out), 4.0 * B * H * Tq * S * D, kind)
+            bb_ms, bb_by = bound(nbytes(q, k, v, m, out, dout) * 2 - nbytes(m, out, dout), 10.0 * B * H * Tq * S * D,
+                                 kind)
+            row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=kind, ms=ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, backward_ms=bwd_ms, backward_wall_ms=bwd_wall, backward_bound_ms=bb_ms,
+                       backward_bound_by=bb_by, library_backward_ms=lib_bwd_ms, library_backward_wall_ms=lib_bwd_wall)
+            rows.append(row)
+            print("  attention at the teacher step's shapes: " + json.dumps(row), flush=True)
+            del q, k, v, dout, out, qs, ks, vs, o_lib
+    attn["train_shapes"] = rows
+    torch.cuda.empty_cache()
+    print(f"  phase train teacher: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    # ------------------------------------------------------ teacher sampler
+    t_phase = time.perf_counter()
+    steps, B = 32, 2
+    print(f"phase teacher sampler: make_teacher_sampler(num_steps={steps}), default BackboneConfig, bf16, "
+          "seed-0 weights (zero-init leaves re-drawn), batch 2, t 256, ref 64, phonemes 198", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cast_floats(redraw_zero_init(init_backbone(gen, cfg, device=dev), gen), torch.bfloat16)
+    b = batch_of(B, seed=3)
+    args = (params, b["ref_latents"].to(torch.bfloat16), b["ref_latents_lengths"], b["phonemes"],
+            b["phonemes_lengths"], b["latents_lengths"])
+    noises = torch.randn((steps, B, 256, cfg.latent_dim), generator=gen, device=dev).to(torch.bfloat16)
+    sample = make_teacher_sampler(cfg, num_steps=steps)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lat = sample(*args, noises, 256)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    per = steps * cfg.dit.n_blocks
+    want = {"attention": 20 + per, "adaln_modulate": 2 * per, "qk_norm_rope": per, "gemm_bias": per,
+            "gemm_swiglu": per, "gemm_residual": 2 * per}
+    check(launches == want, f"teacher sampler launches {json.dumps(launches)}, want {json.dumps(want)}")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sample(*args, noises, 256)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with kernels.force_plain():
+        lat_p = sample(*args, noises, 256)
+    rel_l2 = float((lat.float() - lat_p.float()).norm() / lat_p.float().norm())
+    valid = torch.arange(256, device=dev)[None, :, None] < b["latents_lengths"][:, None, None]
+    check(bool(torch.isfinite(lat).all()) and rel_l2 <= 5e-2 and float(lat.masked_fill(valid, 0).abs().max()) == 0.0,
+          f"teacher sampler latents rel-L2 {rel_l2:.3e}")
+    row = dict(steps=steps, batch=B, t_bucket=256, rel_l2_vs_plain=rel_l2, first_call_ms=first_ms,
+               wall_ms=walls, wall_ms_median=statistics.median(walls), launches=launches)
+    print(f"  teacher sampler: {json.dumps(row)}", flush=True)
+    for e in entries:
+        if e["name"] in want:
+            e["launches_teacher_sampler"] = launches[e["name"]]
+        elif e["name"] == "fused_dit_scan":
+            e["launches_teacher_sampler"] = sum(launches[n] for n in want if n != "attention") + per
+            e["teacher_sampler"] = row
+    del params, lat, lat_p, noises
+    torch.cuda.empty_cache()
+    print(f"  phase teacher sampler: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def profile_batch(fn):

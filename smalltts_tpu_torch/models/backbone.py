@@ -1,6 +1,7 @@
 """Flow-matching backbone: time embedding + text encoder + style encoder + DiT
-+ zero-init velocity head (port of smalltts_tpu/models/backbone.py), with
-the `encode_conditions` / `denoise_step` split of the cached inference path.
++ zero-init velocity head (port of smalltts_tpu/models/backbone.py): the
+full training forward (`backbone_forward`, `cfg_velocity`) and the
+`encode_conditions` / `denoise_step` split of the cached inference path.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from smalltts_tpu_torch.models.dit import DiTConfig, dit_encode_cross_kv, dit_forward_cached, init_dit
+from smalltts_tpu_torch.models.dit import DiTConfig, dit_encode_cross_kv, dit_forward, dit_forward_cached, init_dit
 from smalltts_tpu_torch.models.encoder import EncoderConfig
 from smalltts_tpu_torch.models.style_encoder import STYLE_ENCODER_CONFIG, init_style_encoder, style_encoder
 from smalltts_tpu_torch.models.text_encoder import TEXT_ENCODER_CONFIG, init_text_encoder, text_encoder
@@ -81,6 +82,46 @@ def time_embedding(p, t: torch.Tensor, dim: int = 256) -> torch.Tensor:
     ang = 1e3 * t.float()[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(p["l1"]["w"].dtype)
     return nn.linear(p["l2"], nn.silu(nn.linear(p["l1"], emb)))
+
+
+def _check_shapes(cfg: BackboneConfig, noised, ref_latents, mask, phonemes, phonemes_mask, t):
+    """The JAX package's shape checks (backbone.py:92-104)."""
+    assert noised.dim() == 3 and ref_latents.dim() == 3, "noised and ref_latents must be (B, T, D)"
+    assert mask.dim() == 2 and phonemes.dim() == 2 and phonemes_mask.dim() == 2, "masks and phonemes must be (B, T)"
+    assert t.dim() == 1, "t must be (B,)"
+    assert noised.shape[2] == cfg.latent_dim and ref_latents.shape[2] == cfg.latent_dim, "latent dim"
+    assert phonemes.shape == phonemes_mask.shape, "phonemes and phonemes_mask differ in shape"
+    assert noised.shape[:2] == mask.shape, "noised and mask differ in (B, T)"
+    assert noised.shape[0] == ref_latents.shape[0] == phonemes.shape[0] == t.shape[0], "batch sizes differ"
+
+
+def backbone_forward(p, cfg: BackboneConfig, noised, ref_latents, ref_latents_lengths, mask, phonemes,
+                     phonemes_mask, t, return_features: bool = False):
+    """Full training forward -> velocity (B, T, latent_dim), and with
+    return_features the DiT's per-layer features (B, L, T, H)
+    (backbone.py:107-130)."""
+    _check_shapes(cfg, noised, ref_latents, mask, phonemes, phonemes_mask, t)
+    ref_seq, ref_mask = style_encoder(p["style_encoder"], ref_latents, ref_latents_lengths, cfg.style)
+    phoneme_embedding = text_encoder(p["phoneme_embedding"], phonemes, phonemes_mask, cfg.text)
+    t_emb = time_embedding(p["time_embedding"], t, cfg.time_embed_dim)
+    decoded, feats = dit_forward(p["dit"], cfg.dit, noised, ref_seq, ref_mask, phoneme_embedding,
+                                 phonemes_mask, t_emb, mask)
+    velocity = nn.linear(p["velocity"], decoded)
+    return (velocity, feats) if return_features else velocity
+
+
+def cfg_velocity(params, cfg: BackboneConfig, x_t, ref, ref_len, mask, ph, ph_mask, t,
+                 cfg_scale_text: float = 2.0, cfg_scale_speaker: float = 1.5):
+    """Double classifier-free guidance by 3x batch replication, in the order
+    (cond, text dropped, speaker dropped) (backbone.py:133-168):
+    v = v_c + s_text (v_c - v_no_text) + s_spk (v_c - v_no_spk)."""
+    z = torch.zeros_like
+    v3 = backbone_forward(
+        params, cfg, torch.cat([x_t] * 3), torch.cat([ref, ref, z(ref)]), torch.cat([ref_len, ref_len, z(ref_len)]),
+        torch.cat([mask] * 3), torch.cat([ph, z(ph), ph]), torch.cat([ph_mask, z(ph_mask), ph_mask]),
+        torch.cat([t] * 3))
+    v_c, v_no_text, v_no_spk = torch.chunk(v3, 3)
+    return v_c + cfg_scale_text * (v_c - v_no_text) + cfg_scale_speaker * (v_c - v_no_spk)
 
 
 def encode_conditions(p, cfg: BackboneConfig, ref_latents, ref_latents_lengths, phonemes,

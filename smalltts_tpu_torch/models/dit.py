@@ -1,11 +1,15 @@
-"""DiT backbone, cached inference path (port of smalltts_tpu/models/dit.py).
+"""DiT backbone (port of smalltts_tpu/models/dit.py).
 
 12 joint-attention blocks, hidden 960, adaLN-zero with tanh gates, SwiGLU FF
-(ratio 2.5), a grouped Conv1d(k=31, groups=16) + Mish positional stem, and
-per-block cross K/V for the [ref | text] conditioning computed once per
-utterance. The block scan runs through the hand-written Hopper kernels of
-ops/kernels/dit_block.py (the port of the Pallas whole-scan kernel) on the
-fused serving layout ([q|k|v|gate] and [w1|w3] products).
+(ratio 2.5), a grouped Conv1d(k=31, groups=16) + Mish positional stem.
+
+Two paths. The cached inference path computes the per-block cross K/V for
+the [ref | text] conditioning once per utterance, and its block scan runs
+through the hand-written Hopper kernels of ops/kernels/dit_block.py (the
+port of the Pallas whole-scan kernel) on the fused serving layout
+([q|k|v|gate] and [w1|w3] products). The full forward of training,
+`dit_forward`, runs the split layout in PyTorch ops, differentiable, with
+the attention kernel behind its autograd Function (nn.sdpa).
 """
 
 from __future__ import annotations
@@ -14,11 +18,12 @@ from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from smalltts_tpu_torch.ops import nn
 from smalltts_tpu_torch.ops.kernels.dit_block import fused_dit_scan
 from smalltts_tpu_torch.ops.kernels.w8 import quantize_w8, w8_matmul_all_layers
-from smalltts_tpu_torch.ops.rope import interleaved_cos_sin
+from smalltts_tpu_torch.ops.rope import interleaved_cos_sin, rotate_interleaved
 
 
 @dataclass(frozen=True)
@@ -33,6 +38,8 @@ class DiTConfig:
     conv_kernel: int = 31
     conv_groups: int = 16
     max_seq: int = 4096
+    remat: bool = False  # dit_forward recomputes each block in the backward
+    scan_unroll: int = 1  # read from the JAX package's metadata; the port's loops are Python's
 
     @property
     def head_dim(self) -> int:
@@ -273,3 +280,74 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
     x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, p["blocks"], cos, sin,
                        heads=cfg.heads, head_dim=cfg.head_dim)
     return _adaln_final_from_mod(final, x)
+
+
+# ------------------------------------------------------- full (training) path
+
+
+def _apply_adaln_zero(mod, x, eps=1e-6):
+    """AdaLN-zero with a precomputed modulation (B, 6H) (dit.py:209-213)."""
+    shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = torch.chunk(mod, 6, dim=-1)
+    x = nn.layernorm_noaffine(x, eps) * (1 + scale_msa[:, None]) + shift_msa[:, None]
+    return x, gate_msa, shift_mlp, scale_mlp, gate_mlp
+
+
+def _self_qkv_gate(p_attn, cfg: DiTConfig, x, cos, sin):
+    """q/k_self/v_self and the attention output gate, split layout (dit.py:252-273)."""
+    b, t, _ = x.shape
+    h, d = cfg.heads, cfg.head_dim
+    q, k, v = torch.chunk(nn.linear(p_attn["qkv_self"], x), 3, dim=-1)
+    gate = nn.linear(p_attn["gate"], x)
+    q = nn.rmsnorm(p_attn["q_norm"], q.reshape(b, t, h, d), 1e-6)
+    k = nn.rmsnorm(p_attn["k_norm"], k.reshape(b, t, h, d), 1e-6)
+    v = v.reshape(b, t, h, d).transpose(1, 2)
+    return rotate_interleaved(q.transpose(1, 2), cos, sin), rotate_interleaved(k.transpose(1, 2), cos, sin), v, gate
+
+
+def _attend(p_attn, gate, q, k, v, mask, joint_key_mask):
+    """One SDPA over [self | ref | text] keys, then the sigmoid gate (dit.py:277-284)."""
+    out = nn.sdpa(q, k, v, key_mask=joint_key_mask)
+    b, h, t, d = out.shape
+    out = out.transpose(1, 2).reshape(b, t, h * d) * nn.sigmoid(gate)
+    out = nn.linear(p_attn["to_out"], out)
+    return torch.where(mask[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+
+def _ff(p, x):
+    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
+
+
+def _block(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, ref_seq, phoneme_mem):
+    """One uncached block: its cross K/V projections, then _block_core (dit.py:371-382, 408-415)."""
+    k_ref, v_ref = _project_cross(blk["attn"], cfg, ref_seq, "ref")
+    k_text, v_text = _project_cross(blk["attn"], cfg, phoneme_mem, "text")
+    norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = _apply_adaln_zero(mod, x)
+    q, k_self, v_self, gate = _self_qkv_gate(blk["attn"], cfg, norm, cos, sin)
+    k = torch.cat([k_self, k_ref, k_text], dim=2)
+    v = torch.cat([v_self, v_ref, v_text], dim=2)
+    x = x + torch.tanh(gate_msa)[:, None] * _attend(blk["attn"], gate, q, k, v, mask, joint_key_mask)
+    norm2 = nn.layernorm_noaffine(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
+    return x + torch.tanh(gate_mlp)[:, None] * _ff(blk["ff"], norm2)
+
+
+def dit_forward(p, cfg: DiTConfig, x, ref_seq, ref_mask, phoneme_embedding, phonemes_mask, time_embedding,
+                mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full (uncached) forward on the split layout -> (hidden (B, T, H),
+    features (B, L, T, H), each block's output) (dit.py:392-436). With
+    cfg.remat each block runs under torch.utils.checkpoint and is computed
+    again in the backward."""
+    x = _input_embed(p["input_embed"], cfg, x, mask)
+    cos, sin = rope_cos_sin(cfg, x.shape[1], x.device)
+    mem = nn.linear(p["phoneme_proj"], phoneme_embedding)
+    mem = torch.where(phonemes_mask[..., None], mem, torch.zeros((), dtype=mem.dtype, device=mem.device))
+    emb = _emb_proj(p["emb_proj"], time_embedding)
+    joint_key_mask = torch.cat([mask, ref_mask, phonemes_mask], dim=1)
+    mods = torch.unbind(_all_block_modulations(p["blocks"], emb), 0)
+    blocks = nn.layers({k: v for k, v in p["blocks"].items() if k != "attn_norm"}, cfg.n_blocks)
+    feats = []
+    for blk, mod in zip(blocks, mods):
+        args = (blk, cfg, x, mod, mask, joint_key_mask, cos, sin, ref_seq, mem)
+        x = checkpoint(_block, *args, use_reentrant=False) if cfg.remat else _block(*args)
+        feats.append(x)
+    x = _adaln_final_from_mod(nn.linear(p["norm_out"]["linear"], nn.silu(emb)), x)
+    return x, torch.stack(feats, dim=1)

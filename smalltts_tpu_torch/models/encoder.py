@@ -78,6 +78,6 @@ def encoder_block(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
 
 def encoder_stack(stacked, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
     """Run the layers in order over the stacked block params."""
-    for l in range(cfg.num_layers):
-        x = encoder_block(nn.layer(stacked, l), cfg, x, mask, rope_cos, rope_sin)
+    for blk in nn.layers(stacked, cfg.num_layers):
+        x = encoder_block(blk, cfg, x, mask, rope_cos, rope_sin)
     return x

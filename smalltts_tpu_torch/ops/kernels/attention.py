@@ -11,6 +11,11 @@ that splits the keys across a thread-block cluster where the (b, h, q tile)
 blocks alone cannot fill the SMs, and merges the splits by a log-sum-exp
 combine; `attention_split_plain` is that split and merge in plain PyTorch,
 for the tests. fp32 runs a CUDA-core kernel.
+
+`attention` is the kernel behind a torch.autograd.Function, for training:
+its forward is `fused_attention` over one key source, ungated; its backward
+is `attention_backward`, in PyTorch ops (the Pallas kernel has no VJP; the
+JAX package trains through its XLA attention).
 """
 
 from __future__ import annotations
@@ -168,3 +173,46 @@ def fused_attention(
     kernels.count_launch(NAME)
     return out
 
+
+
+def attention_backward(q, k, v, key_mask, out, dout):
+    """Gradients (dq, dk, dv) of attention_plain(q, k, v, key_mask) (one
+    source, no gate) at the output `out` it gave, for the cotangent `dout`.
+
+    The fp32 scores and probabilities are recomputed from q and k with the
+    -1e9 key mask, as the forward computes them; then dP = dO V^T, dS = P *
+    (dP - rowsum(dO * O)), zero at the masked keys (the mask replaces those
+    scores by a constant), dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D) and dV =
+    P^T dO, all in fp32, each rounded to its input's dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, do = q.float(), k.float(), v.float(), dout.float()
+    keep = key_mask[:, None, None, :]
+    scores = torch.where(keep, torch.matmul(qf, kf.transpose(-1, -2)) * scale, -1e9)
+    probs = torch.softmax(scores, dim=-1)
+    dv = torch.matmul(probs.transpose(-1, -2), do)
+    dp = torch.matmul(do, vf.transpose(-1, -2))
+    delta = (do * out.float()).sum(-1, keepdim=True)
+    ds = torch.where(keep, probs * (dp - delta), 0.0)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Attention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask):
+        out = fused_attention(q, k, v, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_mask, out = ctx.saved_tensors
+        return (*attention_backward(q, k, v, key_mask, out, dout), None)
+
+
+def attention(q, k, v, key_mask):
+    """Masked attention (B,H,Tq,D) over one key source, differentiable:
+    the forward is fused_attention (the kernel on a CUDA tensor), the
+    backward attention_backward."""
+    return _Attention.apply(q, k, v, key_mask)

@@ -55,17 +55,56 @@ def init_conv1d(gen, c_in, c_out, k, groups=1, dtype=torch.float32, device="cpu"
 # -------------------------------------------------------------------------- apply
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ w accumulated in float32 and returned in float32: x (..., K) with
-    w (K, N), or x (L, M, K) with w (L, K, N). bf16 operands on the card go
-    to cuBLAS with a float32 result (the out_dtype of torch.mm / torch.bmm);
-    elsewhere they are upcast, which is exact for bf16."""
-    if not (x.is_cuda and x.dtype == torch.bfloat16):
-        return torch.matmul(x.float(), w.float())
+class _MatmulF32(torch.autograd.Function):
+    """The bf16 product with a float32 result on the card, differentiable:
+    cuBLAS's out_dtype product has no autograd node. The backward is the
+    transpose JAX takes of dot_general(preferred_element_type=float32): dx =
+    dy w^T and dw = x^T dy, accumulated in float32 and rounded to the
+    operands' dtypes. dy is rounded to the operands' dtype first, which is
+    exact on the port's paths: every caller rounds the float32 product (plus
+    a float32 bias) to that dtype, so its cotangent is a bf16 value."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.to(x.dtype)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(dy, w.transpose(-1, -2)).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            if w.dim() == 3:
+                dw = torch.bmm(x.transpose(1, 2), dy, out_dtype=torch.float32)
+            else:
+                dw = torch.mm(x.reshape(-1, x.shape[-1]).t(), dy.reshape(-1, dy.shape[-1]),
+                              out_dtype=torch.float32)
+            dw = dw.to(w.dtype)
+        return dx, dw
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """cuBLAS's bf16 product with a float32 result (no autograd node)."""
     if w.dim() == 3:
         return torch.bmm(x.contiguous(), w, out_dtype=torch.float32)
     y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
     return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w accumulated in float32 and returned in float32: x (..., K) with
+    w (K, N), or x (L, M, K) with w (L, K, N). bf16 operands on the card go
+    to cuBLAS with a float32 result (the out_dtype of torch.mm / torch.bmm),
+    through _MatmulF32 where a gradient is wanted; elsewhere they are
+    upcast, which is exact for bf16."""
+    if not (x.is_cuda and x.dtype == torch.bfloat16):
+        return torch.matmul(x.float(), w.float())
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _MatmulF32.apply(x, w)
+    return _mm_f32(x, w)
 
 
 def dequantize(w_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
@@ -143,6 +182,16 @@ def layer(tree, l: int):
     return tree[l]
 
 
+def layers(tree, n: int):
+    """The n layers of a tree of stacked block params, as views. Unlike n
+    calls of `layer`, the views come from one torch.unbind per leaf, so the
+    backward writes each stacked gradient once."""
+    if isinstance(tree, dict):
+        parts = {k: layers(v, n) for k, v in tree.items()}
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
 def sdpa(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -152,12 +201,15 @@ def sdpa(
     """Scaled dot-product attention, (B, H, Tq, D) x (B, H, Tk, D).
 
     key_mask (B, Tk) bool, True = attend. On a CUDA tensor with a key mask
-    this is the hand-written attention kernel (ops/kernels/attention.py);
+    this is the hand-written attention kernel (ops/kernels/attention.py),
+    behind its autograd Function where a gradient is wanted;
     otherwise the JAX package's XLA path: fp32 scores, masked keys -1e9,
     fp32 softmax, probs cast to the input dtype before PV."""
     if key_mask is not None and q.device.type != "cpu":
-        from smalltts_tpu_torch.ops.kernels.attention import fused_attention
+        from smalltts_tpu_torch.ops.kernels.attention import attention, fused_attention
 
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return attention(q, k, v, key_mask)  # the kernel forward, a PyTorch backward
         return fused_attention(q, k, v, key_mask)
     d = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(d))

@@ -36,19 +36,25 @@ def rope_table_cos_sin(max_seq: int, head_dim: int, theta: float = 1e4):
 
 # The tables below are made once per (length, dim, device) and kept: the
 # serving path reads them every batch and step without a host round trip.
+# They are made outside inference mode whatever the caller's mode: a table
+# first made while serving (under torch.inference_mode) would otherwise be
+# an inference tensor, which a later training step cannot save for its
+# backward.
 
 
 @functools.lru_cache(maxsize=None)
 def interleaved_cos_sin(max_seq: int, dim: int, device) -> tuple:
     """cos/sin of rope_table_interleaved on `device`, each (max_seq, dim) fp32."""
-    freqs = to_device(rope_table_interleaved(max_seq, dim), device)
-    return torch.cos(freqs), torch.sin(freqs)
+    with torch.inference_mode(False):
+        freqs = to_device(rope_table_interleaved(max_seq, dim), device)
+        return torch.cos(freqs), torch.sin(freqs)
 
 
 @functools.lru_cache(maxsize=None)
 def pair_cos_sin(max_seq: int, head_dim: int, device) -> tuple:
     """rope_table_cos_sin on `device`, each (max_seq, head_dim / 2) fp32."""
-    return tuple(to_device(t, device) for t in rope_table_cos_sin(max_seq, head_dim))
+    with torch.inference_mode(False):
+        return tuple(to_device(t, device) for t in rope_table_cos_sin(max_seq, head_dim))
 
 
 def _rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:
@@ -60,10 +66,16 @@ def _rotate_half_interleaved(x: torch.Tensor) -> torch.Tensor:
 def apply_rope_interleaved(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
     """Interleaved RoPE on the leading `freqs.shape[-1]` lanes of x (..., T, D);
     freqs (T, rot_dim) float32. The rotation runs in float32 and casts back."""
-    rot = freqs.shape[-1]
+    return rotate_interleaved(x, torch.cos(freqs), torch.sin(freqs))
+
+
+def rotate_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """apply_rope_interleaved from the tables' cos and sin, (T, rot_dim)
+    float32 (interleaved_cos_sin's)."""
+    rot = cos.shape[-1]
     xr, x_pass = x[..., :rot], x[..., rot:]
     xf = xr.float()
-    xr = (xf * torch.cos(freqs) + _rotate_half_interleaved(xf) * torch.sin(freqs)).to(x.dtype)
+    xr = (xf * cos + _rotate_half_interleaved(xf) * sin).to(x.dtype)
     return torch.cat([xr, x_pass], dim=-1) if x_pass.shape[-1] else xr
 
 

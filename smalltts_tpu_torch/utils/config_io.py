@@ -1,4 +1,4 @@
-"""Model configs from checkpoint metadata (port of the read side of
+"""Model configs to and from checkpoint metadata (port of
 smalltts_tpu/utils/config_io.py). Lists come back as tuples where the field
 wants one, and keys unknown to this build are dropped."""
 
@@ -6,6 +6,16 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+def config_to_dict(cfg) -> dict:
+    """Nested frozen dataclass -> plain JSON-safe dict."""
+    return dataclasses.asdict(cfg)
+
+
+def backbone_meta(cfg) -> dict:
+    """The metadata backbone trainers write into their checkpoints."""
+    return {"backbone_config": config_to_dict(cfg)}
 
 
 def _filtered_kwargs(cls, d: dict) -> dict:

@@ -1,4 +1,4 @@
-"""The JAX package's parameter trees -> the port's parameter trees.
+"""The JAX package's parameter trees -> the port's parameter trees, and back.
 
 The trees keep their keys and nesting. Linear weights stay (in, out) and
 block stacks keep their leading L. Convolution kernels go from the JAX
@@ -6,7 +6,9 @@ package's HIO layout (k, c_in/groups, c_out) to torch's (c_out, c_in/groups,
 k). Both the split block layout (qkv_self/gate, w1/w3) and the fused serving
 layout (qkvg, w13) convert as they are; the pipeline fuses at load. The
 int8 `w_q` and fp32 `scale` leaves of a quantized tree (quantize_modulations,
-quantize_stream_weights) keep their dtypes and values.
+quantize_stream_weights) keep their dtypes and values. `params_to_jax` is
+the inverse, for the checkpoints the port writes; `train_state_from_jax`
+carries a JAX trainer's state over, so a run continues in the port.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ import torch
 _CONV_PARENTS = {"conv", "conv1", "conv2", "enc_in", "enc_out", "dec_in", "dec_out"}
 
 
+def _is_conv(path: str) -> bool:
+    parts = path.split("/")
+    return parts[-1] == "w" and len(parts) > 1 and parts[-2].split("#")[0] in _CONV_PARENTS
+
+
 def _convert(node, path: str):
     if isinstance(node, dict):
         return {k: _convert(v, f"{path}/{k}" if path else k) for k, v in node.items()}
@@ -28,8 +35,7 @@ def _convert(node, path: str):
     if arr.dtype.kind not in "fiub":  # e.g. ml_dtypes.bfloat16
         arr = arr.astype(np.float32)
     t = torch.from_numpy(np.array(arr))  # a writable copy; keeps 0-d leaves 0-d
-    parts = path.split("/")
-    if parts[-1] == "w" and len(parts) > 1 and parts[-2].split("#")[0] in _CONV_PARENTS:
+    if _is_conv(path):
         if t.ndim != 3:
             raise ValueError(f"{path}: conv kernel must be (k, c_in/g, c_out), got {tuple(t.shape)}")
         t = t.permute(2, 1, 0).contiguous()
@@ -63,3 +69,34 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def params_to_jax(tree, path: str = ""):
+    """The port's tree -> the JAX package's layout: the same leaves (as
+    detached tensors, their dtypes kept), convolution kernels back in HIO
+    (k, c_in/groups, c_out). save_pytree writes the result as the JAX
+    package writes its checkpoints."""
+    if isinstance(tree, dict):
+        return {k: params_to_jax(v, f"{path}/{k}" if path else k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_to_jax(v, f"{path}#{i}") for i, v in enumerate(tree)]
+    t = tree.detach()
+    return t.permute(2, 1, 0).contiguous() if _is_conv(path) else t
+
+
+def train_state_from_jax(params, mu, nu, count, ema, step, cfg=None, device="cpu"):
+    """A JAX teacher run's state as numpy trees -> the port's trainer state
+    {"params", "opt_state": {"mu", "nu", "count"}, "ema", "step"} on
+    `device`. mu and nu are the Adam moments of the optax state, in the
+    params' tree layout; count is its update count, step the trainer's
+    step. With `cfg` the block stacks are checked as params_from_jax does."""
+    from smalltts_tpu_torch.utils.checkpoint import map_pytree
+
+    def tree(t):
+        return map_pytree(lambda x: x.to(device), params_from_jax(t, cfg) if cfg is not None else _convert(t, ""))
+
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
+
+    return {"params": tree(params), "opt_state": {"mu": tree(mu), "nu": tree(nu), "count": scalar(count)},
+            "ema": tree(ema), "step": scalar(step)}

@@ -132,3 +132,32 @@ def test_new_host_modules_and_a_cpu_server_request_load_no_jax():
     code += SERVE + _loaded("after a CPU TTSServer request")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+TRAIN_MODULES = ["smalltts_tpu_torch.train.teacher", "smalltts_tpu_torch.train.optim", "smalltts_tpu_torch.train.ema",
+                 "smalltts_tpu_torch.data.dummy", "smalltts_tpu_torch.infer.teacher_sampler",
+                 "smalltts_tpu_torch.ops.precision", "smalltts_tpu_torch.utils.profiling"]
+
+TRAIN = """
+import tempfile
+from smalltts_tpu_torch.models.backbone import BackboneConfig
+from smalltts_tpu_torch.models.dit import DiTConfig
+from smalltts_tpu_torch.models.encoder import EncoderConfig
+from smalltts_tpu_torch.train.teacher import TeacherTrainConfig, train_teacher
+enc = EncoderConfig(model_size=32, num_layers=1, num_heads=2, intermediate_size=64, norm_eps=1e-6)
+cfg = BackboneConfig(latent_dim=64, hidden_dim=64, phoneme_dim=32, text=enc, style=enc,
+                     dit=DiTConfig(latent_dim=64, phoneme_dim=32, hidden_dim=64, n_blocks=1, heads=4, rot_dim=8,
+                                   conv_groups=16))
+with tempfile.TemporaryDirectory() as d:
+    train_teacher(TeacherTrainConfig(num_steps=3, save_every=2), cfg, checkpoint_dir=d, device="cpu")
+"""
+
+
+def test_training_modules_and_a_cpu_teacher_run_load_no_jax():
+    """Importing each training module, then three CPU teacher steps with a
+    save, loads neither JAX nor the JAX package (nothing blocked)."""
+    code = "import importlib, sys\n" + "".join(f"importlib.import_module({m!r})\n" + _loaded(m)
+                                              for m in TRAIN_MODULES)
+    code += TRAIN + _loaded("after three CPU teacher steps and a save")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
