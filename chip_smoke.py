@@ -1263,6 +1263,10 @@ def onnx_phases(torch, dev, entries):
                                 for k, v in rows.items()})
 
 
+# the attention Function's dq/dk/dv against autograd through attention_plain, max|diff|/max|plain|:
+# fp32 sums in another order, and the backward reads the kernel's output; in bf16 that output
+# is rounded to bf16 and each gradient is rounded once (tests/test_torch_train_cuda.py)
+TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PORT_KERNELS = ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel", "gemm_wgmma_kernel", W8_TC, W8_STREAM)
 
 
@@ -1270,6 +1274,8 @@ def train_phases(torch, dev, entries):
     """Phase train teacher: the full-width teacher step (default
     BackboneConfig, 328M) through the port's own entry points.
 
+    - The fp32 DiT stem conv and its gradients against the CPU's (nn.conv1d
+      keeps cuDNN's TF32 off), within 1e-5.
     - Kernels against plain: teacher_loss and its gradients on seed-0
       weights (zero-init leaves re-drawn) and a dummy batch, with the
       kernels and with kernels.force_plain(), fp32 at batch 2 and bf16 at
@@ -1290,12 +1296,16 @@ def train_phases(torch, dev, entries):
     - The attention kernel's forward and the PyTorch backward
       (attention_backward) at the step's three shapes, beside
       scaled_dot_product_attention's forward and backward: device time per
-      call, every kernel of the call summed (timed).
+      call, every kernel of the call summed (timed). First the attention
+      Function's dq/dk/dv there against autograd through attention_plain,
+      with one fully-masked row (TRAIN_GRAD_TOL).
 
     Phase teacher sampler: make_teacher_sampler, 32 steps at batch 2 in
     bf16 on the seed-0 weights (zero-init leaves re-drawn), 3x CFG batch,
-    t 256, ref 64, phonemes 198: latents against force_plain (5e-2 rel-L2),
-    exact launch counts (the scan's 8 a layer, 32 steps x 12 layers; 20
+    t 256, ref 64, phonemes 198: float32 latents against force_plain (5e-2
+    rel-L2) and against the plain path on the same weights' values in fp32
+    (1e-1 rel-L2: the bf16 denoiser's roundings over 32 steps of CFG, which
+    amplifies differences 4.5x; a wiring fault gives O(1)), exact launch counts (the scan's 8 a layer, 32 steps x 12 layers; 20
     encoder attentions and one a layer a step), wall ms."""
     import dataclasses
     import shutil
@@ -1307,7 +1317,7 @@ def train_phases(torch, dev, entries):
     from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
     from smalltts_tpu_torch.infer.teacher_sampler import make_teacher_sampler
     from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
-    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops import kernels, nn
     from smalltts_tpu_torch.ops.kernels import attention as A
     from smalltts_tpu_torch.ops.precision import cast_floats
     from smalltts_tpu_torch.train.optim import teacher_optimizer
@@ -1337,6 +1347,24 @@ def train_phases(torch, dev, entries):
             names[type(fn).__name__] = names.get(type(fn).__name__, 0) + 1
             stack.extend(f for f, _ in fn.next_functions)
         return names
+
+    # the fp32 DiT stem conv (960 channels in 16 groups, k 31) and its gradients against the
+    # CPU's: nn.conv1d keeps cuDNN's TF32 off (PyTorch's default is on), within 1e-5
+    gc = torch.Generator().manual_seed(3)
+    xc, wc, dyc = (torch.randn(shape, generator=gc) for shape in ((2, 256, 960), (960, 60, 31), (2, 256, 960)))
+
+    def stem(d):
+        leaves = [t.detach().to(d).requires_grad_(True) for t in (xc, wc)]
+        y = nn.conv1d({"w": leaves[1], "b": torch.zeros(960, device=d)}, leaves[0], groups=16)
+        y.backward(dyc.to(d))
+        return [t.cpu() for t in (y.detach(), *(a.grad for a in leaves))]
+
+    conv_err = {n: float((a - b_).abs().max() / b_.abs().max()) for n, a, b_ in zip(("y", "dx", "dw"), stem(dev),
+                                                                                      stem("cpu"))}
+    print(f"  fp32 stem conv (2, 256, 960), 16 groups, k 31, against the CPU's (tolerance 1e-5): "
+          f"{json.dumps(conv_err)}", flush=True)
+    check(max(conv_err.values()) <= 1e-5, f"fp32 stem conv against the CPU: {conv_err}")
+    attn["train_stem_conv_rel_err"] = conv_err
 
     gen = torch.Generator(device=dev).manual_seed(0)
     leaves = ckpt.flatten_pytree(redraw_zero_init(init_backbone(gen, cfg, device=dev), gen))
@@ -1488,6 +1516,18 @@ def train_phases(torch, dev, entries):
             q, k, v = (torch.randn((B, H, n, D), generator=g, device=dev).to(dtype) for n in (Tq, S, S))
             dout = torch.randn((B, H, Tq, D), generator=g, device=dev).to(dtype)
             m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+            grads = []  # the Function's gradients against autograd through the plain version
+            mg = m.clone()
+            mg[-1] = False  # a fully-masked row: no gradient to its q or k
+            for fn in (A.attention, A.attention_plain):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                grads.append(torch.autograd.grad(fn(*leaves, mg), leaves, dout))
+            grad_err = {n: float((a.float() - b_.float()).abs().max() / b_.float().abs().max())
+                        for n, a, b_ in zip(("dq", "dk", "dv"), *grads)}
+            tol_g = TRAIN_GRAD_TOL[str(dtype).split(".")[-1]]
+            check(max(grad_err.values()) <= tol_g and float(grads[0][0][-1].abs().max()) == 0.0,
+                  f"attention Function gradients {label} {dtype}: {grad_err}")
+            del grads, leaves
             out = A.fused_attention(q, k, v, m)
             ms = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)[0]
             bwd_ms, bwd_wall, _ = timed(lambda: A.attention_backward(q, k, v, m, out, dout), 10)
@@ -1501,8 +1541,8 @@ def train_phases(torch, dev, entries):
             b_ms, b_by = bound(nbytes(q, k, v, m, out), 4.0 * B * H * Tq * S * D, kind)
             bb_ms, bb_by = bound(nbytes(q, k, v, m, out, dout) * 2 - nbytes(m, out, dout), 10.0 * B * H * Tq * S * D,
                                  kind)
-            row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=kind, ms=ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, backward_ms=bwd_ms, backward_wall_ms=bwd_wall, backward_bound_ms=bb_ms,
+            row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=kind, grad_rel_err=grad_err, ms=ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=lib_ms, backward_ms=bwd_ms, backward_wall_ms=bwd_wall, backward_bound_ms=bb_ms,
                        backward_bound_by=bb_by, library_backward_ms=lib_bwd_ms, library_backward_wall_ms=lib_bwd_wall)
             rows.append(row)
             print("  attention at the teacher step's shapes: " + json.dumps(row), flush=True)
@@ -1521,7 +1561,7 @@ def train_phases(torch, dev, entries):
     b = batch_of(B, seed=3)
     args = (params, b["ref_latents"].to(torch.bfloat16), b["ref_latents_lengths"], b["phonemes"],
             b["phonemes_lengths"], b["latents_lengths"])
-    noises = torch.randn((steps, B, 256, cfg.latent_dim), generator=gen, device=dev).to(torch.bfloat16)
+    noises = torch.randn((steps, B, 256, cfg.latent_dim), generator=gen, device=dev)
     sample = make_teacher_sampler(cfg, num_steps=steps)
     torch.cuda.synchronize()
     kernels.reset_launches()
@@ -1542,12 +1582,16 @@ def train_phases(torch, dev, entries):
         walls.append((time.perf_counter() - t0) * 1e3)
     with kernels.force_plain():
         lat_p = sample(*args, noises, 256)
-    rel_l2 = float((lat.float() - lat_p.float()).norm() / lat_p.float().norm())
+        # the same weights' values in fp32 through the plain path: what the bf16 denoiser costs
+        lat_32 = sample(cast_floats(params, torch.float32), args[1].float(), *args[2:], noises, 256)
+    rel_l2 = float((lat - lat_p).norm() / lat_p.norm())
+    rel_32 = float((lat - lat_32).norm() / lat_32.norm())
     valid = torch.arange(256, device=dev)[None, :, None] < b["latents_lengths"][:, None, None]
-    check(bool(torch.isfinite(lat).all()) and rel_l2 <= 5e-2 and float(lat.masked_fill(valid, 0).abs().max()) == 0.0,
-          f"teacher sampler latents rel-L2 {rel_l2:.3e}")
-    row = dict(steps=steps, batch=B, t_bucket=256, rel_l2_vs_plain=rel_l2, first_call_ms=first_ms,
-               wall_ms=walls, wall_ms_median=statistics.median(walls), launches=launches)
+    check(lat.dtype == torch.float32 and bool(torch.isfinite(lat).all()) and rel_l2 <= 5e-2
+          and float(lat.masked_fill(valid, 0).abs().max()) == 0.0, f"teacher sampler latents rel-L2 {rel_l2:.3e}")
+    check(rel_32 <= 1e-1, f"teacher sampler bf16 against fp32 rel-L2 {rel_32:.3e}")
+    row = dict(steps=steps, batch=B, t_bucket=256, rel_l2_vs_plain=rel_l2, rel_l2_vs_fp32_plain=rel_32,
+               first_call_ms=first_ms, wall_ms=walls, wall_ms_median=statistics.median(walls), launches=launches)
     print(f"  teacher sampler: {json.dumps(row)}", flush=True)
     for e in entries:
         if e["name"] in want:
@@ -1555,7 +1599,7 @@ def train_phases(torch, dev, entries):
         elif e["name"] == "fused_dit_scan":
             e["launches_teacher_sampler"] = sum(launches[n] for n in want if n != "attention") + per
             e["teacher_sampler"] = row
-    del params, lat, lat_p, noises
+    del params, lat, lat_p, lat_32, noises
     torch.cuda.empty_cache()
     print(f"  phase teacher sampler: {time.perf_counter() - t_phase:.2f} s", flush=True)
 

@@ -10,17 +10,17 @@ cached denoiser on the 3x batch (on the card: the DiT scan's kernels and the
 attention kernel, as SmallTTS runs them) and combines
 v = v_c + s_text (v_c - v_no_text) + s_spk (v_c - v_no_spk).
 
-Noise is an argument, (num_steps, B, T, latent_dim). The running estimate
-is kept in the params' dtype, as the port's DMD sampler keeps it (the JAX
-sampler keeps it in float32, which is the same for float32 params).
+Noise is an argument, (num_steps, B, T, latent_dim). The running estimate,
+the noise, x_t and the CFG combination are float32, as in the JAX sampler;
+x_t is rounded to the params' dtype where it enters the denoiser, whose
+activations are in that dtype (the JAX sampler's take float32 from x_t).
 """
 
 from __future__ import annotations
 
 import torch
 
-from smalltts_tpu_torch.models.backbone import (  # noqa: F401  (cfg_velocity: the shared CFG)
-    BackboneConfig, cfg_velocity, denoise_step, encode_conditions, time_embedding)
+from smalltts_tpu_torch.models.backbone import BackboneConfig, denoise_step, encode_conditions, time_embedding
 from smalltts_tpu_torch.models.dit import fuse_serving_projections, precompute_step_modulations
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.ops.schedule import get_alpha_sigma
@@ -36,7 +36,7 @@ def _cfg_conditions(params, cfg: BackboneConfig, ref, ref_len, ph, ph_mask):
 def make_teacher_sampler(cfg: BackboneConfig, num_steps: int = 128, cfg_scale_text: float = 2.0,
                          cfg_scale_speaker: float = 1.5):
     """-> sample(params, ref, ref_len, ph, ph_len, seq_lens, noises, t_bucket)
-    -> latents (B, t_bucket, latent_dim), zero past each sequence length.
+    -> float32 latents (B, t_bucket, latent_dim), zero past each sequence length.
     `params` is a backbone tree in the split or the fused serving layout."""
 
     @torch.no_grad()
@@ -46,7 +46,6 @@ def make_teacher_sampler(cfg: BackboneConfig, num_steps: int = 128, cfg_scale_te
         params = fuse_serving_projections(params)
         b, dev = ref.shape[0], ref.device
         dtype = params["velocity"]["w"].dtype
-        zero = torch.zeros((), dtype=dtype, device=dev)
         mask = length_mask(seq_lens, t_bucket)
         ts = torch.linspace(1.0, 0.0, num_steps, dtype=torch.float32, device=dev)
         cond3 = _cfg_conditions(params, cfg, ref, ref_len, ph, length_mask(ph_len, ph.shape[1]))
@@ -54,15 +53,15 @@ def make_teacher_sampler(cfg: BackboneConfig, num_steps: int = 128, cfg_scale_te
         t_embs = time_embedding(params["time_embedding"], ts, cfg.time_embed_dim)
         mods, finals = precompute_step_modulations(params["dit"], t_embs)
         alphas, sigmas = get_alpha_sigma(ts)
-        x_pred = torch.zeros((b, t_bucket, cfg.latent_dim), dtype=dtype, device=dev)
+        x_pred = torch.zeros((b, t_bucket, cfg.latent_dim), dtype=torch.float32, device=dev)
         for i in range(num_steps):
-            alpha, sigma = alphas[i].to(dtype), sigmas[i].to(dtype)
-            x_t = alpha * x_pred + sigma * noises[i].to(dtype)
-            v3 = denoise_step(params, cfg, torch.cat([x_t] * 3), mask3, ts[i].expand(3 * b), cond3,
+            alpha, sigma = alphas[i], sigmas[i]
+            x_t = alpha * x_pred + sigma * noises[i].float()
+            v3 = denoise_step(params, cfg, torch.cat([x_t.to(dtype)] * 3), mask3, ts[i].expand(3 * b), cond3,
                               t_emb=t_embs[i].expand(3 * b, -1), step_mods=(mods[:, i], finals[i]))
-            v_c, v_no_text, v_no_spk = torch.chunk(v3, 3)
+            v_c, v_no_text, v_no_spk = torch.chunk(v3.float(), 3)
             v = v_c + cfg_scale_text * (v_c - v_no_text) + cfg_scale_speaker * (v_c - v_no_spk)
             x_pred = alpha * x_t - sigma * v
-        return torch.where(mask[..., None], x_pred, zero)
+        return torch.where(mask[..., None], x_pred, 0.0)
 
     return sample

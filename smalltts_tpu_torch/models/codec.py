@@ -4,8 +4,8 @@
 Every heavy convolution runs at a low rate with wide channels; depth<->time
 reshapes resample, and the input/output heads are folded into the finest low
 rate. Activations are the Bhaskara fast snake the codec is trained with.
-Runs in fp32; its convolutions run with cuDNN's TF32 off, since cuDNN would
-otherwise compute fp32 convolutions in TF32.
+Runs in fp32; its convolutions (nn.conv1d) run with cuDNN's TF32 off, since
+cuDNN would otherwise compute fp32 convolutions in TF32.
 """
 
 from __future__ import annotations
@@ -94,12 +94,6 @@ def init_codec(gen, cfg: CodecConfig = CodecConfig(), dtype=torch.float32, devic
     }
 
 
-def _no_tf32():
-    c = torch.backends.cudnn
-    return c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic,
-                   allow_tf32=False)
-
-
 def _depth_to_time(x, r: int):
     b, t, c = x.shape
     return x.reshape(b, t * r, c // r)
@@ -116,28 +110,26 @@ def codec_encode(p, audio: torch.Tensor, cfg: CodecConfig = CodecConfig()) -> to
         raise ValueError(f"audio length {audio.shape[-1]} must be a multiple of hop {cfg.hop}")
     b, _, t = audio.shape
     r_last = cfg.strides[-1]
-    with _no_tf32():
-        x = nn.conv1d(p["enc_in"], audio.reshape(b, t // r_last, r_last))
-        for k, (stage, i) in enumerate(zip(p["enc_stages"], reversed(range(len(cfg.strides))))):
-            if k:  # enc_in already produced the widened first stage
-                x = _time_to_depth(x, cfg.strides[i])
-            x = snake(nn.conv1d(stage["conv"], x), stage["log_alpha"])
-            for ru, d in zip(stage["res"], cfg.res_dilations):
-                x = _res_unit(ru, x, d)
-        return nn.conv1d(p["enc_out"], x)
+    x = nn.conv1d(p["enc_in"], audio.reshape(b, t // r_last, r_last))
+    for k, (stage, i) in enumerate(zip(p["enc_stages"], reversed(range(len(cfg.strides))))):
+        if k:  # enc_in already produced the widened first stage
+            x = _time_to_depth(x, cfg.strides[i])
+        x = snake(nn.conv1d(stage["conv"], x), stage["log_alpha"])
+        for ru, d in zip(stage["res"], cfg.res_dilations):
+            x = _res_unit(ru, x, d)
+    return nn.conv1d(p["enc_out"], x)
 
 
 def codec_decode(p, latents: torch.Tensor, cfg: CodecConfig = CodecConfig()) -> torch.Tensor:
     """(B, T', latent_dim) -> (B, 1, T' * hop) waveform in [-1, 1]."""
     n = len(cfg.strides)
-    with _no_tf32():
-        x = nn.conv1d(p["dec_in"], latents)
-        for i, (stage, r) in enumerate(zip(p["dec_stages"], cfg.strides)):
-            for ru, d in zip(stage["res"], cfg.res_dilations):
-                x = _res_unit(ru, x, d)
-            x = nn.conv1d(stage["conv"], snake(x, stage["log_alpha"]))
-            if i < n - 1:
-                x = _depth_to_time(x, r)
-        x = torch.tanh(nn.conv1d(p["dec_out"], snake(x, p["dec_log_alpha"])))
+    x = nn.conv1d(p["dec_in"], latents)
+    for i, (stage, r) in enumerate(zip(p["dec_stages"], cfg.strides)):
+        for ru, d in zip(stage["res"], cfg.res_dilations):
+            x = _res_unit(ru, x, d)
+        x = nn.conv1d(stage["conv"], snake(x, stage["log_alpha"]))
+        if i < n - 1:
+            x = _depth_to_time(x, r)
+    x = torch.tanh(nn.conv1d(p["dec_out"], snake(x, p["dec_log_alpha"])))
     b, t_low, r_last = x.shape
     return x.reshape(b, 1, t_low * r_last)

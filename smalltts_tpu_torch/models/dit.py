@@ -39,7 +39,6 @@ class DiTConfig:
     conv_groups: int = 16
     max_seq: int = 4096
     remat: bool = False  # dit_forward recomputes each block in the backward
-    scan_unroll: int = 1  # read from the JAX package's metadata; the port's loops are Python's
 
     @property
     def head_dim(self) -> int:
@@ -244,8 +243,7 @@ def dit_encode_cross_kv(p, cfg: DiTConfig, ref_seq, phoneme_embedding, phonemes_
     mem = torch.where(phonemes_mask[..., None], mem, torch.zeros((), dtype=mem.dtype, device=mem.device))
     attn = p["blocks"]["attn"]
     out = [[], [], [], []]
-    for l in range(cfg.n_blocks):
-        blk = nn.layer({k: attn[k] for k in ("kv_ref", "kv_text", "k_norm_cross")}, l)
+    for blk in nn.layers({k: attn[k] for k in ("kv_ref", "kv_text", "k_norm_cross")}, cfg.n_blocks):
         kv = _project_cross(blk, cfg, ref_seq, "ref") + _project_cross(blk, cfg, mem, "text")
         for acc, t in zip(out, kv):
             acc.append(t)

@@ -299,7 +299,6 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     L = mods.shape[0]
     used = {"attn": {k: blocks["attn"][k] for k in ("qkvg", "to_out", "q_norm", "k_norm")},
             "ff": {k: blocks["ff"][k] for k in ("w13", "w2")}}
-    for l in range(L):
-        x = block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, nn.layer(used, l), cos, sin,
-                        heads, head_dim)
+    for l, blk in enumerate(nn.layers(used, L)):
+        x = block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, blk, cos, sin, heads, head_dim)
     return x

@@ -148,8 +148,45 @@ def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 
     else:
         lo = hi = int(padding)
     h = F.pad(x.transpose(1, 2), (lo, hi))
-    y = F.conv1d(h, p["w"].to(x.dtype), None, dilation=dilation, groups=groups)
+    w = p["w"].to(x.dtype)
+    if not (x.is_cuda and x.dtype == torch.float32):
+        y = F.conv1d(h, w, None, dilation=dilation, groups=groups)
+    elif torch.is_grad_enabled() and (h.requires_grad or w.requires_grad):
+        y = _Conv1dF32.apply(h, w, dilation, groups)
+    else:
+        with no_tf32():
+            y = F.conv1d(h, w, None, dilation=dilation, groups=groups)
     return (y.float() + p["b"].float()[:, None]).to(x.dtype).transpose(1, 2)
+
+
+def no_tf32():
+    """cuDNN convolutions in full float32: PyTorch lets cuDNN use TF32 by
+    default (torch.backends.cudnn.allow_tf32), where the JAX package
+    computes float32."""
+    c = torch.backends.cudnn
+    return c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic, allow_tf32=False)
+
+
+class _Conv1dF32(torch.autograd.Function):
+    """The float32 conv on the card with TF32 off in the forward and in the
+    backward: cuDNN reads the flag when a convolution runs, and autograd
+    runs the backward after the forward's context has closed."""
+
+    @staticmethod
+    def forward(ctx, h, w, dilation, groups):
+        ctx.save_for_backward(h, w)
+        ctx.dilation, ctx.groups = dilation, groups
+        with no_tf32():
+            return F.conv1d(h, w, None, dilation=dilation, groups=groups)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w = ctx.saved_tensors
+        with no_tf32():
+            dh, dw, _ = torch.ops.aten.convolution_backward(
+                dy, h, w, None, [1], [0], [ctx.dilation], False, [0], ctx.groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dh, dw, None, None
 
 
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -175,20 +212,14 @@ def mish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.tanh(softplus(x))
 
 
-def layer(tree, l: int):
-    """Layer `l` of a tree of stacked block params (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: layer(v, l) for k, v in tree.items()}
-    return tree[l]
-
-
 def layers(tree, n: int):
-    """The n layers of a tree of stacked block params, as views. Unlike n
-    calls of `layer`, the views come from one torch.unbind per leaf, so the
-    backward writes each stacked gradient once."""
+    """The n layers of a tree of stacked block params, as views: one
+    torch.unbind per leaf, so the backward writes each stacked gradient once."""
     if isinstance(tree, dict):
         parts = {k: layers(v, n) for k, v in tree.items()}
         return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"a stacked leaf of {tree.shape[0]} layers, want {n}")
     return list(torch.unbind(tree, 0))
 
 

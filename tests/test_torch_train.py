@@ -245,6 +245,25 @@ def test_matmul_f32_on_the_cpu_differentiates():
     assert torch.equal(x.grad, want_dx)
 
 
+@pytest.mark.parametrize("dilation", [1, 3])
+def test_conv1d_f32_function_matches_autograd(dilation):
+    """The card's float32 conv Function (TF32 off in forward and backward),
+    called on the CPU: its output and gradients equal F.conv1d's autograd
+    (1e-6 of the largest value)."""
+    rs = np.random.RandomState(4)
+    h = T(rs.randn(2, 8, 20).astype(np.float32))
+    w = T(rs.randn(8, 2, 5).astype(np.float32))
+    dy = T(rs.randn(2, 8, 20 - 4 * dilation).astype(np.float32))
+    res = []
+    for fn in (nn._Conv1dF32.apply, lambda a, b, d, g: torch.nn.functional.conv1d(a, b, dilation=d, groups=g)):
+        leaves = [t.clone().requires_grad_(True) for t in (h, w)]
+        y = fn(*leaves, dilation, 4)
+        y.backward(dy)
+        res.append([y.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*res):
+        assert rel_max(to_np(got), to_np(want)) <= 1e-6
+
+
 # ------------------------------------------------------- small ops and state
 
 
@@ -468,9 +487,10 @@ def test_train_teacher_runs_on_the_card_by_default():
         PT.main(["--steps", "1", "--batch-size", "2", "--compute-dtype", "float32"])
 
 
-def test_teacher_sampler_matches_jax(weights):
-    jp, tp = weights
-    B, R, P, Tb, steps = 2, 10, 12, 16, 4
+def _sample_both(jp, tp, steps=4, dtype=None):
+    """The JAX sampler and the port's on the same weights (cast to `dtype`
+    on both sides where given) and inputs, with the JAX sampler's noise."""
+    B, R, P, Tb = 2, 10, 12, 16
     rs = np.random.RandomState(6)
     ref = rs.randn(B, R, 64).astype(np.float32)
     ref_len = np.array([R, 6], np.int32)
@@ -478,17 +498,39 @@ def test_teacher_sampler_matches_jax(weights):
     ph_len = np.array([9, P], np.int32)
     seq = np.array([Tb, 11], np.int32)
     key = jax.random.PRNGKey(9)
-    want = j_make_sampler(TINY_BACKBONE, num_steps=steps)(jp, ref, ref_len, ph, ph_len, seq, key, t_bucket=Tb)
+    j_ref, t_ref = jnp.asarray(ref), T(ref)
+    if dtype is not None:
+        from smalltts_tpu.ops.precision import cast_floats as j_cast_floats
+
+        jp, tp = j_cast_floats(jp, jnp.bfloat16), cast_floats(tp, torch.bfloat16)
+        j_ref, t_ref = j_ref.astype(jnp.bfloat16), t_ref.to(torch.bfloat16)
+    want = j_make_sampler(TINY_BACKBONE, num_steps=steps)(jp, j_ref, ref_len, ph, ph_len, seq, key, t_bucket=Tb)
     noises, k = [], key  # the sampler's per-step draws, its key splits replicated
     for _ in range(steps):
         k, sub = jax.random.split(k)
         noises.append(np.asarray(jax.random.normal(sub, (B, Tb, 64), jnp.float32)))
     sample = make_teacher_sampler(PCFG, num_steps=steps)
-    got = sample(tp, T(ref), T(ref_len), T(ph), T(ph_len), T(seq), T(np.stack(noises)), Tb)
-    assert rel_max(to_np(got), want) <= 1e-5
+    args = (tp, t_ref, T(ref_len), T(ph), T(ph_len), T(seq))
+    return sample(*args, T(np.stack(noises)), Tb), np.asarray(want, np.float32), sample, args, noises, Tb
+
+
+def test_teacher_sampler_matches_jax(weights):
+    got, want, sample, args, noises, Tb = _sample_both(*weights)
+    assert got.dtype == torch.float32 and rel_max(to_np(got), want) <= 1e-5
     assert float(got[1, 11:].abs().max()) == 0.0
     with pytest.raises(ValueError, match="noises"):
-        sample(tp, T(ref), T(ref_len), T(ph), T(ph_len), T(seq), T(np.stack(noises[:3])), Tb)
+        sample(*args, T(np.stack(noises[:3])), Tb)
+
+
+def test_teacher_sampler_bf16_against_jax(weights):
+    """bf16 params on both sides. The recurrence and the CFG combination are
+    float32 in both; the port's denoiser runs in bf16 (the scan kernels'
+    dtype) while the JAX one takes float32 activations from its float32
+    x_t. Bound: 5e-2 rel-L2 over 32 steps (1.5e-2 measured on the CPU;
+    1.6e-2 with the recurrence in bf16, so the denoiser's bf16 is most of it)."""
+    got, want, *_ = _sample_both(*weights, steps=32, dtype=torch.bfloat16)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert rel_l2(to_np(got), want) <= 5e-2
 
 
 def test_training_after_inference_mode_serving(weights, fwd_inputs):

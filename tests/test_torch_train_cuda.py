@@ -14,6 +14,10 @@ which has no JAX:
 - matmul_f32 in bf16 with a gradient: the product and both gradients
   against float32 products rounded to bf16 (1e-2: one bf16 rounding of a
   float32 sum taken in another order), 2-D and the modulations' stacked 3-D.
+- nn.conv1d in fp32 at the DiT stem's shape (960 channels in 16 groups,
+  kernel 31, (2, 256, 960)): output and both gradients against the same
+  conv on the CPU, 1e-5 of the largest value (fp32 sums in another order;
+  TF32, which cuDNN would take by default, is ~1e-3 off).
 - One full-width teacher_loss backward (default BackboneConfig, seed-0
   weights with the zero-init leaves re-drawn) with the kernels against
   kernels.force_plain(): loss within 1e-5 relative in fp32 (1e-2 in bf16),
@@ -104,6 +108,22 @@ def test_matmul_f32_bf16_gradients(dev, stacked):
     dw = torch.matmul(xf.transpose(-1, -2), dyf) if stacked else xf.reshape(-1, 960).t() @ dyf.reshape(-1, 2880)
     assert leaf.grad.dtype == torch.bfloat16 and w.grad.dtype == torch.bfloat16
     assert rel(leaf.grad, dx) <= 1e-2 and rel(w.grad, dw.bfloat16()) <= 1e-2
+
+
+def test_fp32_stem_conv_and_gradients_match_the_cpu(dev):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 256, 960), generator=g)
+    p = nn.init_conv1d(g, 960, 960, 31, groups=16)
+    dy = torch.randn((2, 256, 960), generator=g)
+    res = []
+    for d in ("cpu", dev):
+        leaves = [t.detach().to(d).requires_grad_(True) for t in (x, p["w"], p["b"])]
+        y = nn.conv1d({"w": leaves[1], "b": leaves[2]}, leaves[0], groups=16)
+        y.backward(dy.to(d))
+        res.append([y.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, want, name in zip(res[1], res[0], ("y", "dx", "dw", "db")):
+        assert rel(got, want) <= 1e-5, (name, rel(got, want))
+    assert torch.backends.cudnn.allow_tf32  # PyTorch's default, left as it was
 
 
 def _full_width_loss_grads(dev, dtype, remat=False):
