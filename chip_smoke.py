@@ -59,7 +59,12 @@
    Then phases train teacher and teacher sampler (see `train_phases`): the
    port's train_teacher at full width, 5 steps at batch 2 in fp32 with one
    save and 5 at batch 16 in bf16, and the many-step CFG sampler, 32 steps
-   at batch 2 in bf16.
+   at batch 2 in bf16. Last, phase train distill (see `distill_phase`): the
+   attention kernel at the distiller's shapes (the ASR's head dim 4, the
+   discriminator's 1030 keys), one student, disc and scorer step against
+   the plain versions, and train_distill at full width, 3 iterations at
+   batch 2 in fp32 with a save and 3 in bf16, with the exact attention
+   launches of each step.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -94,7 +99,8 @@ PEAK = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the t
 ATTN_SRC = "smalltts_tpu_torch/csrc/attention.cu"
 BLOCK_SRC = "smalltts_tpu_torch/csrc/dit_block.cu"
 ATTN_TPU = "smalltts_tpu/ops/pallas/attention.py:58"
-ATTN_KERNELS = ("attn_kernel<", "attn_mma_kernel<")  # fp32 (CUDA cores), bf16 (tensor cores)
+# fp32 (CUDA cores), bf16 (tensor cores), head dim 4 (CUDA cores, either dtype)
+ATTN_KERNELS = ("attn_kernel<", "attn_mma_kernel<", "attn_small_kernel<")
 # no library attention may run on the serving path: profiler names of PyTorch's fused attentions
 LIBRARY_ATTENTION = ("flash", "fmha", "efficient_attention", "mem_eff", "scaled_dot_product", "sdpa")
 BLOCK_TPU = "smalltts_tpu/ops/pallas/block.py:216"
@@ -868,6 +874,8 @@ def main() -> int:
     onnx_phases(torch, dev, entries)
     torch.cuda.empty_cache()
     train_phases(torch, dev, entries)
+    torch.cuda.empty_cache()
+    distill_phase(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -1602,6 +1610,470 @@ def train_phases(torch, dev, entries):
     del params, lat, lat_p, lat_32, noises
     torch.cuda.empty_cache()
     print(f"  phase teacher sampler: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+
+# the attention kernel at the distiller's shapes against attention_plain: the forward as phase A
+# holds it; the Function's dq/dk/dv as the teacher phase holds them (TRAIN_GRAD_TOL)
+DISTILL_FWD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# kernels against plain over one student, disc and scorer step (fp32): the losses and metrics, and
+# each module's gradient rel-L2 (fp32 sums in another order, as the teacher phase bounds them)
+DISTILL_LOSS_TOL = 1e-4
+DISTILL_GRAD_TOL = 1e-4
+
+
+def distill_attention_launches(cfg, disc_cfg, asr_cfg, n_updates, gates_open):
+    """Attention launches of one distillation iteration, by step, derived
+    from the configs: a backbone forward launches one a text, style and DiT
+    layer; a backward through a remat DiT one more a DiT layer (its blocks
+    run again); the discriminator and the ASR one a conformer layer. The
+    student step: the teacher's style encoder, 4 backbone forwards without
+    grad (the student at t_prev and t_cur, the teacher's 3x CFG batch in
+    one, the scorer), the student with grad, the discriminator, the ASR when
+    its gate is open. The disc step: the scorer's features and the
+    discriminator. The scorer step, per update: the student without grad and
+    the scorer with grad."""
+    fwd = cfg.text.num_layers + cfg.style.num_layers + cfg.dit.n_blocks
+    remat = cfg.dit.n_blocks if cfg.dit.remat else 0
+    disc = disc_cfg.conformer.num_layers
+    student = cfg.style.num_layers + 4 * fwd + fwd + remat + disc + (asr_cfg.conformer.num_layers if gates_open else 0)
+    return {"student": student, "disc": fwd + disc, "scorer": n_updates * (2 * fwd + remat)}
+
+
+def distill_phase(torch, dev, entries):
+    """Phase train distill: DMD2 distillation through the port's own entry
+    points at full width: the default BackboneConfig with dit.remat (328M)
+    for the student, the scorer and the frozen teacher;
+    DiscriminatorConfig(960, 960), a 6 x 512 conformer, 8 heads of 64;
+    ASRConfig(64), a 7 x 64 conformer, 16 heads of 4; SVConfig(64), ECAPA
+    768 x 4 + 2304. Seed-0 random weights (the backbone's zero-init leaves
+    re-drawn), asr_start_step = sv_start_step = 0, the dummy loader.
+
+    - The attention kernel against attention_plain at every shape the
+      train_distill runs send: the ASR's (2, 16, 1024, 4) with a key mask,
+      fp32 (and bf16, which no run sends); the discriminator's
+      self-attention (4 and 2, 8, 1030, 64), fp32 (S = 3 x 256 + 64 + 198);
+      the backbone's text, style and DiT shapes at batch 2 and 6 (the
+      teacher's CFG batch), fp32 and bf16 (at these batches the bf16 kernel
+      splits the keys across a cluster). The forward (DISTILL_FWD_TOL) and
+      the Function's dq/dk/dv against autograd through attention_plain
+      (TRAIN_GRAD_TOL), one launch a call; the kernel's device ms from
+      three profiled calls (a wall-clock reading fails the run) beside
+      scaled_dot_product_attention's and the bound.
+    - Kernels against kernels.force_plain(), fp32, batch 2: one student
+      step (gates open), one disc step and one scorer step (one update)
+      from the same state and draws, with an optimizer that records the
+      gradients and leaves the params: the student's metrics and the two
+      losses within DISTILL_LOSS_TOL, each module's gradient within
+      DISTILL_GRAD_TOL rel-L2.
+    - train_distill, 3 iterations at batch 2 in fp32 (a save at the last,
+      into a temporary directory that is removed) and 3 in bf16: the
+      attention launches of each iteration, counted, equal to what
+      distill_attention_launches derives (step 0's gates are shut: `step >
+      0`), no other kernel, and no attention shape that was not held
+      against plain above; the metrics finite; student, scorer and disc
+      changed; the teacher bit-equal to its start; the saved npz files
+      reload equal. Peak max_memory_allocated. Then, on the trained state,
+      4 more iterations step by step, the first with the gates shut: each
+      step's launches, in all and by shape (the conformers' against the
+      derived counts), and the median ms of the last 3; in fp32 one
+      iteration's host dispatch and wall, and one profiled iteration's
+      device busy time and idle share. Each held shape's launches an
+      iteration, as counted, go into its row of the kernels line."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.models.asr import ASRConfig, init_asr
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.discriminator import DiscriminatorConfig, init_discriminator
+    from smalltts_tpu_torch.models.sv import SVConfig, init_sv
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels import attention as A
+    from smalltts_tpu_torch.ops.precision import cast_floats
+    from smalltts_tpu_torch.train import distill as D
+    from smalltts_tpu_torch.train.optim import distill_optimizer
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.config_io import backbone_config_from_meta
+    from smalltts_tpu_torch.utils.convert import params_from_jax
+
+    attn = next(e for e in entries if e["name"] == "attention")
+    t_phase = time.perf_counter()
+    base = BackboneConfig()
+    cfg = dataclasses.replace(base, dit=dataclasses.replace(base.dit, remat=True))
+    disc_cfg = DiscriminatorConfig(transformer_dim=cfg.hidden_dim, ref_dim=cfg.hidden_dim)
+    asr_cfg, sv_cfg = ASRConfig(input_dim=cfg.latent_dim), SVConfig(input_dim=cfg.latent_dim)
+    data = DummyDataConfig(batch_size=2)
+    print("phase train distill: train_distill, default BackboneConfig with remat (student, scorer, teacher), "
+          "DiscriminatorConfig(960, 960), ASRConfig(64), SVConfig(64), seed 0, dummy loader; attention at the "
+          "new shapes first", flush=True)
+
+    # ------------------------------------------------ the attention at the distiller's shapes
+    g = torch.Generator(device=dev).manual_seed(4)
+    s_disc = 3 * data.max_latents + data.max_ref + data.max_phonemes
+    n_asr = 4 * data.max_latents
+    # (label, dtype, B, H, Tq, S, D): every shape the train_distill runs below send, each held here
+    # (they check that no other is launched). The ASR's (fp32: the ASR runs on the upcast x0 in both
+    # runs; bf16 as well, which no run sends) and the discriminator's at batch 4 (the disc step) and 2
+    # (the student's GAN loss); the backbone's at batch 2 (student, scorer, disc features) and the
+    # teacher's 3x CFG batch of 6, fp32 and bf16: in bf16 there the (b, h, q tile) blocks alone leave
+    # SMs idle and the kernel splits the keys across a cluster (the teacher phase's B=16 is one split)
+    shapes = [("asr T=1024", dt, 2, 16, n_asr, n_asr, 4) for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(f"disc S={s_disc}", torch.float32, B, 8, s_disc, s_disc, 64) for B in (4, 2)]
+    shapes += [(label, dt, B, H, Tq, S, D_) for dt in (torch.float32, torch.bfloat16) for B in (2, 6)
+               for label, H, Tq, S, D_ in (("text P=198", 4, 198, 198, 128), ("style R=64", 8, 64, 64, 64),
+                                           ("dit T=256 + 64 + 198", 8, 256, 518, 120))]
+
+    def shape_key(B, H, Tq, S, D_, kind):
+        return f"B={B} H={H} Tq={Tq} S={S} D={D_} {kind}"
+
+    def shape_counts():
+        """kernels.SHAPE_LAUNCHES of the attention, by shape_key."""
+        return {shape_key(*k[:5], "bf16" if k[5] == torch.bfloat16 else "fp32"): n
+                for (name, k), n in kernels.SHAPE_LAUNCHES.items() if name == "attention"}
+
+    def device_times(fn, n=3):
+        """n device-clock times (ms) of fn's kernel from separate profiled
+        calls of `timed`; a call whose trace lost records is taken again,
+        up to 2n calls, and fewer than n device readings fail the run."""
+        got = []
+        for _ in range(2 * n):
+            ms, _, clock = timed(fn, 20, ATTN_KERNELS)
+            if clock == "device":
+                got.append(ms)
+                if len(got) == n:
+                    break
+        check(len(got) == n, f"attention: {len(got)} of {n} device-clock times")
+        return got
+
+    rows = []
+    for label, dtype, B, H, Tq, S, D_ in shapes:
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v = (torch.randn((B, H, n, D_), generator=g, device=dev).to(dtype) for n in (Tq, S, S))
+        dout = torch.randn((B, H, Tq, D_), generator=g, device=dev).to(dtype)
+        m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+        kernels.reset_launches()
+        got = A.fused_attention(q, k, v, m)
+        check(kernels.LAUNCHES.get("attention", 0) == 1, f"attention {label} {kind}: the kernel was not launched")
+        want = A.attention_plain(q, k, v, m)
+        abs_e = float((got.float() - want.float()).abs().max())
+        rel_e = abs_e / float(want.float().abs().max())
+        check(rel_e <= DISTILL_FWD_TOL[str(dtype).split(".")[-1]], f"attention {label} {kind}: rel err {rel_e:.3e}")
+        mg = m.clone()
+        mg[-1] = False  # a fully-masked row: no gradient to its q or k
+        grads = []
+        for fn in (A.attention, A.attention_plain):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*leaves, mg), leaves, dout))
+        grad_err = {n: float((a.float() - b_.float()).abs().max() / b_.float().abs().max())
+                    for n, a, b_ in zip(("dq", "dk", "dv"), *grads)}
+        check(max(grad_err.values()) <= TRAIN_GRAD_TOL[str(dtype).split(".")[-1]]
+              and float(grads[0][0][-1].abs().max()) == 0.0, f"attention Function {label} {kind}: {grad_err}")
+        del grads, leaves
+        ms_runs = device_times(lambda: A.fused_attention(q, k, v, m))
+        plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
+                       20)[0]
+        b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, kind)
+        row = dict(shape=f"{label} B={B} H={H} D={D_}", key=shape_key(B, H, Tq, S, D_, kind), dtype=kind, max_abs_err=abs_e,
+                   rel_err=rel_e, grad_rel_err=grad_err, ms=statistics.median(ms_runs), ms_runs=ms_runs,
+                   clock="device", plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        rows.append(row)
+        print("  attention at the distiller's shapes: " + json.dumps(row), flush=True)
+        del q, k, v, dout, got, want
+    attn["head_dims"] = list(A.HEAD_DIMS)
+    attn["distill_shapes"] = rows
+    for D_bad in (8, 32):  # any other head dim still raises
+        z = torch.zeros((1, 1, 4, D_bad), device=dev)
+        try:
+            A.fused_attention(z, z, z, torch.ones((1, 4), dtype=torch.bool, device=dev))
+        except ValueError:
+            continue
+        raise AssertionError(f"attention with head dim {D_bad} did not raise")
+
+    # --------------------------------------------------------- weights, batches
+    gen = torch.Generator(device=dev).manual_seed(0)
+    teacher = redraw_zero_init(init_backbone(gen, cfg, device=dev), gen)
+    disc = init_discriminator(gen, disc_cfg, device=dev)
+    asr = init_asr(gen, asr_cfg, device=dev)
+    sv = init_sv(gen, sv_cfg, device=dev)
+    n_params = {k: sum(t.numel() for t in ckpt.flatten_pytree(v).values()) for k, v in
+                (("backbone", teacher), ("disc", disc), ("asr", asr), ("sv", sv))}
+    print(f"  params: {json.dumps(n_params)}", flush=True)
+
+    def batch_of(seed):
+        return {k: torch.as_tensor(v, device=dev) for k, v in dummy_batch(np.random.default_rng(seed), data).items()
+                if k != "texts"}
+
+    # ------------------------------------------------------------ kernels vs plain
+    class Capture:
+        """An optimizer that records the gradients and leaves the params."""
+
+        def init(self, params):
+            return {}
+
+        def update(self, grads, state, params):
+            self.grads = grads
+            return ckpt.map_pytree(torch.zeros_like, grads), state
+
+    batch = batch_of(11)
+    dgen = torch.Generator(device=dev).manual_seed(12)
+    sd, dd, scd = D.student_draws(dgen, batch), D.disc_draws(dgen, batch), D.scorer_draws(dgen, batch, 1)
+    tcfg = D.DistillConfig(asr_start_step=0, sv_start_step=0, scorer_updates=1)
+    res = []
+    for plain in (False, True):
+        txs = (Capture(), Capture(), Capture())
+        with kernels.force_plain() if plain else contextlib.nullcontext():
+            _, _, carry, metrics = D.make_student_step(cfg, disc_cfg, asr_cfg, sv_cfg, txs[0], tcfg)(
+                teacher, {}, teacher, teacher, disc, asr, sv, batch, 1, sd)
+            _, _, d_loss = D.make_disc_step(cfg, disc_cfg, txs[1])(disc, {}, teacher, batch, carry, dd)
+            _, _, s_loss = D.make_scorer_step(cfg, txs[2], 1)(teacher, {}, teacher, batch, carry, scd)
+        res.append(({**{k: float(v) for k, v in metrics.items()}, "disc_loss": float(d_loss),
+                     "scorer_loss": float(s_loss)},
+                    {n: ckpt.flatten_pytree(t.grads) for n, t in zip(("student", "disc", "scorer"), txs)}))
+        del carry, txs
+    (mk, gk), (mp_, gp) = res
+    loss_err = {k: abs(mk[k] - mp_[k]) / max(abs(mp_[k]), 1e-30) for k in mk}
+    grad_err = {}
+    for net, flat in gk.items():
+        sums = {}
+        for n, gr in flat.items():
+            mod = "/".join(n.split("/")[:2])
+            a, c = sums.get(mod, (0.0, 0.0))
+            sums[mod] = (a + float((gr - gp[net][n]).norm()) ** 2, c + float(gp[net][n].norm()) ** 2)
+        grad_err[net] = {mod: (a / max(c, 1e-60)) ** 0.5 for mod, (a, c) in sums.items() if c > 0}
+    worst = {net: max(e.values()) for net, e in grad_err.items()}
+    print(f"  kernels vs plain, fp32 batch 2, one student (gates open), disc and scorer step: metrics {json.dumps(mk)}; "
+          f"relative error (tolerance {DISTILL_LOSS_TOL}): {json.dumps({k: float(f'{v:.3e}') for k, v in loss_err.items()})}; "
+          f"worst module gradient rel-L2 (tolerance {DISTILL_GRAD_TOL}): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}", flush=True)
+    check(all(np.isfinite(v) for v in mk.values()) and mk["st_asr"] > 0 and mk["st_sv"] > 0,
+          f"distill metrics {mk}")
+    check(max(loss_err.values()) <= DISTILL_LOSS_TOL, f"distill metrics kernels vs plain: {loss_err}")
+    check(max(worst.values()) <= DISTILL_GRAD_TOL, f"distill gradients kernels vs plain: {grad_err}")
+    attn["distill_kernels_vs_plain"] = dict(metrics=mk, metrics_rel_err=loss_err, grad_rel_l2_worst=worst)
+    del res, gk, gp
+
+    # the CTC loss alone at the student step's shape (a Python loop over the ASR's frames): host time
+    # of its forward and backward, synchronized, median of 3
+    from smalltts_tpu_torch.ops.losses import ctc_loss
+    from smalltts_tpu_torch.ops.masking import length_mask
+
+    n_frames = 4 * data.max_latents
+    logits = torch.randn((2, n_frames, asr_cfg.vocab), generator=g, device=dev)
+    logit_pad = 1.0 - length_mask(4 * batch["latents_lengths"], n_frames).float()
+    label_pad = 1.0 - length_mask(batch["phonemes_lengths"], data.max_phonemes).float()
+    ctc_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = logits.clone().requires_grad_(True)
+        ctc_loss(x, logit_pad, batch["phonemes"], label_pad).sum().backward()
+        torch.cuda.synchronize()
+        ctc_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"  ctc_loss forward and backward, (2, {n_frames}, {asr_cfg.vocab}) over {data.max_phonemes} labels: "
+          f"{json.dumps(ctc_ms)} ms", flush=True)
+    attn["distill_ctc_ms"] = ctc_ms
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- train_distill
+    want = {gates: distill_attention_launches(cfg, disc_cfg, asr_cfg, D.DistillConfig().scorer_updates, gates)
+            for gates in (False, True)}
+    per_iter = {gates: sum(w.values()) for gates, w in want.items()}
+    # the conformers' launches by step and shape, derived likewise: the ASR's layers in a student step
+    # with the gates open, the discriminator's at batch 2 there and at batch 4 in the disc step
+    asr_key = shape_key(2, 16, n_asr, n_asr, 4, "fp32")
+    disc_keys = {b_: shape_key(b_, 8, s_disc, s_disc, 64, "fp32") for b_ in (2, 4)}
+    n_disc = disc_cfg.conformer.num_layers
+    want_conf = {gates: {"student": {asr_key: asr_cfg.conformer.num_layers if gates else 0, disc_keys[2]: n_disc},
+                         "disc": {disc_keys[4]: n_disc}, "scorer": {}} for gates in (False, True)}
+    row_keys = {r["key"] for r in rows}
+    start = {k: {n: t.clone() for n, t in ckpt.flatten_pytree(v).items()} for k, v in (("teacher", teacher),
+                                                                                         ("disc", disc))}
+
+    def conformer_counts(counts):
+        return {k: n for k, n in counts.items() if k == asr_key or k in disc_keys.values()}
+
+    def breakdown(tcfg, student, scorer, disc_p, teacher_p, profile):
+        """Four more iterations on the trained state, step by step (each
+        step synchronized and timed, its attention launches counted, in all
+        and by shape): the first at step 0 (the gates shut), three at step
+        10 (open; the step ms medians are theirs). With `profile` one more
+        iteration's host dispatch (queued, unsynchronized) and wall, and
+        one profiled."""
+        txs = (distill_optimizer(student), distill_optimizer(disc_p), distill_optimizer(scorer))
+        opts = [tx.init(p) for tx, p in zip(txs, (student, disc_p, scorer))]
+        steps = (D.make_student_step(cfg, disc_cfg, asr_cfg, sv_cfg, txs[0], tcfg),
+                 D.make_disc_step(cfg, disc_cfg, txs[1], tcfg.compute_dtype),
+                 D.make_scorer_step(cfg, txs[2], tcfg.scorer_updates, tcfg.compute_dtype))
+        bgen = torch.Generator(device=dev).manual_seed(21)
+        state = {"student": student, "disc": disc_p, "scorer": scorer}
+
+        def iteration(b, step, timer=None):
+            nonlocal opts
+            sdraw, ddraw, scdraw = (D.student_draws(bgen, b), D.disc_draws(bgen, b),
+                                    D.scorer_draws(bgen, b, tcfg.scorer_updates))
+
+            def mark(name):
+                if timer is not None:
+                    torch.cuda.synchronize()
+                    timer.append((name, kernels.LAUNCHES.get("attention", 0), shape_counts(), time.perf_counter()))
+
+            mark("start")
+            state["student"], opts[0], carry, _ = steps[0](state["student"], opts[0], teacher_p, state["scorer"],
+                                                           state["disc"], asr, sv, b, step, sdraw)
+            mark("student")
+            state["disc"], opts[1], _ = steps[1](state["disc"], opts[1], state["scorer"], b, carry, ddraw)
+            mark("disc")
+            state["scorer"], opts[2], _ = steps[2](state["scorer"], opts[2], state["student"], b, carry, scdraw)
+            mark("scorer")
+
+        b = batch_of(22)
+        per_step = {"student": [], "disc": [], "scorer": [], "iteration": []}
+        launches = {"gates shut": {}, "gates open": []}
+        by_shape = {}
+        for i, step in enumerate((0, 10, 10, 10)):
+            gates = "gates open" if step > tcfg.asr_start_step else "gates shut"
+            timer, counts = [], {}
+            iteration(b, step, timer)
+            for (_, n0, s0, t0_), (name, n1, s1, t1_) in zip(timer, timer[1:]):
+                counts[name] = n1 - n0
+                by_shape.setdefault(gates, {}).setdefault(name, {k: n - s0.get(k, 0) for k, n in s1.items()
+                                                                 if n - s0.get(k, 0)})
+                if i:
+                    per_step[name].append((t1_ - t0_) * 1e3)
+            if i:
+                per_step["iteration"].append((timer[-1][3] - timer[0][3]) * 1e3)
+                launches["gates open"].append(counts)
+            else:
+                launches["gates shut"] = counts
+                shut_ms = (timer[-1][3] - timer[0][3]) * 1e3
+        row = dict(step_ms=per_step, step_ms_median={k: statistics.median(v) for k, v in per_step.items()},
+                   gates_shut_iteration_ms=shut_ms, step_launches=launches, step_launches_by_shape=by_shape)
+        if not profile:
+            return row
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iteration(b, 10)
+        dispatch = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        # device activity only: an iteration is ~2e5 launches, whose host-side events the profiler
+        # would take minutes to gather
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as torch_profile
+
+        with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+            iteration(b, 10)
+            torch.cuda.synchronize()
+        kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages() if _dev_us(e) > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in kern)
+        attn_ms = sum(t for k_, t, _ in kern if any(m_ in k_ for m_ in ATTN_KERNELS))
+        return dict(row, dispatch_ms=dispatch, wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                    attention_kernel_ms=attn_ms, kernels=sum(c for _, _, c in kern),
+                    top=[dict(kernel=k_[:90], ms=t, count=c) for k_, t, c in kern[:10]])
+
+    tmp = tempfile.mkdtemp(prefix="distill_smoke_")
+    runs = {}
+    try:
+        for dtype, save in (("float32", True), ("bfloat16", False)):
+            steps = 3
+            stamps, counts, shapes_seen, metrics_seen = [], [], [], []
+
+            def on_step(step, metrics):
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+                counts.append(dict(kernels.LAUNCHES))
+                shapes_seen.append(shape_counts())
+                metrics_seen.append({k: float(v) for k, v in metrics.items()})
+
+            tcfg = D.DistillConfig(num_steps=steps, batch_size=2, save_every=steps - 1 if save else 10 ** 9,
+                                   asr_start_step=0, sv_start_step=0, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            student, scorer, disc_t, _ = D.train_distill(
+                tcfg, cfg, disc_cfg, asr_cfg, sv_cfg, checkpoint_dir=tmp, seed=0, device=dev, on_step=on_step,
+                params_override={"teacher": teacher, "asr": asr, "sv": sv, "disc": disc})
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            cum = [c.get("attention", 0) for c in counts]
+            iter_launches = [b_ - a_ for a_, b_ in zip([0] + cum, cum)]
+            iter_shapes = [{k: n - prev.get(k, 0) for k, n in cur.items() if n - prev.get(k, 0)}
+                           for prev, cur in zip([{}] + shapes_seen, shapes_seen)]
+            want_iter = [per_iter[s > tcfg.asr_start_step] for s in range(steps)]
+            check(iter_launches == want_iter and set(launches) == {"attention"},
+                  f"train distill {dtype}: attention launches by iteration {iter_launches}, want {want_iter}; "
+                  f"all launches {launches}")
+            unheld = set().union(*iter_shapes) - row_keys
+            check(not unheld, f"train distill {dtype}: attention launched at shapes not held against plain: {unheld}")
+            check(all(np.isfinite(v) for m_ in metrics_seen for v in m_.values()),
+                  f"train distill {dtype}: metrics {metrics_seen}")
+            flat = {n: ckpt.flatten_pytree(t) for n, t in (("student", student), ("scorer", scorer),
+                                                            ("disc", disc_t), ("teacher", teacher))}
+            for n, ref in (("student", start["teacher"]), ("scorer", start["teacher"]), ("disc", start["disc"])):
+                changed = sum(not torch.equal(flat[n][k], v) for k, v in ref.items())
+                check(changed > 0, f"train distill {dtype}: {n} did not change")
+            check(all(torch.equal(flat["teacher"][k], v) for k, v in start["teacher"].items()),
+                  f"train distill {dtype}: the teacher changed")
+            iter_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps, stamps[1:])]
+            row = dict(dtype=dtype, batch=2, iterations=steps, metrics=metrics_seen, iteration_ms=iter_ms,
+                       iteration_ms_median=statistics.median(iter_ms), wall_s=wall, peak_memory_bytes=peak,
+                       attention_launches_by_iteration=iter_launches, attention_launches_by_shape=iter_shapes)
+            if save:
+                t_load = time.perf_counter()
+                for name, tree, cfg_ in (("student_latest.npz", student, cfg), ("scorer_latest.npz", scorer, cfg),
+                                         ("discriminator_latest.npz", disc_t, disc_cfg)):
+                    path = os.path.join(tmp, name)
+                    if cfg_ is cfg:
+                        check(backbone_config_from_meta(ckpt.load_meta(path)) == cfg, f"{name}: metadata config")
+                    back = ckpt.flatten_pytree(params_from_jax(ckpt.load_pytree(path), cfg_))
+                    ref = ckpt.flatten_pytree(tree)
+                    check(back.keys() == ref.keys() and all(torch.equal(back[k], ref[k].cpu()) for k in ref),
+                          f"{name} does not reload equal")
+                row["saved_bytes"] = sum(os.path.getsize(os.path.join(tmp, f)) for f in os.listdir(tmp)
+                                         if f.endswith(".npz"))
+                row["reload_s"] = time.perf_counter() - t_load
+            teacher_p = cast_floats(teacher, torch.bfloat16) if dtype == "bfloat16" else teacher
+            kernels.reset_launches()
+            row["breakdown"] = breakdown(tcfg, student, scorer, disc_t, teacher_p, profile=save)
+            step_l, step_s = row["breakdown"]["step_launches"], row["breakdown"]["step_launches_by_shape"]
+            check(step_l["gates shut"] == want[False] and all(c == want[True] for c in step_l["gates open"]),
+                  f"train distill {dtype}: attention launches by step {step_l}, want {want}")
+            for gates, name in ((g_, n_) for g_ in (False, True) for n_ in ("student", "disc", "scorer")):
+                got_c = conformer_counts(step_s["gates open" if gates else "gates shut"][name])
+                want_c = {k: n for k, n in want_conf[gates][name].items() if n}
+                check(got_c == want_c, f"train distill {dtype}: {name} step, gates {'open' if gates else 'shut'}: "
+                      f"conformer attention launches {got_c}, want {want_c}")
+            med = row["breakdown"]["step_ms_median"]["iteration"]
+            row["latent_frames_per_s"] = 2 * data.max_latents / (med / 1e3)
+            print(f"  train_distill {dtype} batch 2: {json.dumps(row)}", flush=True)
+            runs[f"{dtype} B2"] = row
+            del student, scorer, disc_t, flat, teacher_p
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # each shape's launches an iteration, as counted in the runs (iteration 0: the gates shut; 1: open)
+    for r in rows:
+        r["launches_per_iteration"] = {k: {"gates shut": run["attention_launches_by_shape"][0].get(r["key"], 0),
+                                           "gates open": run["attention_launches_by_shape"][1].get(r["key"], 0)}
+                                       for k, run in runs.items()}
+    attn["train_distill"] = runs
+    attn["launches_train_distill"] = {k: r["attention_launches_by_iteration"] for k, r in runs.items()}
+    del teacher, disc, asr, sv
+    torch.cuda.empty_cache()
+    print(f"  attention launches an iteration by shape: "
+          f"{json.dumps({r['key']: r['launches_per_iteration'] for r in rows})}", flush=True)
+    print(f"  phase train distill: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def profile_batch(fn):

@@ -33,6 +33,15 @@
 //    distributed shared memory, in one launch with no scratch buffer.
 //  * fp32 (exact fp32 parity, tests): attn_kernel. One block of 128 threads
 //    per (b, h, 16-row q tile), products on the CUDA cores in fp32.
+//  * D = 4, fp32 and bf16 (the ASR conformer's 16 heads of 4, which the
+//    distiller's CTC loss runs over 1024 frames): attn_small_kernel. An mma
+//    tile needs K = 16, so a 4-wide head would be 3/4 zero padding; instead
+//    one thread owns one query row, its q and O (4 floats each) in
+//    registers, and the block's 128 rows share 64-key tiles of K, V and the
+//    mask in shared memory (every lane reads the same key: a broadcast).
+//    Scores, the online softmax and PV are fp32 on the CUDA cores; bf16
+//    inputs are widened on load and the output rounded once, then gated as
+//    the bf16 kernel gates.
 //
 // Measured times (H100 80GB HBM3, 700 W) are in PERF.md section 6.
 //
@@ -46,6 +55,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "sm90_common.cuh"
 
@@ -198,6 +208,111 @@ int launch(const AttnArgs& a, cudaStream_t stream) {
   }
   dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
   attn_kernel<D><<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ small head dims, CUDA cores
+
+template <typename T>
+__device__ __forceinline__ float to_f(T v);
+template <>
+__device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+constexpr int SNT = 128;  // threads (query rows) per block
+constexpr int SBK = 64;   // keys per shared-memory tile
+
+template <typename T, int D>
+__global__ void __launch_bounds__(SNT) attn_small_kernel(const AttnArgs a) {
+  __shared__ float Ks[SBK * D];
+  __shared__ float Vs[SBK * D];
+  __shared__ unsigned char Ms[SBK];
+  const int tid = threadIdx.x, t = blockIdx.x * SNT + tid, h = blockIdx.y, b = blockIdx.z;
+  const bool live = t < a.Tq;
+
+  float q[D], acc[D];
+  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1] + (long long)(live ? t : 0) * a.sq[2];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    q[d] = live ? to_f<T>(qp[d]) : 0.f;
+    acc[d] = 0.f;
+  }
+  float m = -INFINITY, l = 0.f;
+
+  for (int src = 0; src < 2; ++src) {
+    const int S = a.S[src];
+    if (S == 0) continue;
+    const T* kp = static_cast<const T*>(a.k[src]) + b * a.sk[src][0] + h * a.sk[src][1];
+    const T* vp = static_cast<const T*>(a.v[src]) + b * a.sv[src][0] + h * a.sv[src][1];
+    const unsigned char* mp = a.m[src] + b * a.msb[src];
+    for (int j0 = 0; j0 < S; j0 += SBK) {
+      const int nk = min(SBK, S - j0);
+      __syncthreads();  // the previous tile's readers are done
+      for (int i = tid; i < SBK * D; i += SNT) {
+        const int j = i / D, d = i - j * D;
+        Ks[i] = j < nk ? to_f<T>(kp[(long long)(j0 + j) * a.sk[src][2] + d]) : 0.f;
+        Vs[i] = j < nk ? to_f<T>(vp[(long long)(j0 + j) * a.sv[src][2] + d]) : 0.f;
+      }
+      if (tid < SBK) Ms[tid] = tid < nk ? mp[j0 + tid] : 0;
+      __syncthreads();
+
+      float s[SBK], tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SBK; ++j) {
+        float dot = 0.f;
+#pragma unroll
+        for (int d = 0; d < D; ++d) dot = fmaf(q[d], Ks[j * D + d], dot);
+        float sc = dot * a.scale;
+        if (j >= nk) sc = -INFINITY;  // past the end: no weight at all
+        else if (!Ms[j]) sc = -1e9f;  // masked: replaced, as the reference does
+        s[j] = sc;
+        tmax = fmaxf(tmax, sc);
+      }
+      const float mnew = fmaxf(m, tmax);  // finite: a tile holds at least one key
+      const float alpha = expf(m - mnew);  // 0 on the first tile (m = -inf)
+      float psum = 0.f;
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[d] *= alpha;
+#pragma unroll
+      for (int j = 0; j < SBK; ++j) {
+        const float p = expf(s[j] - mnew);
+        psum += p;
+#pragma unroll
+        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d]);
+      }
+      l = l * alpha + psum;
+      m = mnew;
+    }
+  }
+
+  if (!live) return;
+  const float inv = 1.f / l;
+  T* out = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1] + (long long)t * a.so[2];
+  const T* g = a.gate ? static_cast<const T*>(a.gate) + b * a.sg[0] + h * a.sg[1] + (long long)t * a.sg[2] : nullptr;
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    const float o = acc[d] * inv;
+    if constexpr (std::is_same<T, float>::value) {
+      out[d] = g ? __fmul_rn(o, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[d])))) : o;  // o * (1 / (1 + exp(-g)))
+    } else {
+      // o rounded, then exp(-g), 1 + that, its reciprocal and the product each rounded to bf16
+      const __nv_bfloat16 ob = __float2bfloat16_rn(o);
+      if (!g) {
+        out[d] = ob;
+      } else {
+        const __nv_bfloat16 e = __float2bfloat16_rn(expf(-__bfloat162float(g[d])));
+        const __nv_bfloat16 den = __hadd_rn(__float2bfloat16_rn(1.f), e);
+        out[d] = __hmul_rn(ob, __float2bfloat16_rn(__fdiv_rn(1.f, __bfloat162float(den))));
+      }
+    }
+  }
+}
+
+template <typename T, int D>
+int launch_small(const AttnArgs& a, cudaStream_t stream) {
+  dim3 grid((a.Tq + SNT - 1) / SNT, a.H, a.B);
+  attn_small_kernel<T, D><<<grid, SNT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -600,11 +715,14 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
   if (a.S[1] > 0 && (!a.k[1] || !a.v[1] || !a.m[1])) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // fp32: the CUDA-core kernel; bf16: the tensor-core kernel (16-byte aligned
-  // q/k/v rows and 4-byte aligned out pairs are the wrapper's check)
+  // q/k/v rows and 4-byte aligned out pairs are the wrapper's check); D = 4,
+  // either dtype: the small-head kernel (element loads, no alignment needed)
   switch (dtype * 1000 + D) {
+    case 4: return launch_small<float, 4>(a, s);
     case 64: return launch<64>(a, s);
     case 120: return launch<120>(a, s);
     case 128: return launch<128>(a, s);
+    case 1004: return launch_small<__nv_bfloat16, 4>(a, s);
     case 1064: return launch_mma<64>(a, D, s);
     case 1120: return launch_mma<128>(a, D, s);
     case 1128: return launch_mma<128>(a, D, s);

@@ -20,7 +20,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from smalltts_tpu_torch.ops import nn
+from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.dit_block import fused_dit_scan
 from smalltts_tpu_torch.ops.kernels.w8 import quantize_w8, w8_matmul_all_layers
 from smalltts_tpu_torch.ops.rope import interleaved_cos_sin, rotate_interleaved
@@ -333,7 +333,8 @@ def dit_forward(p, cfg: DiTConfig, x, ref_seq, ref_mask, phoneme_embedding, phon
     """Full (uncached) forward on the split layout -> (hidden (B, T, H),
     features (B, L, T, H), each block's output) (dit.py:392-436). With
     cfg.remat each block runs under torch.utils.checkpoint and is computed
-    again in the backward."""
+    again in the backward (with the plain versions where the forward had
+    them forced)."""
     x = _input_embed(p["input_embed"], cfg, x, mask)
     cos, sin = rope_cos_sin(cfg, x.shape[1], x.device)
     mem = nn.linear(p["phoneme_proj"], phoneme_embedding)
@@ -345,7 +346,8 @@ def dit_forward(p, cfg: DiTConfig, x, ref_seq, ref_mask, phoneme_embedding, phon
     feats = []
     for blk, mod in zip(blocks, mods):
         args = (blk, cfg, x, mod, mask, joint_key_mask, cos, sin, ref_seq, mem)
-        x = checkpoint(_block, *args, use_reentrant=False) if cfg.remat else _block(*args)
+        x = (checkpoint(_block, *args, use_reentrant=False, context_fn=kernels.checkpoint_contexts) if cfg.remat
+             else _block(*args))
         feats.append(x)
     x = _adaln_final_from_mod(nn.linear(p["norm_out"]["linear"], nn.silu(emb)), x)
     return x, torch.stack(feats, dim=1)

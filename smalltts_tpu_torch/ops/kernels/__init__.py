@@ -9,7 +9,9 @@ for a CUDA tensor it launches its kernel or raises. `LAUNCHES` counts the
 launches per wrapper name: a wrapper adds one where it launches, nowhere
 else. Under a CUDA graph capture (`recording()`) a wrapper's count goes to
 the graph instead, and each replay adds the graph's counts
-(`add_launches`). `force_plain()` is a test-only switch that routes CUDA
+(`add_launches`). `SHAPE_LAUNCHES` counts the eager launches of a wrapper
+that names its shape (attention), by (name, shape); a graph's replays do
+not add to it. `force_plain()` is a test-only switch that routes CUDA
 tensors through the plain versions, so a run can be held against the same
 run without the kernels.
 """
@@ -25,7 +27,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -35,17 +37,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES: Dict[str, int] = {}
+SHAPE_LAUNCHES: Dict[tuple, int] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _plain = threading.local()
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, shape: Optional[tuple] = None) -> None:
     counts = getattr(_plain, "recording", None)  # a CUDA graph capture in this thread
-    if counts is None:
-        counts = LAUNCHES
     with _lock:
+        if counts is None:
+            counts = LAUNCHES
+            if shape is not None:
+                SHAPE_LAUNCHES[(name, shape)] = SHAPE_LAUNCHES.get((name, shape), 0) + 1
         counts[name] = counts.get(name, 0) + 1
 
 
@@ -53,6 +58,7 @@ def reset_launches() -> None:
     with _lock:
         for k in list(LAUNCHES):
             LAUNCHES[k] = 0
+        SHAPE_LAUNCHES.clear()
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -87,6 +93,13 @@ def force_plain():
         yield
     finally:
         _plain.on = prev
+
+
+def checkpoint_contexts():
+    """torch.utils.checkpoint's context_fn: the forward as it is, and the
+    recompute in the backward, which autograd runs in a thread of its own
+    on the card, under this thread's force_plain() where it is on."""
+    return contextlib.nullcontext(), (force_plain() if getattr(_plain, "on", False) else contextlib.nullcontext())
 
 
 def use_plain(t) -> bool:

@@ -10,7 +10,9 @@ On the card, bf16 runs a FlashAttention-2 kernel in registers (mma.sync)
 that splits the keys across a thread-block cluster where the (b, h, q tile)
 blocks alone cannot fill the SMs, and merges the splits by a log-sum-exp
 combine; `attention_split_plain` is that split and merge in plain PyTorch,
-for the tests. fp32 runs a CUDA-core kernel.
+for the tests. fp32 runs a CUDA-core kernel. A head dim of 4 (the ASR
+conformer's), fp32 or bf16, runs a CUDA-core kernel of its own, one query
+row a thread.
 
 `attention` is the kernel behind a torch.autograd.Function, for training:
 its forward is `fused_attention` over one key source, ungated; its backward
@@ -29,7 +31,7 @@ import torch
 from smalltts_tpu_torch.ops import kernels, nn
 
 NAME = "attention"
-HEAD_DIMS = (64, 120, 128)
+HEAD_DIMS = (4, 64, 120, 128)
 KEY_TILE = 64  # keys per tile of the bf16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -118,8 +120,9 @@ def fused_attention(
     gated. Tensors may be strided views with a contiguous head dim. `out`, a
     (B,H,Tq,D) view, receives the result; without it the result is a
     (B,H,Tq,D) view of a (B,Tq,H,D) buffer. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise. In bf16 the kernel
-    chooses its key split from the shape."""
+    version; CUDA tensors launch the kernel or raise, and count the launch
+    by (B, H, Tq, S1 + S2, D, dtype) as well. In bf16 the kernel chooses its
+    key split from the shape."""
     if kernels.use_plain(q):
         res = attention_plain(q, k, v, key_mask, k2, v2, key_mask2, gate)
         if out is None:
@@ -147,7 +150,7 @@ def fused_attention(
         out = torch.empty((B, Tq, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
     elif out.shape != q.shape or out.dtype != q.dtype:
         raise ValueError("attention: out must have q's shape and dtype")
-    if q.dtype == torch.bfloat16:  # the tensor-core kernel copies q/k/v rows in 16-byte chunks
+    if q.dtype == torch.bfloat16 and D != 4:  # the tensor-core kernel copies q/k/v rows in 16-byte chunks
         for t in [q, k, v] + ([k2, v2] if two else []):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
                 raise ValueError("attention: bf16 q/k/v need 16-byte aligned rows (strides of 8)")
@@ -170,7 +173,7 @@ def fused_attention(
         (ctypes.c_int * 5)(B, H, Tq, S1, S2), 1.0 / math.sqrt(D),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     kernels.check(lib, "attention", status, "attention kernel")
-    kernels.count_launch(NAME)
+    kernels.count_launch(NAME, (B, H, Tq, S1 + S2, D, q.dtype))
     return out
 
 

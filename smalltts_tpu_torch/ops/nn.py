@@ -39,6 +39,11 @@ def init_zeros_linear(in_dim, out_dim, bias=True, dtype=torch.float32, device="c
     return p
 
 
+def init_embedding(gen, vocab, dim, dtype=torch.float32, device="cpu"):
+    w = torch.empty((vocab, dim), device=device, dtype=torch.float32)
+    return {"w": w.normal_(generator=gen).to(dtype)}
+
+
 def init_rmsnorm(shape, dtype=torch.float32, device="cpu"):
     return {"scale": torch.ones(shape, dtype=dtype, device=device)}
 
@@ -50,6 +55,13 @@ def init_conv1d(gen, c_in, c_out, k, groups=1, dtype=torch.float32, device="cpu"
         "w": _uniform(gen, (c_out, c_in // groups, k), bound, dtype, device),
         "b": _uniform(gen, (c_out,), bound, dtype, device),
     }
+
+
+def init_batchnorm(ch, dtype=torch.float32, device="cpu"):
+    """BatchNorm params and running state; `mean`/`var` (float32) are the
+    state, which the optimizer leaves as they are (train.optim.trainable_mask)."""
+    return {"scale": torch.ones(ch, dtype=dtype, device=device), "bias": torch.zeros(ch, dtype=dtype, device=device),
+            "mean": torch.zeros(ch, device=device), "var": torch.ones(ch, device=device)}
 
 
 # -------------------------------------------------------------------------- apply
@@ -122,6 +134,61 @@ def linear(p, x: torch.Tensor) -> torch.Tensor:
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
+
+
+def embedding(p, ids: torch.Tensor) -> torch.Tensor:
+    return p["w"][ids.long()]
+
+
+def batchnorm(p, x: torch.Tensor, train: bool, mask: Optional[torch.Tensor] = None, momentum: float = 0.1,
+              eps: float = 1e-5):
+    """Channel-last BatchNorm over (B, T, C), the statistics over the valid
+    positions where a (B, T) mask is given. Returns (y, new_params): in
+    training the batch statistics normalize and the running ones move by
+    `momentum`, the variance the BIASED one, as the JAX package tracks it
+    (F.batch_norm tracks the unbiased one); the new running stats carry no
+    gradient."""
+    xf = x.float()
+    if train:
+        if mask is not None:
+            m = mask[..., None].float()
+            count = torch.clamp_min(m.sum(), 1.0)
+            mean = (xf * m).sum(dim=(0, 1)) / count
+            var = (((xf - mean) ** 2) * m).sum(dim=(0, 1)) / count
+        else:
+            mean = xf.mean(dim=(0, 1))
+            var = ((xf - mean) ** 2).mean(dim=(0, 1))
+        new_p = dict(p)
+        new_p["mean"] = ((1 - momentum) * p["mean"] + momentum * mean).detach()
+        new_p["var"] = ((1 - momentum) * p["var"] + momentum * var).detach()
+    else:
+        mean, var = p["mean"], p["var"]
+        new_p = p
+    y = (xf - mean) * torch.rsqrt(var + eps) * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype), new_p
+
+
+def groupnorm(scale, bias, x: torch.Tensor, num_groups: int = 1, eps: float = 1e-5,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Channel-last GroupNorm over (B, T, C): per sample, over time and the
+    group's channels; with a (B, T) mask over the valid frames only."""
+    b, t, c = x.shape
+    xf = x.float().reshape(b, t, num_groups, c // num_groups)
+    if mask is not None:
+        m = mask.float()[:, :, None, None]
+        count = torch.clamp_min(m.sum(dim=1, keepdim=True) * xf.shape[-1], 1.0)
+        mean = (xf * m).sum(dim=(1, 3), keepdim=True) / count
+        var = (((xf - mean) ** 2) * m).sum(dim=(1, 3), keepdim=True) / count
+    else:
+        mean = xf.mean(dim=(1, 3), keepdim=True)
+        var = ((xf - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, t, c)
+    return (xf * scale.float() + bias.float()).to(x.dtype)
+
+
+def mask_value(dtype) -> float:
+    """The finite large-negative additive mask of a dtype's softmax."""
+    return -1e9 if dtype == torch.float32 else -3e4
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -9,6 +9,9 @@ from __future__ import annotations
 
 import torch
 
+# the trainers' compute_dtype names
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 
 def cast_floats(tree, dtype):
     """Every floating leaf of a tree of tensors cast to `dtype` (a

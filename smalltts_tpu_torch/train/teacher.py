@@ -29,13 +29,11 @@ import torch
 
 from smalltts_tpu_torch.models.backbone import BackboneConfig, backbone_forward, init_backbone
 from smalltts_tpu_torch.ops.masking import length_mask, masked_mse
-from smalltts_tpu_torch.ops.precision import cast_floats
+from smalltts_tpu_torch.ops.precision import DTYPES, cast_floats
 from smalltts_tpu_torch.ops.schedule import apply_noise
 from smalltts_tpu_torch.train.ema import ema_decay, ema_init, ema_update
 from smalltts_tpu_torch.train.optim import apply_updates, global_norm, teacher_optimizer
 from smalltts_tpu_torch.utils.checkpoint import flatten_pytree, unflatten_pytree
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -82,7 +80,7 @@ def teacher_loss(params, cfg: BackboneConfig, batch, draws, train_cfg: TeacherTr
     ph_mask = length_mask(ph_lengths, phonemes.shape[1])
     mask = length_mask(batch["latents_lengths"], latents.shape[1])
     noised, v_target = apply_noise(latents, draws["t"], draws["noise"])
-    cdt = _DTYPES[train_cfg.compute_dtype]
+    cdt = DTYPES[train_cfg.compute_dtype]
     if cdt != torch.float32:
         # the bf16 compute view: gradients reach the fp32 masters through the cast
         params = cast_floats(params, cdt)
@@ -203,7 +201,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Train the flow-matching teacher on the card (dummy data).")
     ap.add_argument("--steps", type=int, default=330_000)
     ap.add_argument("--batch-size", type=int, default=16)
-    ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(_DTYPES),
+    ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(DTYPES),
                     help="forward/backward compute dtype; masters stay fp32 (ops/precision.py)")
     ap.add_argument("--resume", default=None, help="a train_state.npz written by this trainer")
     ap.add_argument("--checkpoint-dir", default="assets/teacher_checkpoints")
