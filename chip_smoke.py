@@ -8,8 +8,12 @@
 2. Kernel phases: each hand-written kernel against its plain PyTorch version
    on the card, at the serving path's shapes, with the tolerance stated;
    kernel, plain and (where one exists) library-call times. A: attention,
-   the served DiT shapes (T 16 and 40, cross Sc 448) among them; B: the DiT
-   block scan's kernels, bf16 and int8-weight, at M = 320 and M = 128 rows:
+   the served DiT shapes (T 16 and 40, cross Sc 448) among them, and the
+   fp32 (3xTF32) kernel at every fp32 shape the trainers launch beside
+   scaled_dot_product_attention, with ptxas's registers and spills (a
+   spill fails the run); B: the DiT
+   block scan's kernels, bf16 and int8-weight, at M = 320 and M = 128 rows
+   (and the teacher sampler's M = 1536):
    adaln_modulate, qk_norm_rope, and the four GEMM products (qkvg with its
    bias, w13 with SwiGLU, to_out and w2 with the gated residual), and the
    12-layer scan on bf16 and on int8 stream weights; C: the three w8
@@ -34,7 +38,12 @@
    every counted GEMM and attention launch on the port's kernels and no
    library attention kernel. The int8 batch is also held against the bf16
    batch on the same noise.
-   Then phase serve http (see `serve_http`): the bf16 model warmed over the
+   Then phase serve pt (see `serve_pt`): the seed-0 weights saved by
+   torch.save under the reference's key names and as an npz, served by
+   SmallTTS(checkpoint=...) from each: params and a batch's latents equal
+   bit for bit, one request from the .pt; phase serve main serves that .pt
+   through the server's command line.
+   Phase serve http (see `serve_http`): the bf16 model warmed over the
    serving contract (48 graphs), the port's TTSServer on a local socket
    answering 8 concurrent /synthesize requests and one chunked
    /synthesize/stream with no capture in the request path, a trust-mode
@@ -89,18 +98,22 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 MEM_BW = 3.35e12                      # H100 SXM HBM3, bytes/s
-PEAK = {"bf16": 989e12, "fp32": 67e12}  # dense tensor-core bf16; fp32 off the tensor cores
+# dense tensor-core bf16; fp32 off the tensor cores; fp32-accurate products on the tensor cores as three
+# TF32 passes (495 TFLOP/s TF32): the least time for the fp32 attention kernel's work
+PEAK = {"bf16": 989e12, "fp32": 67e12, "fp32_3xtf32": 495e12 / 3}
 ATTN_SRC = "smalltts_tpu_torch/csrc/attention.cu"
 BLOCK_SRC = "smalltts_tpu_torch/csrc/dit_block.cu"
 ATTN_TPU = "smalltts_tpu/ops/pallas/attention.py:58"
-# fp32 (CUDA cores), bf16 (tensor cores), head dim 4 (CUDA cores, either dtype)
-ATTN_KERNELS = ("attn_kernel<", "attn_mma_kernel<", "attn_small_kernel<")
+# fp32 (tensor cores, 3xTF32), bf16 (tensor cores), head dim 4 (CUDA cores, either dtype)
+ATTN_KERNELS = ("attn_tf32_kernel<", "attn_mma_kernel<", "attn_small_kernel<")
 # no library attention may run on the serving path: profiler names of PyTorch's fused attentions
 LIBRARY_ATTENTION = ("flash", "fmha", "efficient_attention", "mem_eff", "scaled_dot_product", "sdpa")
 BLOCK_TPU = "smalltts_tpu/ops/pallas/block.py:216"
@@ -136,6 +149,36 @@ def card_line() -> str:
 def bound(nbytes: float, flops: float, kind: str):
     t_bytes, t_ops = nbytes / MEM_BW, flops / PEAK[kind]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_kind(dtype, D) -> str:
+    """The peak an attention launch's bound is taken at: bf16 tensor cores;
+    fp32 through the 3xTF32 kernel, or, at head dim 4, the CUDA cores."""
+    if str(dtype).endswith("bfloat16"):
+        return "bf16"
+    return "fp32" if D == 4 else "fp32_3xtf32"
+
+
+def ptxas_report(log_path: str) -> dict:
+    """Registers and spill bytes of each attention kernel in an nvcc
+    `-Xptxas -v` log, by the kernel's name and template arguments."""
+    import re
+
+    out, name = {}, None
+    for line in open(log_path):
+        m = re.search(r"Compiling entry function '\w*?(attn_\w+?_kernel)I(\w*?)EEv", line)
+        if m:
+            args = re.sub(r"Li(\d+)E", r",\1", m.group(2)).replace("13__nv_bfloat16", "bf16").replace("f,", "float,")
+            name = f"{m.group(1)}<{args.lstrip(',')}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = dict(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
 
 
 def nbytes(*ts) -> int:
@@ -291,18 +334,55 @@ def main() -> int:
                 lib = lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :])  # noqa: E731
             lib_ms = timed(lib, 20)[0]
             S = T + S2
-            b_ms, b_by = bound(nbytes(q, k, v, m, *two.values(), got), 4.0 * B * H * T * S * D,
-                               "bf16" if dtype == torch.bfloat16 else "fp32")
+            b_ms, b_by = bound(nbytes(q, k, v, m, *two.values(), got), 4.0 * B * H * T * S * D, attn_kind(dtype, D))
             row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=str(dtype).split(".")[-1],
                        max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock,
                        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
             shapes.append(row)
             print("  " + json.dumps(row), flush=True)
+    # the fp32 (3xTF32) kernel at every fp32 shape the trainers launch: the teacher step's (batch 2;
+    # the DiT's self keys 256 and its ref + text 262, one source of 518), the distiller's backbone at the
+    # teacher's CFG batch of 6, and its discriminator's 1030 keys at batch 4 and 2; key counts that are
+    # no multiple of the 32-key tile, a fully-masked row in each (key_mask). Bound: operations at 165
+    # TFLOP/s (three TF32 passes at 495) or bytes, whichever is longer
+    print("  fp32 training shapes: the 3xTF32 kernel vs plain (1e-5), scaled_dot_product_attention beside it")
+    train_rows = []
+    for label, B, H, T, S, D in (("teacher dit T=256 + 64 + 198", 2, 8, 256, 518, 120),
+                                 ("teacher text P=198", 2, 4, 198, 198, 128), ("teacher style R=64", 2, 8, 64, 64, 64),
+                                 ("distill dit B6", 6, 8, 256, 518, 120), ("distill text B6", 6, 4, 198, 198, 128),
+                                 ("distill style B6", 6, 8, 64, 64, 64), ("disc S=1030 B4", 4, 8, 1030, 1030, 64),
+                                 ("disc S=1030 B2", 2, 8, 1030, 1030, 64)):
+        q, k, v = randn((B, H, T, D), torch.float32), randn((B, H, S, D), torch.float32), randn((B, H, S, D), torch.float32)
+        m = key_mask(B, S)
+        got = A.fused_attention(q, k, v, m)
+        want = A.attention_plain(q, k, v, m)
+        abs_e, rel_e = err(got, want)
+        check(rel_e <= tol[torch.float32], f"attention {label} fp32: rel err {rel_e:.3e}")
+        ms, wall, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)
+        check(clock == "device", f"attention {label} fp32: no device-clock time")
+        plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
+                       20)[0]
+        b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * T * S * D, attn_kind(torch.float32, D))
+        row = dict(shape=f"{label} B={B} H={H} Tq={T} S={S} D={D}", dtype="float32", max_abs_err=abs_e,
+                   rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, library_over_kernel=lib_ms / ms)
+        train_rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+    ptxas = ptxas_report(os.path.join(kernels.BUILD_DIR, "attention.log"))
+    print(f"  ptxas (attention.cu): {json.dumps(ptxas)}", flush=True)
+    tf32 = {n: r for n, r in ptxas.items() if n.startswith("attn_tf32_kernel")}
+    check(len(tf32) == 3 and not any(r["spill_stores"] or r["spill_loads"] for r in tf32.values()),
+          f"the 3xTF32 kernels spill, or are missing from the build log: {tf32}")
     # the served DiT form in bf16 (T 40, Sc 448): 48 of a batch's 68 launches
     head = next(r for r in shapes if r["shape"].startswith("dit T=40 + cross Sc=448") and r["dtype"] == "bfloat16")
+    fp32 = train_rows[0]  # the teacher's DiT shape: 12 launches a teacher step, 252 a distillation iteration
     entries.append(dict(name="attention", route="cuda", source=ATTN_SRC, replaces=ATTN_TPU,
                         **{k: head[k] for k in ("max_abs_err", "ms", "wall_ms", "clock", "plain_ms", "bound_ms",
-                                                "bound_by", "library_ms")}, shape=head["shape"], shapes=shapes))
+                                                "bound_by", "library_ms")}, shape=head["shape"], shapes=shapes,
+                        fp32_kernel=dict(kernel="attn_tf32_kernel", **{k: fp32[k] for k in (
+                            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+                        fp32_train_shapes=train_rows, ptxas=ptxas))
 
     # ------------------------------------------------------------- kernel B
     from smalltts_tpu_torch.models.dit import DiTConfig, fuse_serving_projections, init_dit, rope_cos_sin
@@ -343,19 +423,20 @@ def main() -> int:
                       bound_by=b_by, library_ms=None, shape=f"B={B} T={T} Sc={Sc} L={L} H={H}")
 
     # each launch of a layer, timed over the 12 layers' weights (88+ MB: out of L2, as in the scan),
-    # at the two served row counts: M = 320 (latent bucket 40) and M = 128 (bucket 16)
+    # at the two served row counts, M = 320 (latent bucket 40) and M = 128 (bucket 16), and at the
+    # teacher sampler's M = 1536 (its 3x CFG batch of 6 rows x t 256; here 8 rows x 192)
     def acts(Tm):
         m_ = key_mask(B, Tm)
         m_[-1, :3] = True
         return dict(h=randn((B, Tm, H)), mid=randn((B, Tm, F)), x=randn((B, Tm, H), scale=2.0), mask=m_,
                     rope=rope_cos_sin(cfg, Tm, dev))
 
-    act_rows = {T: acts(T), 16: acts(16)}
+    act_rows = {T: acts(T), 16: acts(16), 192: acts(192)}
     qs, ks = attn["q_norm"]["scale"], attn["k_norm"]["scale"]
 
     def gemm_rows(at, fw, sfx):
-        """kernel name -> [(shape, kernel, plain, library, cost)] for the layer's four products at both
-        row counts; a leaf holds bf16 `w` or int8 `w_q` + `scale`. The library call is torch.addmm (mm
+        """kernel name -> [(shape, kernel, plain, library, cost)] for the layer's four products at the
+        three row counts; a leaf holds bf16 `w` or int8 `w_q` + `scale`. The library call is torch.addmm (mm
         for to_out, which has no bias) on the product alone, with the bf16 weights."""
         def weight(lin, l):
             return (lin["w_q"][l], lin["scale"][l]) if "w_q" in lin else (lin["w"][l], None)
@@ -415,7 +496,7 @@ def main() -> int:
         return rows
 
     def adaln_rows():
-        """adaln_modulate at both row counts, each layer's shift/scale_msa (a modulation shared by the
+        """adaln_modulate at the three row counts, each layer's shift/scale_msa (a modulation shared by the
         batch, stride 0, as the sampler hoists it)."""
         rows = []
         for act in act_rows.values():
@@ -426,7 +507,7 @@ def main() -> int:
         return rows
 
     def qk_rows():
-        """qk_norm_rope at both row counts, in place on a qkvg buffer (the kernel and the plain
+        """qk_norm_rope at the three row counts, in place on a qkvg buffer (the kernel and the plain
         version each on its own copy), each layer's q/k norm scales."""
         rows = []
         for act in act_rows.values():
@@ -867,10 +948,17 @@ def main() -> int:
                                   **{k: {m: v[m] for m in ("dispatch_ms_median", "wall_ms_median", "graph_span_ms")}
                                      for k, v in rows.items()})
 
-    # the port's HTTP server on the bf16 path, its contract warmed first; then its command line
+    # the port's HTTP server on the bf16 path, its contract warmed first; then a reference torch
+    # checkpoint served, and the server's command line on it
     serve_http(torch, dev, entries)
     torch.cuda.empty_cache()
-    serve_main(entries)
+    tmp = tempfile.mkdtemp(prefix="smoke_pt_")
+    try:
+        pt = serve_pt(torch, dev, entries, tmp)
+        torch.cuda.empty_cache()
+        serve_main(entries, checkpoint=pt)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     onnx_phases(torch, dev, entries)
     torch.cuda.empty_cache()
     train_phases(torch, dev, entries)
@@ -1052,10 +1140,82 @@ def serve_http(torch, dev, entries):
     kernels.reset_launches()
 
 
-def serve_main(entries, timeout_s=600):
+def serve_pt(torch, dev, entries, tmp):
+    """Phase serve pt: the seed-0 weights of the serve phases (fp32, before
+    the pipeline's bf16 cast) saved into `tmp` twice: by torch.save under
+    the reference's key names ({"model": state_dict}, from
+    utils.torch_convert.backbone_state_dict), and as the JAX package's npz
+    with the config as metadata. SmallTTS(checkpoint=...) on each: the same
+    params bit for bit; one request through the .pt one, the launch
+    counters reset just before (attention and every scan kernel launched);
+    one batch of 8 sampled from each on the same noise, latents equal bit
+    for bit. Returns the .pt's path."""
+    import numpy as np
+
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.infer.sampler import sample_latents
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.config_io import backbone_meta
+    from smalltts_tpu_torch.utils.convert import params_to_jax
+    from smalltts_tpu_torch.utils.torch_convert import backbone_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = BackboneConfig()
+    gb = torch.Generator(device=dev).manual_seed(0)
+    tree = params_to_jax(redraw_zero_init(init_backbone(gb, cfg, device=dev), gb))
+    pt, npz = os.path.join(tmp, "seed0.pt"), os.path.join(tmp, "seed0.npz")
+    torch.save({"model": backbone_state_dict(tree)}, pt)
+    ckpt.save_pytree(npz, tree, backbone_meta(cfg))
+    del tree
+    print(f"phase serve pt: the seed-0 weights as a reference torch checkpoint ({os.path.getsize(pt) / 1e9:.2f} GB, "
+          f"torch.save of the reference's keys) and as an npz; SmallTTS(checkpoint=...) on each, pcm16_out=True",
+          flush=True)
+    t0 = time.perf_counter()
+    tts = SmallTTS(checkpoint=pt, pcm16_out=True, seed=0)
+    load_s = time.perf_counter() - t0
+    ref = SmallTTS(checkpoint=npz, pcm16_out=True, seed=0)
+    fa, fb = ckpt.flatten_pytree(tts.params), ckpt.flatten_pytree(ref.params)
+    check(fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k]) for k in fa),
+          "SmallTTS from the .pt and from the npz hold different params")
+    durations, waves, ids = serve_requests()
+    tts.synthesize(tts.encode_reference(waves[0]), ids[0], 2.0)  # warm-up outside the counted request
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = tts.synthesize(tts.encode_reference(waves[1]), ids[1], durations[1])
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    check(out.dtype == np.int16 and int(np.abs(out).max()) > 0, f"the .pt request: {out.dtype}, all zero or not")
+    check(all(launches.get(n, 0) > 0 for n in ("attention",) + SCAN_KERNELS), f"the .pt request launched {launches}")
+    ref_, ref_lens, ph, ph_lens, seq_lens, t_bucket = padded_batch(tts)
+    noises = torch.randn((tts.num_steps, 8, t_bucket, 64), generator=gb, device=dev).to(tts.dtype)
+    tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    lat = []
+    with torch.inference_mode():
+        for p in (tts, ref):
+            lat.append(sample_latents(p.params, p.cfg, tt(ref_, p.dtype), tt(ref_lens, torch.int32), tt(ph, torch.int64),
+                                      tt(ph_lens, torch.int32), tt(seq_lens, torch.int32), num_steps=p.num_steps,
+                                      noises=noises, sampler=p.sampler))
+    n_diff = int((lat[0] != lat[1]).sum())
+    check(n_diff == 0 and bool(torch.isfinite(lat[0]).all()), f".pt against npz latents: {n_diff} differ")
+    row = dict(pt_bytes=os.path.getsize(pt), load_s=load_s, request_launches=launches,
+               latents_differing=n_diff, latents=list(lat[0].shape))
+    print(f"  {json.dumps(row)}; phase serve pt: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    for e in entries:
+        if e["name"] in ("attention",) + SCAN_KERNELS:
+            e["launches_pt_serve"] = launches.get(e["name"], 0)
+        elif e["name"] == "fused_dit_scan":
+            e["serve_pt"] = row
+    del tts, ref, lat
+    return pt
+
+
+def serve_main(entries, checkpoint=None, timeout_s=600):
     """Phase serve main: `python -m smalltts_tpu_torch.serving.server
     --warmup` in a process of its own, with its default flags (batch
-    classes 1, 8 and 32) on a free local port, as a user starts the server:
+    classes 1, 8 and 32) on a free local port, as a user starts the server,
+    serving `checkpoint` (a reference torch checkpoint) where one is given:
     /ready polled until it answers 200, one /synthesize, then SIGTERM, on
     which it drains and exits 0. Prints the seconds to /ready, the card's
     memory in use then (nvidia-smi) and the server's own summary lines."""
@@ -1069,12 +1229,12 @@ def serve_main(entries, timeout_s=600):
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    print(f"phase serve main: python -m smalltts_tpu_torch.serving.server --warmup --host 127.0.0.1 --port {port}",
-          flush=True)
+    cmd = ["-m", "smalltts_tpu_torch.serving.server", "--warmup", "--host", "127.0.0.1", "--port", str(port)]
+    cmd += ["--checkpoint", checkpoint] if checkpoint else []
+    print(f"phase serve main: python {' '.join(cmd)}", flush=True)
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "smalltts_tpu_torch.serving.server", "--warmup",
-                             "--host", "127.0.0.1", "--port", str(port)], cwd=root,
+    proc = subprocess.Popen([sys.executable, *cmd], cwd=root,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = []
     reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
@@ -1446,8 +1606,10 @@ def train_phases(torch, dev, entries):
         busy, kern = profile_batch(lambda: (one(), torch.cuda.synchronize()))
         wall = statistics.median(walls)
         attn_ms = sum(t for k, t, _ in kern if any(m in k for m in ATTN_KERNELS))
+        by_kernel = {m[:-1]: sum(t for k, t, _ in kern if m in k) for m in ATTN_KERNELS}
         return dict(dispatch_ms=dispatch, sync_calls=syncs, wall_ms=walls, device_busy_ms=busy,
-                    idle_share=1.0 - busy / wall, attention_kernel_ms=attn_ms, kernels=sum(c for _, _, c in kern),
+                    idle_share=1.0 - busy / wall, attention_kernel_ms=attn_ms, attention_ms_by_kernel=by_kernel,
+                    kernels=sum(c for _, _, c in kern),
                     top=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:10]])
 
     tmp = tempfile.mkdtemp(prefix="teacher_smoke_")
@@ -1537,7 +1699,7 @@ def train_phases(torch, dev, entries):
                   f"attention Function gradients {label} {dtype}: {grad_err}")
             del grads, leaves
             out = A.fused_attention(q, k, v, m)
-            ms = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)[0]
+            ms, _, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)
             bwd_ms, bwd_wall, _ = timed(lambda: A.attention_backward(q, k, v, m, out, dout), 10)
             qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
             o_lib = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, attn_mask=m[:, None, None, :])
@@ -1546,10 +1708,10 @@ def train_phases(torch, dev, entries):
             lib_bwd_ms, lib_bwd_wall, _ = timed(
                 lambda: torch.autograd.grad(o_lib, (qs, ks, vs), dout, retain_graph=True), 10)
             kind = "bf16" if dtype == torch.bfloat16 else "fp32"
-            b_ms, b_by = bound(nbytes(q, k, v, m, out), 4.0 * B * H * Tq * S * D, kind)
+            b_ms, b_by = bound(nbytes(q, k, v, m, out), 4.0 * B * H * Tq * S * D, attn_kind(dtype, D))
             bb_ms, bb_by = bound(nbytes(q, k, v, m, out, dout) * 2 - nbytes(m, out, dout), 10.0 * B * H * Tq * S * D,
                                  kind)
-            row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=kind, grad_rel_err=grad_err, ms=ms, bound_ms=b_ms,
+            row = dict(shape=f"{label} B={B} H={H} D={D}", dtype=kind, grad_rel_err=grad_err, ms=ms, clock=clock, bound_ms=b_ms,
                        bound_by=b_by, library_ms=lib_ms, backward_ms=bwd_ms, backward_wall_ms=bwd_wall, backward_bound_ms=bb_ms,
                        backward_bound_by=bb_by, library_backward_ms=lib_bwd_ms, library_backward_wall_ms=lib_bwd_wall)
             rows.append(row)
@@ -1779,7 +1941,7 @@ def distill_phase(torch, dev, entries):
         plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
                        20)[0]
-        b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, kind)
+        b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, attn_kind(dtype, D_))
         row = dict(shape=f"{label} B={B} H={H} D={D_}", key=shape_key(B, H, Tq, S, D_, kind), dtype=kind, max_abs_err=abs_e,
                    rel_err=rel_e, grad_rel_err=grad_err, ms=statistics.median(ms_runs), ms_runs=ms_runs,
                    clock="device", plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -1975,8 +2137,9 @@ def distill_phase(torch, dev, entries):
                       key=lambda r: -r[1])
         busy = sum(r[1] for r in kern)
         attn_ms = sum(t for k_, t, _ in kern if any(m_ in k_ for m_ in ATTN_KERNELS))
+        by_kernel = {m_[:-1]: sum(t for k_, t, _ in kern if m_ in k_) for m_ in ATTN_KERNELS}
         return dict(row, dispatch_ms=dispatch, wall_ms=wall, device_busy_ms=busy, idle_share=1.0 - busy / wall,
-                    attention_kernel_ms=attn_ms, kernels=sum(c for _, _, c in kern),
+                    attention_kernel_ms=attn_ms, attention_ms_by_kernel=by_kernel, kernels=sum(c for _, _, c in kern),
                     top=[dict(kernel=k_[:90], ms=t, count=c) for k_, t, c in kern[:10]])
 
     tmp = tempfile.mkdtemp(prefix="distill_smoke_")

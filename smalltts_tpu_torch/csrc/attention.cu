@@ -12,11 +12,16 @@
 // = 1 / (1 + exp(-gate)) with each op rounded to it, as the DiT's XLA path
 // does (models/dit.py::_attend).
 //
-// What bounds it on the H100: bytes at the DiT's shapes. One DiT launch (B 8,
-// H 8, Tq 40, keys T + 448, D 120) reads 14 MB of cross K/V (4.1 us at 3.35
-// TB/s) for 1.4 GFLOP; the 12 layers' cross K/V do not fit in L2, so every
-// launch streams them from HBM, and only 64 (b, h) pairs exist to do it. The
-// text encoder's shape (B 8, H 4, 384 x 384, D 128) is near the ridge.
+// What bounds it on the H100: bytes at the served DiT's shapes. One DiT
+// launch (B 8, H 8, Tq 40, keys T + 448, D 120) reads 14 MB of cross K/V
+// (4.1 us at 3.35 TB/s) for 1.4 GFLOP; the 12 layers' cross K/V do not fit
+// in L2, so every launch streams them from HBM, and only 64 (b, h) pairs
+// exist to do it. The text encoder's shape (B 8, H 4, 384 x 384, D 128) is
+// near the ridge. The trainers' fp32 shapes are bound by operations: fp32
+// attention accurate to fp32 costs three TF32 products per product (below),
+// an effective 495 / 3 = 165 TFLOP/s, so the teacher's DiT (B 2, H 8, 256 x
+// 518, D 120) needs 6.2 us and the discriminator's (B 4, H 8, 1030 x 1030,
+// D 64) 53 us, against 3.6 us and 6.8 us to move their bytes.
 //
 //  * bf16 (the serving path): attn_mma_kernel, FlashAttention-2 in
 //    registers. A block has 4 warps, a warp 16 query rows. QK^T and PV run
@@ -31,8 +36,28 @@
 //    splits of one (b, h, q tile) form a thread-block cluster, each keeps its
 //    own (m, l, O), and they merge by a log-sum-exp combine through
 //    distributed shared memory, in one launch with no scratch buffer.
-//  * fp32 (exact fp32 parity, tests): attn_kernel. One block of 128 threads
-//    per (b, h, 16-row q tile), products on the CUDA cores in fp32.
+//  * fp32 (the trainers' default compute dtype): attn_tf32_kernel, the same
+//    FlashAttention-2 in registers, on the tensor cores with fp32 accuracy
+//    (3xTF32): mma.sync m16n8k8 tf32, each operand split into tf32 hi + lo,
+//    hi*lo + lo*hi + hi*hi accumulated in fp32. The dropped lo*lo and lo's
+//    truncation are ~2^-21 of a product, inside the port's fp32 tolerance
+//    (1e-5 max-rel), where one TF32 pass (2^-11) is not. It replaces a
+//    CUDA-core kernel (16-row q tiles, element loads, P through shared
+//    memory, no key split) that ran at 7-12% of the CUDA cores' 67
+//    TFLOP/s. Against the 3xTF32 bound: 4 warps of 16 query rows (a K/V
+//    tile is read once per 64 rows, not 16); K/V tiles of 32 keys (fp32
+//    tiles are twice bf16's bytes), double-buffered by 16-byte cp.async;
+//    the block's Q in shared memory, split where used (hi and lo of Q in
+//    registers would take D of them); D = 120 zero-padded to 128: 104 KB
+//    of shared memory and 255 registers, 2 blocks per SM, no spill. The
+//    tensor cores truncate as they accumulate, a bias that grows with the
+//    chain, so each key tile's PV goes to O through an fp32 add on the CUDA
+//    cores. The k index of both products is permuted inside each group of
+//    8 so that Q, K and V are read as float2 pairs (row strides make a
+//    half-warp's reads conflict-free) and the score fragments are PV's A
+//    fragments with no shuffle. The keys are split over a cluster and
+//    merged as bf16 does where the (b, h, q tile) blocks cannot fill the
+//    SMs (the teacher's DiT: 64 blocks, 6 splits).
 //  * D = 4, fp32 and bf16 (the ASR conformer's 16 heads of 4, which the
 //    distiller's CTC loss runs over 1024 frames): attn_small_kernel. An mma
 //    tile needs K = 16, so a 4-wide head would be 3/4 zero padding; instead
@@ -61,10 +86,6 @@
 
 namespace {
 
-constexpr int BQ = 16;   // query rows per block
-constexpr int BK = 64;   // keys per shared-memory tile
-constexpr int NT = 128;  // threads: 8 per query row
-
 struct AttnArgs {
   const void* q;
   const void* k[2];
@@ -78,138 +99,6 @@ struct AttnArgs {
   float scale;
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 8)) + BK;
-}
-
-// ------------------------------------------------------------------ fp32, CUDA cores
-
-template <int D>
-__global__ void __launch_bounds__(NT) attn_kernel(const AttnArgs a) {
-  using T = float;
-  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
-  constexpr int QST = D + 1, KST = D + 1, VST = D, PST = BK + 8, DPT = D / 8;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * QST;
-  float* Vs = Ks + BK * KST;
-  float* Ps = Vs + BK * VST;
-  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + BQ * PST);
-
-  const int tid = threadIdx.x, r = tid >> 3, sub = tid & 7;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-
-  const T* q = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int rr = i / D, d = i - rr * D, t = q0 + rr;
-    Qs[rr * QST + d] = t < a.Tq ? q[(long long)t * a.sq[2] + d] : 0.f;
-  }
-
-  float m = -INFINITY, l = 0.f, acc[DPT];
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) acc[c] = 0.f;
-
-  for (int src = 0; src < 2; ++src) {
-    const int S = a.S[src];
-    if (S == 0) continue;
-    const T* kp = static_cast<const T*>(a.k[src]) + b * a.sk[src][0] + h * a.sk[src][1];
-    const T* vp = static_cast<const T*>(a.v[src]) + b * a.sv[src][0] + h * a.sv[src][1];
-    const unsigned char* mp = a.m[src] + b * a.msb[src];
-    const long long kst = a.sk[src][2], vst = a.sv[src][2];
-    for (int j0 = 0; j0 < S; j0 += BK) {
-      const int nk = min(BK, S - j0);
-      __syncthreads();  // the previous tile's readers are done; Qs is visible
-      for (int i = tid; i < BK * D; i += NT) {
-        const int j = i / D, d = i - j * D;
-        float kv = 0.f, vv = 0.f;
-        if (j < nk) {
-          kv = kp[(long long)(j0 + j) * kst + d];
-          vv = vp[(long long)(j0 + j) * vst + d];
-        }
-        Ks[j * KST + d] = kv;
-        Vs[j * VST + d] = vv;
-      }
-      if (tid < BK) Ms[tid] = tid < nk ? mp[j0 + tid] : 0;
-      __syncthreads();
-
-      float s[8];
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) s[jj] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float qv = Qs[r * QST + d];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) s[jj] = fmaf(qv, Ks[(sub + 8 * jj) * KST + d], s[jj]);
-      }
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int j = sub + 8 * jj;
-        float sc = s[jj] * a.scale;
-        if (j >= nk) sc = -INFINITY;      // past the end: no weight at all
-        else if (!Ms[j]) sc = -1e9f;      // masked: replaced, as the reference does
-        s[jj] = sc;
-        tmax = fmaxf(tmax, sc);
-      }
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 4));
-      const float mnew = fmaxf(m, tmax);
-      const float alpha = expf(m - mnew);  // 0 on the first tile (m = -inf)
-      float psum = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float p = expf(s[jj] - mnew);
-        Ps[r * PST + sub + 8 * jj] = p;
-        psum += p;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 4);
-      l = l * alpha + psum;
-      m = mnew;
-      __syncwarp();  // row r's probabilities are written and read by its own 8 lanes
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) acc[c] *= alpha;
-      for (int j = 0; j < nk; ++j) {
-        const float p = Ps[r * PST + j];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[c] = fmaf(p, Vs[j * VST + sub + 8 * c], acc[c]);
-      }
-    }
-  }
-
-  const int t = q0 + r;
-  if (t >= a.Tq) return;
-  const float inv = 1.f / l;
-  T* out = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1] + (long long)t * a.so[2];
-  const T* g = a.gate ? static_cast<const T*>(a.gate) + b * a.sg[0] + h * a.sg[1] +
-                            (long long)t * a.sg[2]
-                      : nullptr;
-#pragma unroll
-  for (int c = 0; c < DPT; ++c) {
-    const int d = sub + 8 * c;
-    float o = acc[c] * inv;
-    if (g) o = __fmul_rn(o, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[d]))));  // o * (1 / (1 + exp(-g)))
-    out[d] = o;
-  }
-}
-
-template <int D>
-int launch(const AttnArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
-  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
-  attn_kernel<D><<<grid, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ small head dims, CUDA cores
 
@@ -402,6 +291,108 @@ __device__ __forceinline__ float2 ld_cluster2(const float* p, int rank) {
   return v;
 }
 
+// o * sigmoid(g) in fp32 as the reference's fp32 path computes it: o * (1 / (1 + exp(-g)))
+__device__ __forceinline__ float gate_f32(float o, float g) {
+  return __fmul_rn(o, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g))));
+}
+
+// An output pair (columns d, d + 1 of row t) in the output dtype, times
+// sigmoid(gate) where a gate is given (`gp`, the gate of this (b, h), or
+// null), and its store into `op`, the output of this (b, h).
+template <typename T>
+struct OutPair;
+template <>
+struct OutPair<__nv_bfloat16> {
+  using bf16 = __nv_bfloat16;
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type gated(const bf16* gp, long long sg, int t, int d, float v0, float v1) {
+    const type o = __floats2bfloat162_rn(v0, v1);
+    if (!gp) return o;
+    const bf16* gr = gp + (long long)t * sg + d;
+    return gate_bf16x2(o, __bfloat162float(gr[0]), __bfloat162float(gr[1]));
+  }
+  static __device__ __forceinline__ void store(bf16* op, long long so, int t, int d, type o) {
+    *reinterpret_cast<type*>(op + (long long)t * so + d) = o;
+  }
+};
+template <>
+struct OutPair<float> {
+  using type = float2;
+  static __device__ __forceinline__ type gated(const float* gp, long long sg, int t, int d, float v0, float v1) {
+    if (!gp) return make_float2(v0, v1);
+    const float* gr = gp + (long long)t * sg + d;
+    return make_float2(gate_f32(v0, gr[0]), gate_f32(v1, gr[1]));
+  }
+  static __device__ __forceinline__ void store(float* op, long long so, int t, int d, type o) {
+    *reinterpret_cast<type*>(op + (long long)t * so + d) = o;
+  }
+};
+
+// The merge of the key splits of one (b, h, 64-row q tile), a cluster of
+// gridDim.x blocks, one a split. Each has left the (m, l) of its keys for
+// its 64 rows in m_s and l_s and its unnormalized O in `part` (row stride
+// OST floats) in its own shared memory; every thread of every rank calls
+// this. Rank r merges rows [r * 64 / nsplit, ...) of every split, in rank
+// order: M = max m_j, w_j = exp(m_j - M), O = sum_j (w_j / sum_i w_i l_i)
+// O_j, then gated and stored in T. w_j is 0 where m_j = -inf: the slots past
+// nsplit, or a split with no key tile, which split_launch never makes (a
+// guard, so no NaN can arise).
+template <typename T, int DP, int OST>
+__device__ __forceinline__ void merge_splits(const AttnArgs& a, const float* part, const float* m_s, const float* l_s,
+                                             float* w_s, int q0, T* op, const T* gp, int D) {
+  using P = OutPair<T>;
+  const int tid = threadIdx.x, split = blockIdx.x, nsplit = gridDim.x;
+  cluster_sync();
+  const int rows_per = (FBQ + nsplit - 1) / nsplit, r0 = split * rows_per;
+  const int r1 = min(min(FBQ, r0 + rows_per), a.Tq - q0);
+  if (tid < r1 - r0) {
+    const int row = r0 + tid;
+    float mj[FMAXSPLIT], lj[FMAXSPLIT], mx = -INFINITY, L = 0.f;
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {  // every split's (m, l) loads in flight together
+      mj[j] = j < nsplit ? ld_cluster(m_s + row, j) : -INFINITY;
+      lj[j] = j < nsplit ? ld_cluster(l_s + row, j) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) mx = fmaxf(mx, mj[j]);
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {
+      mj[j] = mj[j] == -INFINITY ? 0.f : expf(mj[j] - mx);
+      L += mj[j] * lj[j];
+    }
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) w_s[tid * FMAXSPLIT + j] = mj[j] / L;
+  }
+  __syncthreads();
+  // every load (gate, the other splits' partials) before the first store: `out`
+  // may alias the gate for all the compiler knows. A thread merges at most EPT column pairs: rows [r0, r1) x D / 2 pairs <= 32 x 64 at 2+ splits
+  constexpr int EPT = (FBQ / 2) * (DP / 2) / FNT;
+  const int hd = D / 2, n_el = (r1 - r0) * hd;
+  typename P::type res[EPT];
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = tid + e * FNT, rr = idx / hd, d = 2 * (idx % hd), row = r0 + rr;
+    if (idx >= n_el) continue;
+    float2 pj[FMAXSPLIT];
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) pj[j] = j < nsplit ? ld_cluster2(part + row * OST + d, j) : make_float2(0.f, 0.f);
+    float2 sum = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < FMAXSPLIT; ++j) {
+      const float wj = w_s[rr * FMAXSPLIT + j];
+      sum.x += wj * pj[j].x;
+      sum.y += wj * pj[j].y;
+    }
+    res[e] = P::gated(gp, a.sg[2], q0 + row, d, sum.x, sum.y);
+  }
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    const int idx = tid + e * FNT;
+    if (idx < n_el) P::store(op, a.so[2], q0 + r0 + idx / hd, 2 * (idx % hd), res[e]);
+  }
+  cluster_sync();  // no rank leaves while another reads its shared memory
+}
+
 // One block per (key split, 64-row q tile, (b, h)); a warp owns 16 query
 // rows. `per` key tiles of 64 per split; the splits of one (b, h, q tile)
 // are a cluster (grid.x) and merge through distributed shared memory.
@@ -558,19 +549,9 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
   // The merge reads everything (gate, the other splits' partials) before its
   // first store: `out` may alias the gate for all the compiler knows, so a
   // load after a store would wait for it, one round trip at a time.
+  using P = OutPair<bf16>;
   bf16* op = static_cast<bf16*>(a.out) + b * a.so[0] + h * a.so[1];
   const bf16* gp = a.gate ? static_cast<const bf16*>(a.gate) + b * a.sg[0] + h * a.sg[1] : nullptr;
-  // the output pair in bf16, times sigmoid(gate) where a gate is given
-  auto gated = [&](int t, int d, float v0, float v1) {
-    const __nv_bfloat162 o = __floats2bfloat162_rn(v0, v1);
-    if (!gp) return o;
-    const bf16* gr = gp + (long long)t * a.sg[2] + d;
-    return gate_bf16x2(o, __bfloat162float(gr[0]), __bfloat162float(gr[1]));
-  };
-  auto store = [&](int t, int d, __nv_bfloat162 o) {
-    *reinterpret_cast<__nv_bfloat162*>(op + (long long)t * a.so[2] + d) = o;
-  };
-
   if (nsplit == 1) {  // one split: normalize, gate and store from registers
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -581,17 +562,13 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
       for (int dn = 0; dn < DP / 8; ++dn) {
         const int d = 8 * dn + 2 * t4;
         if (d >= D) continue;
-        store(t, d, gated(t, d, o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv));
+        P::store(op, a.so[2], t, d, P::gated(gp, a.sg[2], t, d, o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv));
       }
     }
     return;
   }
 
-  // several splits: each leaves (m, l, O) of its keys in its shared memory;
-  // rank r merges rows [r * 64 / nsplit, ...) of every split, in rank order:
-  // M = max m_j, w_j = exp(m_j - M), O = sum_j (w_j / sum_i w_i l_i) O_j.
-  // w_j is 0 where m_j = -inf: the slots past nsplit, or a split with no
-  // key tile, which launch_mma never makes (a guard, so no NaN can arise)
+  // several splits: each leaves (m, l, O) of its keys in its shared memory
   __syncthreads();  // the K/V tiles become the O partials
   float* part = reinterpret_cast<float*>(sm);
 #pragma unroll
@@ -605,84 +582,349 @@ __global__ void __launch_bounds__(FNT, 3) attn_mma_kernel(const AttnArgs a, cons
       l_s[row] = lrow[r];
     }
   }
-  cluster_sync();
-  const int rows_per = (FBQ + nsplit - 1) / nsplit, r0 = split * rows_per;
-  const int r1 = min(min(FBQ, r0 + rows_per), a.Tq - q0);
-  if (tid < r1 - r0) {
-    const int row = r0 + tid;
-    float mj[FMAXSPLIT], lj[FMAXSPLIT], mx = -INFINITY, L = 0.f;
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) {  // every split's (m, l) loads in flight together
-      mj[j] = j < nsplit ? ld_cluster(m_s + row, j) : -INFINITY;
-      lj[j] = j < nsplit ? ld_cluster(l_s + row, j) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) mx = fmaxf(mx, mj[j]);
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) {
-      mj[j] = mj[j] == -INFINITY ? 0.f : expf(mj[j] - mx);
-      L += mj[j] * lj[j];
-    }
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) w_s[tid * FMAXSPLIT + j] = mj[j] / L;
-  }
-  __syncthreads();
-  // a thread merges at most EPT column pairs: rows [r0, r1) x D / 2 pairs <= 32 x 64 at 2+ splits
-  constexpr int EPT = (FBQ / 2) * (DP / 2) / FNT;
-  const int hd = D / 2, n_el = (r1 - r0) * hd;
-  __nv_bfloat162 res[EPT];
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    const int idx = tid + e * FNT, rr = idx / hd, d = 2 * (idx % hd), row = r0 + rr;
-    if (idx >= n_el) continue;
-    float2 pj[FMAXSPLIT];
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) pj[j] = j < nsplit ? ld_cluster2(part + row * Lay::OST + d, j) : make_float2(0.f, 0.f);
-    float2 sum = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < FMAXSPLIT; ++j) {
-      const float wj = w_s[rr * FMAXSPLIT + j];
-      sum.x += wj * pj[j].x;
-      sum.y += wj * pj[j].y;
-    }
-    res[e] = gated(q0 + row, d, sum.x, sum.y);
-  }
-#pragma unroll
-  for (int e = 0; e < EPT; ++e) {
-    const int idx = tid + e * FNT;
-    if (idx < n_el) store(q0 + r0 + idx / hd, 2 * (idx % hd), res[e]);
-  }
-  cluster_sync();  // no rank leaves while another reads its shared memory
+  merge_splits<bf16, DP, Lay::OST>(a, part, m_s, l_s, w_s, q0, op, gp, D);
 }
 
 // The key split is chosen from the shape: the keys are split where the (b,
 // h, q tile) blocks alone cannot fill the SMs (the DiT's 64 pairs at Tq <=
-// 64), up to about two blocks per SM and FMAXSPLIT, with every split given
-// at least one key tile.
-template <int DP>
-int launch_mma(const AttnArgs& a, int D, cudaStream_t stream) {
-  using Lay = MmaLayout<DP>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(attn_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  const int nt = (a.S[0] + FBK - 1) / FBK + (a.S[1] + FBK - 1) / FBK;
+// 64), up to about `per_sm` blocks per SM and FMAXSPLIT, with every split
+// given at least one key tile of `tile_keys`. Fills `cfg` (and its cluster
+// attribute `at`) for a grid of (splits, q tiles, B * H) blocks of FNT
+// threads, the splits of one (b, h, q tile) a cluster; returns the key
+// tiles per split.
+int split_launch(const AttnArgs& a, int tile_keys, int smem, int per_sm, cudaStream_t stream,
+                 cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&at)[1]) {
+  const int nt = (a.S[0] + tile_keys - 1) / tile_keys + (a.S[1] + tile_keys - 1) / tile_keys;
   const int qt = (a.Tq + FBQ - 1) / FBQ, base = qt * a.H * a.B, sms = sm_count();
-  int splits = base >= sms ? 1 : std::max(1, std::min({FMAXSPLIT, nt, (2 * sms + base - 1) / base}));
+  int splits = base >= sms ? 1 : std::max(1, std::min({FMAXSPLIT, nt, (per_sm * sms + base - 1) / base}));
   const int per = std::max(1, (nt + splits - 1) / splits);
   splits = std::max(1, (nt + per - 1) / per);
-  cudaLaunchConfig_t cfg{};
+  cfg = cudaLaunchConfig_t{};
   cfg.gridDim = dim3(splits, qt, a.B * a.H);
   cfg.blockDim = dim3(FNT);
-  cfg.dynamicSmemBytes = Lay::BYTES;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute at[1];
   at[0].id = cudaLaunchAttributeClusterDimension;
   at[0].val.clusterDim.x = splits;
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   cfg.attrs = at;
   cfg.numAttrs = 1;
+  return per;
+}
+
+template <int DP>
+int launch_mma(const AttnArgs& a, int D, cudaStream_t stream) {
+  using Lay = MmaLayout<DP>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[1];
+  const int per = split_launch(a, FBK, Lay::BYTES, 2, stream, cfg, at);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_mma_kernel<DP>, a, D, per);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ fp32, tensor cores (3xTF32)
+
+// x = hi + lo as two tf32 mma operands: hi is x rounded to the nearest tf32
+// (10 mantissa bits, ties away from zero: what cvt.rna.tf32.f32 gives, in
+// two integer ops where cvt takes a longer sequence), lo = x - hi, exact in
+// fp32 and at most 2^-11 of x, which the tensor core reads truncated to tf32
+// (an error below 2^-21 of x, of either sign: lo's sign is x's rounding's)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d (16 x 8, fp32) += a (16 x 8, tf32) * b (8 x 8, tf32)
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr int TBK = 32;  // keys per tile of the fp32 kernel
+
+template <int D>
+struct Tf32Layout {  // shared memory of attn_tf32_kernel<D>
+  static constexpr int DP = (D + 15) / 16 * 16;        // Q's, K's, V's and O's columns (D = 120 zero-padded to 128)
+  static constexpr int KST = DP + 8;                   // K's and Q's row stride in floats
+  static constexpr int VST = DP + 4;                   // V's
+  static constexpr int KT = TBK * KST * 4;             // bytes of one K tile
+  static constexpr int VT = TBK * VST * 4;             // and of one V tile
+  static constexpr int Q = 2 * (KT + VT);              // after [2 stages] K, [2 stages] V: Q [FBQ][KST]
+  static constexpr int MASK = Q + FBQ * KST * 4;       // then the key masks, a bit a key: u32 [2]
+  static constexpr int ROW = MASK + 2 * 4;             // then fp32 m[FBQ], l[FBQ], merge weights [FBQ][FMAXSPLIT]
+  static constexpr int BYTES = ROW + FBQ * (2 + FMAXSPLIT) * 4;
+  static constexpr int OST = DP + 4;                   // fp32 row stride of the O partials, in the K/V tiles' place
+  // a half-warp's float2 reads of K and Q (rows g of 0..3 or 4..7, columns 2 t4) hit 32 distinct banks
+  static_assert(KST % 32 == 8, "K's row stride");
+  // a half-warp's float2 V reads (rows 2 t4, columns 2 g) likewise
+  static_assert((2 * VST) % 32 == 8, "V's row stride");
+  static_assert(FBQ * OST * 4 <= Q, "the O partials fit in the K/V tiles");
+};
+
+// One block per (key split, 64-row q tile, (b, h)); a warp owns 16 query
+// rows. `per` key tiles of TBK per split; the splits of one (b, h, q tile)
+// are a cluster (grid.x) and merge through distributed shared memory.
+//
+// Every product is 3xTF32 on mma.sync m16n8k8: each operand is split into
+// tf32 hi + lo, and hi*lo + lo*hi + hi*hi is accumulated in fp32 (lo*lo,
+// at most 2^-22 of the product, is dropped). The tensor cores truncate
+// where they add into the accumulator, a bias of up to an ulp a step, so no
+// chain of hi*hi terms runs long: QK^T's alternate between two accumulators
+// (D / 16 steps each; the cross terms, 2^-11 of them, share a third), and
+// PV accumulates each key tile in fresh registers that are added to O in
+// fp32 on the CUDA cores (4 steps). The k index of both
+// products is permuted inside each group of 8 so that no value moves
+// between lanes:
+//  * QK^T: the A column t4 / t4 + 4 of k step kq is head dim 8 kq + 2 t4 /
+//    + 1, so Q and K are read as float2 pairs;
+//  * PV: a score fragment holds keys 2 t4 and 2 t4 + 1 of its 8, which the
+//    tf32 A fragment wants as columns t4 and t4 + 4, so column t4 / t4 + 4 of
+//    k step kk is key 8 kk + 2 t4 / + 1 and V's rows are read in that order
+//    (PV sums over keys, so the order is free): no quad shuffle. The two n
+//    fragments 2p and 2p + 1 take head dims 16 p + 2 g and 16 p + 2 g + 1,
+//    so one float2 of V feeds both, and a lane ends with head dims 16 p +
+//    4 t4 .. + 3 of its two rows: one float4 store each.
+template <int D>
+__global__ void __launch_bounds__(FNT, 2) attn_tf32_kernel(const AttnArgs a, const int per) {
+  using Lay = Tf32Layout<D>;
+  constexpr int DP = Lay::DP, KST = Lay::KST, VST = Lay::VST;
+  constexpr int KS = DP / 8, NF = TBK / 8, NP = DP / 16, CH = DP / 4;
+  static_assert(TBK == 32, "a tile's key mask is one 32-bit word");
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  extern __shared__ __align__(128) unsigned char sm[];
+  float* Kt[2] = {reinterpret_cast<float*>(sm), reinterpret_cast<float*>(sm + Lay::KT)};
+  float* Vt[2] = {reinterpret_cast<float*>(sm + 2 * Lay::KT), reinterpret_cast<float*>(sm + 2 * Lay::KT + Lay::VT)};
+  float* Qs = reinterpret_cast<float*>(sm + Lay::Q);
+  uint32_t* Mw = reinterpret_cast<uint32_t*>(sm + Lay::MASK);
+  float* m_s = reinterpret_cast<float*>(sm + Lay::ROW);
+  float* l_s = m_s + FBQ;
+  float* w_s = l_s + FBQ;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x, nsplit = gridDim.x;
+  const int q0 = blockIdx.y * FBQ, b = blockIdx.z / a.H, h = blockIdx.z % a.H;
+  const int n0 = (a.S[0] + TBK - 1) / TBK, nt = n0 + (a.S[1] + TBK - 1) / TBK;
+  const int t_begin = min(nt, split * per), t_end = min(nt, t_begin + per);
+
+  auto load_tile = [&](int t, int stage) {
+    const int src = t < n0 ? 0 : 1, j0 = (t < n0 ? t : t - n0) * TBK;
+    const int nk = min(TBK, a.S[src] - j0);
+    const float* kp = static_cast<const float*>(a.k[src]) + b * a.sk[src][0] + h * a.sk[src][1];
+    const float* vp = static_cast<const float*>(a.v[src]) + b * a.sv[src][0] + h * a.sv[src][1];
+    for (int i = tid; i < TBK * CH; i += FNT) {
+      const int j = i / CH, c = i % CH;
+      const bool ok = j < nk && c < D / 4;  // zero fill: keys past the end, and the columns past D
+      cp_async16(Kt[stage] + j * KST + 4 * c, ok ? kp + (long long)(j0 + j) * a.sk[src][2] + 4 * c : kp, ok);
+      cp_async16(Vt[stage] + j * VST + 4 * c, ok ? vp + (long long)(j0 + j) * a.sv[src][2] + 4 * c : vp, ok);
+    }
+    if (warp == 0) {  // bit j: key j0 + j is attended
+      const uint32_t w = __ballot_sync(0xffffffffu, lane < nk && a.m[src][b * a.msb[src] + j0 + lane]);
+      if (lane == 0) Mw[stage] = w;
+    }
+  };
+
+  // the block's 64 query rows, fp32, in shared memory for the whole run (split where used)
+  const float* qp = static_cast<const float*>(a.q) + b * a.sq[0] + h * a.sq[1];
+  for (int i = tid; i < FBQ * CH; i += FNT) {
+    const int r = i / CH, c = i % CH, t = q0 + r;
+    const bool ok = t < a.Tq && c < D / 4;
+    cp_async16(Qs + r * KST + 4 * c, ok ? qp + (long long)t * a.sq[2] + 4 * c : qp, ok);
+  }
+  if (t_begin < t_end) load_tile(t_begin, 0);
+  cp_async_commit();
+  const float* qw = Qs + (warp * 16 + g) * KST + 2 * t4;  // rows g and g + 8 of the warp, columns 2 t4, + 1
+
+  // O (16 rows x DP per warp), the running max and denominator of rows g and g + 8
+  float o[DP / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
+
+  for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+    const int st = i & 1;
+    cp_async_wait<0>();
+    // tile t (and on the first, Q) is visible to every warp, and every warp
+    // is done with tile t - 1, whose stage tile t + 1 now refills
+    __syncthreads();
+    if (t + 1 < t_end) load_tile(t + 1, st ^ 1);
+    cp_async_commit();
+    const int src = t < n0 ? 0 : 1;
+    const int nk = min(TBK, a.S[src] - (t < n0 ? t : t - n0) * TBK);
+    const float* ks = Kt[st];
+    const float* vs = Vt[st];
+    const uint32_t mw = Mw[st];
+
+    // S = Q K^T for the warp's 16 rows, NF fragments of 8 keys
+    float sb[2][NF][4], sx[NF][4];
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sb[0][n][e] = sb[1][n][e] = sx[n][e] = 0.f;
+    // k steps in pairs, the hi*hi terms of the pair's two in two accumulators
+    // (unrolled 4 pairs deep: fully, at D 128, ptxas spills to hold every load in flight)
+#pragma unroll 4
+    for (int kq = 0; kq < KS; kq += 2) {
+#pragma unroll
+      for (int k2 = 0; k2 < 2; ++k2) {
+        const float2 qa = *reinterpret_cast<const float2*>(qw + 8 * (kq + k2));
+        const float2 qb = *reinterpret_cast<const float2*>(qw + 8 * KST + 8 * (kq + k2));
+        uint32_t ah[4], al[4];
+        split_tf32(qa.x, ah[0], al[0]);  // (row g, column t4)
+        split_tf32(qb.x, ah[1], al[1]);  // (g + 8, t4)
+        split_tf32(qa.y, ah[2], al[2]);  // (g, t4 + 4)
+        split_tf32(qb.y, ah[3], al[3]);  // (g + 8, t4 + 4)
+#pragma unroll
+        for (int n = 0; n < NF; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(ks + (8 * n + g) * KST + 8 * (kq + k2) + 2 * t4);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kv.x, bh0, bl0);
+          split_tf32(kv.y, bh1, bl1);
+          mma1688(sx[n], al, bh0, bh1);
+          mma1688(sx[n], ah, bl0, bl1);
+          mma1688(sb[k2][n], ah, bh0, bh1);
+        }
+      }
+    }
+
+    // online softmax; lanes 4g..4g+3 share rows g and g + 8
+    float s[NF][4], tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NF; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * t4 + (e & 1);
+        float v = (sb[0][n][e] + sb[1][n][e] + sx[n][e]) * a.scale;
+        if (j >= nk) v = -INFINITY;      // past the end: no weight at all
+        else if (!(mw >> j & 1)) v = -1e9f;  // masked: replaced, as the reference does
+        s[n][e] = v;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], v);
+      }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float mnew = fmaxf(mrow[r], tmax[r]);  // finite: a tile holds at least one key
+      alpha[r] = expf(mrow[r] - mnew);             // 0 on the split's first tile (m = -inf)
+      mrow[r] = mnew;
+    }
+    // the probabilities as PV's A fragments, score fragment kk for k step kk:
+    // keys 2 t4 and 2 t4 + 1 as columns t4 and t4 + 4
+    uint32_t ph[NF][4], pl[NF][4];
+#pragma unroll
+    for (int n = 0; n < NF; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = expf(s[n][e] - mrow[e >> 1]);
+        psum[e >> 1] += s[n][e];
+      }
+      split_tf32(s[n][0], ph[n][0], pl[n][0]);  // (row g, key 2 t4)
+      split_tf32(s[n][2], ph[n][1], pl[n][1]);  // (g + 8, 2 t4)
+      split_tf32(s[n][1], ph[n][2], pl[n][2]);  // (g, 2 t4 + 1)
+      split_tf32(s[n][3], ph[n][3], pl[n][3]);  // (g + 8, 2 t4 + 1)
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
+      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
+      lrow[r] = lrow[r] * alpha[r] + psum[r];
+    }
+
+    // O = alpha O + P V, the tile's P V in fresh accumulators (hi*hi, and the cross terms)
+    const float* v0 = vs + 2 * t4 * VST + 2 * g;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      float tb[2][4], tx[2][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tb[0][e] = tb[1][e] = tx[0][e] = tx[1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NF; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(v0 + 8 * kk * VST + 16 * p);        // key 2 t4: row t4
+        const float2 x1 = *reinterpret_cast<const float2*>(v0 + (8 * kk + 1) * VST + 16 * p);  // 2 t4 + 1: t4 + 4
+        uint32_t h0[2], l0[2], h1[2], l1[2];
+        split_tf32(x0.x, h0[0], l0[0]);  // fragment 2p, head dim 16 p + 2 g
+        split_tf32(x1.x, h0[1], l0[1]);
+        split_tf32(x0.y, h1[0], l1[0]);  // fragment 2p + 1, head dim 16 p + 2 g + 1
+        split_tf32(x1.y, h1[1], l1[1]);
+        mma1688(tx[0], pl[kk], h0[0], h0[1]);
+        mma1688(tx[0], ph[kk], l0[0], l0[1]);
+        mma1688(tb[0], ph[kk], h0[0], h0[1]);
+        mma1688(tx[1], pl[kk], h1[0], h1[1]);
+        mma1688(tx[1], ph[kk], l1[0], l1[1]);
+        mma1688(tb[1], ph[kk], h1[0], h1[1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o[2 * p][e] = o[2 * p][e] * alpha[e >> 1] + (tb[0][e] + tx[0][e]);
+        o[2 * p + 1][e] = o[2 * p + 1][e] * alpha[e >> 1] + (tb[1][e] + tx[1][e]);
+      }
+    }
+  }
+
+  // lane (g, t4) holds head dims 16 p + 4 t4 .. + 3 of rows g and g + 8 as
+  // (o[2p][2r], o[2p + 1][2r], o[2p][2r + 1], o[2p + 1][2r + 1])
+  float* op = static_cast<float*>(a.out) + b * a.so[0] + h * a.so[1];
+  const float* gp = a.gate ? static_cast<const float*>(a.gate) + b * a.sg[0] + h * a.sg[1] : nullptr;
+  if (nsplit == 1) {  // one split: normalize, gate and store from registers
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = q0 + warp * 16 + g + 8 * r;
+      if (t >= a.Tq) continue;
+      const float inv = 1.f / lrow[r];
+      float* orow = op + (long long)t * a.so[2];
+      const float* gr = gp ? gp + (long long)t * a.sg[2] : nullptr;
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        const int d = 16 * p + 4 * t4;
+        if (d >= D) continue;
+        float4 v = make_float4(o[2 * p][2 * r] * inv, o[2 * p + 1][2 * r] * inv, o[2 * p][2 * r + 1] * inv,
+                               o[2 * p + 1][2 * r + 1] * inv);
+        if (gr) {
+          const float4 gv = *reinterpret_cast<const float4*>(gr + d);
+          v = make_float4(gate_f32(v.x, gv.x), gate_f32(v.y, gv.y), gate_f32(v.z, gv.z), gate_f32(v.w, gv.w));
+        }
+        *reinterpret_cast<float4*>(orow + d) = v;
+      }
+    }
+    return;
+  }
+
+  // several splits: each leaves (m, l, O) of its keys in its shared memory
+  __syncthreads();  // the K/V tiles become the O partials
+  float* part = reinterpret_cast<float*>(sm);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+      *reinterpret_cast<float4*>(part + row * Lay::OST + 16 * p + 4 * t4) =
+          make_float4(o[2 * p][2 * r], o[2 * p + 1][2 * r], o[2 * p][2 * r + 1], o[2 * p + 1][2 * r + 1]);
+    if (t4 == 0) {
+      m_s[row] = mrow[r];
+      l_s[row] = lrow[r];
+    }
+  }
+  merge_splits<float, DP, Lay::OST>(a, part, m_s, l_s, w_s, q0, op, gp, D);
+}
+
+template <int D>
+int launch_tf32(const AttnArgs& a, cudaStream_t stream) {
+  using Lay = Tf32Layout<D>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attn_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[1];
+  // about three blocks per SM (two fit): shorter splits measured faster at
+  // the teacher's DiT shape than one wave of longer ones (PERF.md)
+  const int per = split_launch(a, TBK, Lay::BYTES, 3, stream, cfg, at);
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, attn_tf32_kernel<D>, a, per);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -714,14 +956,15 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
   a.scale = scale;
   if (a.S[1] > 0 && (!a.k[1] || !a.v[1] || !a.m[1])) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // fp32: the CUDA-core kernel; bf16: the tensor-core kernel (16-byte aligned
-  // q/k/v rows and 4-byte aligned out pairs are the wrapper's check); D = 4,
-  // either dtype: the small-head kernel (element loads, no alignment needed)
+  // fp32: the 3xTF32 tensor-core kernel (16-byte aligned q/k/v/gate/out rows
+  // are the wrapper's check); bf16: the bf16 tensor-core kernel (16-byte
+  // aligned q/k/v rows and 4-byte aligned out pairs); D = 4, either dtype: the
+  // small-head kernel (element loads, no alignment needed)
   switch (dtype * 1000 + D) {
     case 4: return launch_small<float, 4>(a, s);
-    case 64: return launch<64>(a, s);
-    case 120: return launch<120>(a, s);
-    case 128: return launch<128>(a, s);
+    case 64: return launch_tf32<64>(a, s);
+    case 120: return launch_tf32<120>(a, s);
+    case 128: return launch_tf32<128>(a, s);
     case 1004: return launch_small<__nv_bfloat16, 4>(a, s);
     case 1064: return launch_mma<64>(a, D, s);
     case 1120: return launch_mma<128>(a, D, s);

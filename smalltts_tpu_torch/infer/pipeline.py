@@ -149,7 +149,7 @@ class SmallTTS:
         from smalltts_tpu_torch.utils.config_io import backbone_config_from_meta, codec_config_from_meta
         from smalltts_tpu_torch.utils.convert import params_from_jax
 
-        if cfg is None and checkpoint:
+        if cfg is None and checkpoint and not ckpt.is_torch_checkpoint(checkpoint):
             cfg = backbone_config_from_meta(ckpt.load_meta(checkpoint))
         if codec_cfg is None and codec_checkpoint:
             codec_cfg = codec_config_from_meta(ckpt.load_meta(codec_checkpoint))
@@ -160,8 +160,10 @@ class SmallTTS:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype
 
-        if backbone_params is None and checkpoint:
-            backbone_params = params_from_jax(ckpt.load_pytree(checkpoint), self.cfg)
+        if backbone_params is None and checkpoint:  # an npz, or a reference torch checkpoint (.pt/.pth/.bin)
+            tree = (ckpt.load_reference_backbone_checkpoint(checkpoint) if ckpt.is_torch_checkpoint(checkpoint)
+                    else ckpt.load_pytree(checkpoint))
+            backbone_params = params_from_jax(tree, self.cfg)
         # the codec backend, chosen as the JAX package chooses it
         self.onnx_codec = None
         if isinstance(codec, OnnxCodec):

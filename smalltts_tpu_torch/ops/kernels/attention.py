@@ -10,9 +10,10 @@ On the card, bf16 runs a FlashAttention-2 kernel in registers (mma.sync)
 that splits the keys across a thread-block cluster where the (b, h, q tile)
 blocks alone cannot fill the SMs, and merges the splits by a log-sum-exp
 combine; `attention_split_plain` is that split and merge in plain PyTorch,
-for the tests. fp32 runs a CUDA-core kernel. A head dim of 4 (the ASR
-conformer's), fp32 or bf16, runs a CUDA-core kernel of its own, one query
-row a thread.
+for the tests. fp32 runs the same design on the tensor cores with fp32
+accuracy (3xTF32: each operand split into tf32 hi + lo, three products).
+A head dim of 4 (the ASR conformer's), fp32 or bf16, runs a CUDA-core
+kernel of its own, one query row a thread.
 
 `attention` is the kernel behind a torch.autograd.Function, for training:
 its forward is `fused_attention` over one key source, ungated; its backward
@@ -156,6 +157,10 @@ def fused_attention(
                 raise ValueError("attention: bf16 q/k/v need 16-byte aligned rows (strides of 8)")
         if out.data_ptr() % 4 or any(st % 2 for st in out.stride()[:3]):  # it stores bf16 pairs
             raise ValueError("attention: bf16 out needs 4-byte aligned pairs (even strides)")
+    if q.dtype == torch.float32 and D != 4:  # the 3xTF32 kernel copies and stores rows in 16-byte chunks
+        for t in [q, k, v, out] + ([k2, v2] if two else []) + ([gate] if gate is not None else []):
+            if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
+                raise ValueError("attention: fp32 q/k/v/gate/out need 16-byte aligned rows (strides of 4)")
     m1 = key_mask.to(torch.bool).contiguous()
     m2 = key_mask2.to(torch.bool).contiguous() if two else None
     none = [0, 0, 0]

@@ -132,6 +132,7 @@ def train_teacher(
     data_iter=None,
     seed: int = 0,
     checkpoint_dir: str = "assets/teacher_checkpoints",
+    pretrained: Optional[str] = None,
     resume_from: Optional[str] = None,
     log_every: int = 100,
     device=None,
@@ -144,19 +145,25 @@ def train_teacher(
     and layout, with the config as metadata) and train_state.npz (the
     port's own) into checkpoint_dir, off the training thread. `on_step(step,
     loss)`, when given, is called after each step with the loss on the
-    device. Returns (params, ema_params)."""
+    device. `pretrained`, a reference torch checkpoint (.pt/.pth/.bin) of
+    `model_cfg`'s shape, gives the starting params in place of the init.
+    Returns (params, ema_params)."""
     from smalltts_tpu_torch.data.dummy import get_dummy_dataloader
     from smalltts_tpu_torch.models.dit import DiTConfig
     from smalltts_tpu_torch.utils import checkpoint as ckpt
     from smalltts_tpu_torch.utils.config_io import backbone_meta
-    from smalltts_tpu_torch.utils.convert import params_to_jax
+    from smalltts_tpu_torch.utils.convert import params_from_jax, params_to_jax
     from smalltts_tpu_torch.utils.profiling import MetricsLogger
     from smalltts_tpu_torch.utils.transfer import resolve_device, to_device
 
     dev = resolve_device(device)
     model_cfg = model_cfg or BackboneConfig(dit=DiTConfig(remat=train_cfg.remat))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_backbone(gen, model_cfg, device=dev)
+    if pretrained:
+        params = ckpt.map_pytree(lambda t: t.to(dev),
+                            params_from_jax(ckpt.load_reference_backbone_checkpoint(pretrained), model_cfg))
+    else:
+        params = init_backbone(gen, model_cfg, device=dev)
     tx, sched = teacher_optimizer(params, train_cfg.num_steps)
     opt_state = tx.init(params)
     ema_params = ema_init(params)
@@ -203,12 +210,14 @@ def main(argv=None) -> None:
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(DTYPES),
                     help="forward/backward compute dtype; masters stay fp32 (ops/precision.py)")
+    ap.add_argument("--pretrained", default=None,
+                    help="a reference torch checkpoint (.pt/.pth/.bin) to fine-tune from")
     ap.add_argument("--resume", default=None, help="a train_state.npz written by this trainer")
     ap.add_argument("--checkpoint-dir", default="assets/teacher_checkpoints")
     args = ap.parse_args(argv)
     train_teacher(TeacherTrainConfig(num_steps=args.steps, batch_size=args.batch_size,
                                      compute_dtype=args.compute_dtype),
-                  resume_from=args.resume, checkpoint_dir=args.checkpoint_dir)
+                  pretrained=args.pretrained, resume_from=args.resume, checkpoint_dir=args.checkpoint_dir)
 
 
 if __name__ == "__main__":

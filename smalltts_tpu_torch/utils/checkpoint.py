@@ -73,6 +73,30 @@ def load_pytree(path: str):
     return unflatten_pytree(_read_flat(path))
 
 
+TORCH_SUFFIXES = (".pt", ".pth", ".bin")  # a reference torch checkpoint; anything else is an npz
+
+
+def is_torch_checkpoint(path: str) -> bool:
+    return str(path).endswith(TORCH_SUFFIXES)
+
+
+def load_reference_backbone_checkpoint(path: str):
+    """A reference torch teacher/DMD checkpoint -> the JAX-layout tree
+    (numpy leaves) that `utils.convert.params_from_jax` takes.
+
+    Accepts raw state_dicts, `{"model": ...}` wrappers and the DMD bundle
+    (`student_model` key preferred, distill.py:468-479)."""
+    from smalltts_tpu_torch.utils.torch_convert import convert_backbone_state_dict, state_dict_to_numpy
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict):
+        for key in ("student_model", "model"):
+            if key in sd:
+                sd = sd[key]
+                break
+    return convert_backbone_state_dict(state_dict_to_numpy(sd))
+
+
 def flatten_pytree(tree, prefix: str = "") -> Dict[str, Any]:
     """Nested dicts and lists -> {"a/b#0/c": leaf}, leaves as they are, in order."""
     out: Dict[str, Any] = {}

@@ -12,10 +12,12 @@ mode). On a card machine, which has no JAX:
   within 1e-4 / 2e-2 (the backward reads the kernel's output), one launch a
   call; the second key source and the gate at D = 4 likewise; any head dim
   outside (4, 64, 120, 128) raises.
-- The discriminator's self-attention, (4, 8, 1030, 64) fp32, and the
-  backbone's bf16 shapes at the distiller's batches 2 and 6 (the teacher's
-  CFG batch), where the bf16 kernel splits the keys across a cluster, the
-  same way. Each launch is counted under its shape as well.
+- The discriminator's self-attention, (4 and 2, 8, 1030, 64) fp32, and the
+  backbone's shapes at the distiller's batches 2 and 6 (the teacher's CFG
+  batch) in bf16 and fp32, where the kernels split the keys across a
+  cluster, the same way (fp32: the 3xTF32 kernel, whose forward is held at
+  1e-5 and gradients at 1e-4 like any fp32 sum in another order). Each
+  launch is counted under its shape as well.
 - One full-width student step (default configs, batch 2, fp32, gates open)
   with the kernels against kernels.force_plain(): the metrics within 1e-4
   relative, each student module's gradient within 1e-4 rel-L2 (fp32 sums in
@@ -34,10 +36,11 @@ pytestmark = pytest.mark.cuda
 FWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # (B, H, Tq, S, D)
-SHAPES = {"asr": (2, 16, 1024, 1024, 4), "disc": (4, 8, 1030, 1030, 64),
+SHAPES = {"asr": (2, 16, 1024, 1024, 4), "disc": (4, 8, 1030, 1030, 64), "disc-B2": (2, 8, 1030, 1030, 64),
           **{f"{name}-B{b}": (b,) + shape for b in (2, 6) for name, shape in
              (("text", (4, 198, 198, 128)), ("style", (8, 64, 64, 64)), ("dit", (8, 256, 518, 120)))}}
-BACKBONE = [(f"{name}-B{b}", torch.bfloat16) for b in (2, 6) for name in ("text", "style", "dit")]
+BACKBONE = [(f"{name}-B{b}", dtype) for dtype in (torch.bfloat16, torch.float32) for b in (2, 6)
+            for name in ("text", "style", "dit")]
 
 
 @pytest.fixture
@@ -51,8 +54,10 @@ def rel(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-@pytest.mark.parametrize("case", [("asr", torch.float32), ("asr", torch.bfloat16), ("disc", torch.float32)] + BACKBONE,
-                         ids=["asr-fp32", "asr-bf16", "disc-fp32"] + [f"{n}-bf16" for n, _ in BACKBONE])
+@pytest.mark.parametrize("case", [("asr", torch.float32), ("asr", torch.bfloat16), ("disc", torch.float32),
+                                  ("disc-B2", torch.float32)] + BACKBONE,
+                         ids=["asr-fp32", "asr-bf16", "disc-fp32", "disc-B2-fp32"]
+                         + [f"{n}-{'bf16' if dt == torch.bfloat16 else 'fp32'}" for n, dt in BACKBONE])
 def test_distill_attention_shapes_match_plain(dev, case):
     shape, dtype = case
     B, H, T, S, D = SHAPES[shape]

@@ -89,6 +89,79 @@ def test_attention_two_sources_gate(dev, dtype):
     assert rel(out.unflatten(-1, (H, D)).transpose(1, 2), want) <= TOL[dtype]
 
 
+# every fp32 shape the trainers launch (the 3xTF32 kernel): the teacher step's at batch 2 (the DiT's
+# 256 self keys and 262 ref + text keys as one source), the distiller's backbone at the teacher's CFG
+# batch of 6, the discriminator's at batch 4 and 2; 198, 518 and 1030 keys are no multiple of the
+# 32-key tile
+FP32_TRAIN = {"teacher-dit": (2, 8, 256, 518, 120), "teacher-text": (2, 4, 198, 198, 128),
+              "teacher-style": (2, 8, 64, 64, 64), "distill-dit-B6": (6, 8, 256, 518, 120),
+              "distill-text-B6": (6, 4, 198, 198, 128), "distill-style-B6": (6, 8, 64, 64, 64),
+              "disc-B4": (4, 8, 1030, 1030, 64), "disc-B2": (2, 8, 1030, 1030, 64)}
+FP32_TILE = 32  # keys per tile of the fp32 kernel (csrc/attention.cu, TBK)
+
+
+@pytest.mark.parametrize("shape", list(FP32_TRAIN))
+def test_fp32_attention_at_the_training_shapes(dev, shape):
+    """The 3xTF32 kernel against attention_plain within 1e-5 of the largest
+    value, one launch a call, a fully-masked row (a uniform average) in each."""
+    B, H, T, S, D = FP32_TRAIN[shape]
+    g = gen(dev, 300 + S)
+    q, k, v = randn((B, H, T, D), g, dev), randn((B, H, S, D), g, dev), randn((B, H, S, D), g, dev)
+    m = key_mask(B, S, g, dev)
+    kernels.reset_launches()
+    got = A.fused_attention(q, k, v, m)
+    torch.cuda.synchronize()
+    assert kernels.SHAPE_LAUNCHES == {("attention", (B, H, T, S, D, torch.float32)): 1}
+    want = A.attention_plain(q, k, v, m)
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert rel(got, want) <= TOL[torch.float32]
+    assert torch.allclose(got[-1], v[-1].mean(1, keepdim=True).expand_as(got[-1]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("B,Tq,S2", [(8, 16, 60), (8, 40, 150), (8, 40, 448), (4, 16, 420), (2, 70, 101)])
+def test_fp32_attention_split_merge_views(dev, B, Tq, S2):
+    """The fp32 kernel where it splits the keys across a cluster (few (b, h,
+    q tile) blocks), over two sources with the gate, q/k/v/gate as strided
+    views of one (B, T, 4 * H * D) buffer and the result written into a
+    strided (B, T, H*D) view, as the DiT lays them out: the second source's
+    second 32-key tile masked in every row, batch row 1 with keys only in
+    the second source, the last row none."""
+    H, D = 8, 120
+    g = gen(dev, 400 + S2)
+    qkvg = randn((B, Tq, 4 * H * D), g, dev)
+    view = lambda i: qkvg[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)).transpose(1, 2)  # noqa: E731
+    k2, v2 = randn((B, H, S2, D), g, dev), randn((B, H, S2, D), g, dev)
+    m1, m2 = key_mask(B, Tq, g, dev), key_mask(B, S2, g, dev)
+    m1[1] = False
+    m2[1, :9] = True
+    m2[:, FP32_TILE:2 * FP32_TILE] = False
+    m2[-1] = False
+    buf = torch.zeros((B, Tq, H * D), device=dev)
+    out = buf.unflatten(-1, (H, D)).transpose(1, 2)
+    A.fused_attention(view(0), view(1), view(2), m1, k2, v2, m2, gate=view(3), out=out)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(buf).all())
+    assert rel(out, A.attention_plain(view(0), view(1), view(2), m1, k2, v2, m2, gate=view(3))) <= TOL[torch.float32]
+
+
+def test_fp32_attention_rejects_misaligned_views(dev):
+    """The 3xTF32 kernel copies and stores rows in 16-byte chunks: a q, k,
+    v, gate or out view whose rows are not 16-byte aligned raises (no
+    fallback), as bf16 does."""
+    B, H, T, D = 2, 2, 8, 64
+    base = torch.zeros((B, H, T, D + 1), device=dev)
+    bad_stride = base[..., :D]            # rows D + 1 floats apart
+    bad_ptr = base.flatten()[1:1 + B * H * T * D].view(B, H, T, D)  # rows start 4 bytes off
+    ok = torch.zeros((B, H, T, D), device=dev)
+    m = torch.ones((B, T), dtype=torch.bool, device=dev)
+    for bad in (bad_stride, bad_ptr):
+        for args, kw in (((bad, ok, ok, m), {}), ((ok, bad, ok, m), {}), ((ok, ok, bad, m), {}),
+                         ((ok, ok, ok, m), {"gate": bad}), ((ok, ok, ok, m), {"out": bad})):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                A.fused_attention(*args, **kw)
+    A.fused_attention(ok, ok, ok, m)  # aligned: runs
+
+
 def adaln_inputs(g, dev, B, T, K_):
     """x (B, T, K_) bf16 ~ N(0, 4), and a modulation's shift and scale (B,
     K_) rows at a batch stride of 6 K_, as the scan slices them."""
