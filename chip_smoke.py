@@ -20,7 +20,11 @@
    products, each shape on the kernel its
    route names (tensor cores wherever TMA can read the operands), timed on
    the device clock or the run fails. Then the GEMM and attention wrappers'
-   host time per call (median of 1000).
+   host time per call (median of 1000). Phase A, CTC (see `ctc_phase`):
+   ops/losses.ctc_loss with the CTC kernels (csrc/ctc.cu) against the
+   plain versions on the card at the trainers' (2, 1024, 198), feasible,
+   repeated-label, infeasible and 384-label batches, loss and gradient;
+   kernel, plain and F.ctc_loss times.
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
@@ -68,12 +72,18 @@
    Then phases train teacher and teacher sampler (see `train_phases`): the
    port's train_teacher at full width, 5 steps at batch 2 in fp32 with one
    save and 5 at batch 16 in bf16, and the many-step CFG sampler, 32 steps
-   at batch 2 in bf16. Last, phase train distill (see `distill_phase`): the
+   at batch 2 in bf16. Then phases train asr and train sv (see
+   `aux_trainer_phase`): train_asr and train_sv at full width, 5 steps at
+   batch 2 with a save, exact launch counts, one step profiled, the ASR
+   step against its plain versions, the voxceleb ECAPA teacher over the
+   decoded batch; and phase train corpus (see `corpus_phase`): a synthetic
+   corpus written, and the ASR trainer's command line with --data-dir on it
+   in its own process. Last, phase train distill (see `distill_phase`): the
    attention kernel at the distiller's shapes (the ASR's head dim 4, the
    discriminator's 1030 keys), one student, disc and scorer step against
    the plain versions, and train_distill at full width, 3 iterations at
    batch 2 in fp32 with a save and 3 in bf16, with the exact attention
-   launches of each step.
+   and CTC launches of each step.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -213,44 +223,90 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def device_ms(fn, iters=10, match=None, launches=1):
-    """Device time per call from torch.profiler over iters + 1 calls, each
-    of which launches `launches` kernels whose names hold one of `match`:
-    their mean time per launch times `launches` (a trace may drop a
-    record; one with fewer than iters * launches of them is taken again,
-    3 tries); every kernel's time over the calls when `match` is None.
-    None when the profiler reports no device time, or lost records each
-    try."""
+    """(ms, clock): device time per call from torch.profiler over iters + 1
+    calls, each of which launches `launches` kernels whose names hold one of
+    `match`: their mean time per launch times `launches`; every kernel's
+    time over the calls when `match` is None (clock "device").
+
+    The card's traces drop kernel records at random (a trace of 21 calls
+    has held 6 or 8 of their launches). A trace short of iters * launches
+    records is taken again, 3 tries; after that the mean runs over the
+    launches the fullest trace kept, still on the device clock. Where no
+    trace kept one, the calls are timed by CUDA events behind a spin kernel
+    that holds the stream until every call is queued (clock "events": the
+    device's own timestamps with no host gap between the calls; it counts
+    every kernel the call launches). (None, "wall") when the profiler sees
+    no device time and the stream could not be held."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best = None  # (records, ms) of the fullest short trace
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters + 1):
                 fn()
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages() if _dev_us(e) > 0]
-        if not evts:
-            return None  # the profiler sees no device time at all
         if match is None:
-            return sum(_dev_us(e) for e in evts) / 1e3 / (iters + 1)
+            if evts:
+                return sum(_dev_us(e) for e in evts) / 1e3 / (iters + 1), "device"
+            continue
         hits = [e for e in evts if any(m in e.key for m in match)]
-        check(bool(hits), f"no profiled kernel matches {match}")
         seen = sum(e.count for e in hits)
         if seen >= iters * launches:
-            return sum(_dev_us(e) for e in hits) / 1e3 / seen * launches
+            return sum(_dev_us(e) for e in hits) / 1e3 / seen * launches, "device"
         print(f"  (profiler trace holds {seen} of at least {iters * launches} launches: taken again)", flush=True)
+        if seen and (best is None or seen > best[0]):
+            best = (seen, sum(_dev_us(e) for e in hits) / 1e3 / seen * launches)
+    if best is not None:
+        print(f"  (device time: the mean over the {best[0]} launches the fullest trace kept)", flush=True)
+        return best[1], "device"
+    held = held_stream_ms(fn, iters)
+    return (held, "events") if held is not None else (None, "wall")
+
+
+def held_stream_ms(fn, iters):
+    """Device ms per call from CUDA events around iters calls queued behind
+    a spin kernel (torch.cuda._sleep) that outlasts their enqueueing: the
+    spin's end event still pending once every call is queued proves the
+    device ran the calls back to back. Sleeps 4x longer on each of 4 tries;
+    None if the host never got ahead."""
+    import torch
+
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(host_s, 1e-3) * 4e9)  # 2x the enqueue time at up to 2 GHz
+    for _ in range(4):
+        e_held, e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(cycles)
+        e_held.record()
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        ahead = not e_held.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return e0.elapsed_time(e1) / iters
+        cycles *= 4
     return None
 
 
+DEVICE_CLOCKS = ("device", "events")
+
+
 def timed(fn, iters, match=None, per=1):
-    """(ms, wall ms, clock) per launch, `per` launches a call: ms is
-    profiler device time, or the event-timed wall time (clock "wall")
-    where the profiler saw none or lost records."""
+    """(ms, wall ms, clock) per launch, `per` launches a call: ms is on the
+    device's clock (see device_ms: clock "device" or "events"), or the
+    event-timed wall time (clock "wall") where neither could be had."""
     wall = time_ms(fn, iters=iters) / per
-    dev_t = device_ms(fn, iters=iters, match=match, launches=per)
-    return (wall, wall, "wall") if dev_t is None else (dev_t / per, wall, "device")
+    dev_t, clock = device_ms(fn, iters=iters, match=match, launches=per)
+    return (wall, wall, "wall") if dev_t is None else (dev_t / per, wall, clock)
 
 
 def main() -> int:
@@ -359,7 +415,7 @@ def main() -> int:
         abs_e, rel_e = err(got, want)
         check(rel_e <= tol[torch.float32], f"attention {label} fp32: rel err {rel_e:.3e}")
         ms, wall, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)
-        check(clock == "device", f"attention {label} fp32: no device-clock time")
+        check(clock in DEVICE_CLOCKS, f"attention {label} fp32: no device-clock time")
         plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
                        20)[0]
@@ -383,6 +439,8 @@ def main() -> int:
                         fp32_kernel=dict(kernel="attn_tf32_kernel", **{k: fp32[k] for k in (
                             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
                         fp32_train_shapes=train_rows, ptxas=ptxas))
+
+    ctc_phase(torch, dev, entries)
 
     # ------------------------------------------------------------- kernel B
     from smalltts_tpu_torch.models.dit import DiTConfig, fuse_serving_projections, init_dit, rope_cos_sin
@@ -609,7 +667,7 @@ def main() -> int:
         abs_e, rel_e = err(got_k, want_k)
         check(rel_e <= W8_TOL, f"w8 {label}: rel err {rel_e:.3e}")
         ms, wall, clock = timed(over(kfn), 5, (kernel,), per=per)
-        check(clock == "device", f"w8 {label}: the profiler gave no device time for {kernel}")
+        check(clock in DEVICE_CLOCKS, f"w8 {label}: no device-clock time for {kernel}")
         pms = timed(over(pfn), 5, per=per)[0]
         lms = timed(over(lfn), 5, per=per)[0]
         b_ms, b_by = bound(nbytes_, flops_, "bf16")
@@ -963,6 +1021,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_phases(torch, dev, entries)
     torch.cuda.empty_cache()
+    for which in ("asr", "sv"):
+        aux_trainer_phase(torch, dev, entries, which)
+    corpus_phase(entries)
     distill_phase(torch, dev, entries)
 
     print(f"card: {card}")
@@ -1434,6 +1495,397 @@ def onnx_phases(torch, dev, entries):
 # the attention Function's dq/dk/dv against autograd through attention_plain, max|diff|/max|plain|:
 # fp32 sums in another order, and the backward reads the kernel's output; in bf16 that output
 # is rounded to bf16 and each gradient is rounded once (tests/test_torch_train_cuda.py)
+CTC_SRC = "smalltts_tpu_torch/csrc/ctc.cu"
+# no pallas_call: the JAX trainers run optax.ctc_loss inside their jitted steps (XLA's loop)
+CTC_REPLACES = "smalltts_tpu/train/asr_train.py:34"
+CTC_LOSS_TOL = 1e-5  # each loss relative to itself: expf/log1pf against PyTorch's, an ulp a step
+CTC_GRAD_TOL = 1e-4  # max|diff| / max|plain| of the gradient w.r.t. the logits
+CTC_CASES = ("trainer", "feasible", "repeats", "infeasible", "n384", "padded_inside")
+
+
+def ctc_case(name, seed=0):
+    """(logits (B, T, K), logit_pad, labels, label_pad) as numpy: the
+    trainers' shape (2, 1024, 198) with the dummy loader's lengths (the
+    ASR's 4x upsampled latent frames), or a batch of the named kind (N =
+    384 is the serving contract's phoneme bucket; padded_inside has padded
+    frames inside feasible samples, which keep their states)."""
+    import numpy as np
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.text.vocab import phoneme_len
+
+    rs = np.random.RandomState(seed)
+    if name == "trainer":
+        batch = dummy_batch(np.random.default_rng(seed), DummyDataConfig(batch_size=2))
+        frames, labels, labs = 4 * batch["latents_lengths"], batch["phonemes"], batch["phonemes_lengths"]
+        T, K = 4 * 256, phoneme_len
+    else:
+        T, N, K = (1024, 384, phoneme_len) if name == "n384" else (400, 100, 60)
+        frames, labs = {"feasible": ([400, 300, 250], [100, 80, 50]), "repeats": ([400, 300, 250], [100, 80, 50]),
+                        "infeasible": ([400, 60, 100], [100, 80, 90]), "n384": ([1024, 900], [384, 300]),
+                        "padded_inside": ([400, 400, 300], [100, 80, 50])}[name]
+        labels = rs.randint(1, K, (len(frames), N)).astype(np.int32)
+        if name in ("repeats", "infeasible"):  # labels 7i and 7i + 1 equal
+            labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]
+        labels = np.where(np.arange(N)[None] < np.asarray(labs)[:, None], labels, 0).astype(np.int32)
+    logit_pad = (np.arange(T)[None] >= np.asarray(frames)[:, None]).astype(np.float32)
+    if name == "padded_inside":
+        logit_pad[0, 100:140] = 1.0
+        logit_pad[1, 0:10] = 1.0
+    label_pad = (np.arange(labels.shape[1])[None] >= np.asarray(labs)[:, None]).astype(np.float32)
+    logits = (2.0 * rs.randn(len(frames), T, K)).astype(np.float32)
+    return logits, logit_pad, labels, label_pad
+
+
+def ctc_phase(torch, dev, entries):
+    """Phase A, CTC: ops/losses.ctc_loss with the CTC kernels against the
+    same call under kernels.force_plain() (the plain versions on the card),
+    fp32, at the trainers' shape (2, 1024, 198) over 198 labels with the
+    dummy loader's lengths, a feasible, a repeated-label and an infeasible
+    batch (loss ~1e5), 384 labels and padded frames inside samples: each
+    loss within CTC_LOSS_TOL of the
+    plain one relative to itself, the gradient w.r.t. the logits within
+    CTC_GRAD_TOL of the largest plain value; one launch of each kernel a
+    call. Then, at the trainers' shape and at N = 384, each kernel's device
+    time beside its plain version's,
+    F.ctc_loss's forward and backward on the same log-probs (reduction
+    "none"; inf on an infeasible sample), and the bound: the bytes each
+    moves over 3.35 TB/s (the recurrence's T dependent steps are not in the
+    bound). The two kernels' entries get their launches from the train asr
+    phase."""
+    import contextlib
+
+    import torch.nn.functional as F
+
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels import ctc as C
+    from smalltts_tpu_torch.ops.losses import ctc_loss
+
+    t_phase = time.perf_counter()
+    print(f"phase A, CTC: ctc_loss kernels vs force_plain, fp32 (loss {CTC_LOSS_TOL} relative to itself, gradient "
+          f"{CTC_GRAD_TOL} of the largest plain value)", flush=True)
+    rows, timing = [], {}
+    for name in CTC_CASES:
+        logits, logit_pad, labels, label_pad = (torch.as_tensor(a, device=dev) for a in ctc_case(name))
+        B = logits.shape[0]
+        out = []
+        for plain in (False, True):
+            x = logits.clone().requires_grad_(True)
+            kernels.reset_launches()
+            with kernels.force_plain() if plain else contextlib.nullcontext():
+                loss = ctc_loss(x, logit_pad, labels, label_pad)
+                (loss * torch.arange(1, B + 1, device=dev)).sum().backward()
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            check(counts == ({} if plain else {"ctc_forward": 1, "ctc_backward": 1}), f"ctc {name}: launches {counts}")
+            out.append((loss.detach(), x.grad))
+        (lk, gk), (lp, gp) = out
+        loss_err = float(((lk - lp).abs() / lp.abs()).max())
+        grad_abs = float((gk - gp).abs().max())
+        grad_err = grad_abs / float(gp.abs().max())
+        check(bool(torch.isfinite(lk).all() and torch.isfinite(gk).all()), f"ctc {name}: not finite")
+        check(loss_err <= CTC_LOSS_TOL and grad_err <= CTC_GRAD_TOL,
+              f"ctc {name}: loss rel err {loss_err:.3e}, gradient rel err {grad_err:.3e}")
+        if name == "infeasible":
+            check(float(lk[1]) > 5e4 and float(lk[2]) > 5e4, f"ctc infeasible: losses {lk.tolist()}")
+        row = dict(case=name, shape=list(logits.shape) + [labels.shape[1]], loss=lk.tolist(),
+                   loss_abs_err=float((lk - lp).abs().max()), loss_rel_err=loss_err, grad_abs_err=grad_abs,
+                   grad_rel_err=grad_err)
+        if name in ("trainer", "n384"):
+            row.update(ctc_times(torch, F, C, logits, logit_pad, labels, label_pad))
+            timing[name] = row
+        rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+        del logits, x, out
+    head = timing["trainer"]
+    for which in ("forward", "backward"):
+        entries.append(dict(name=f"ctc_{which}", route="cuda", source=CTC_SRC, replaces=CTC_REPLACES,
+                            replaces_note="optax.ctc_loss in the JAX trainers' jitted steps; no pallas_call",
+                            launches=None, max_abs_err=head["loss_abs_err" if which == "forward" else "grad_abs_err"],
+                            **{k: head[f"{which}_{k}"] for k in ("ms", "wall_ms", "clock", "plain_ms", "bound_ms",
+                                                                   "bound_by", "library_ms", "step_us_per_frame")},
+                            shape=head["shape"], n384={k: timing["n384"][f"{which}_{k}"] for k in
+                                                       ("ms", "plain_ms", "bound_ms", "library_ms")},
+                            cases=rows if which == "forward" else None))
+    print(f"  phase A, CTC: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+def ctc_times(torch, F, C, logits, logit_pad, labels, label_pad):
+    """Device ms of each CTC kernel, its plain version's (one call, CUDA
+    events) and F.ctc_loss's forward and backward on the same log-probs,
+    and the bound, at one case's shape."""
+    B, T, _ = logits.shape
+    N = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    lp_phi = logprobs[:, :, 0].contiguous()
+    lp_emit = torch.gather(logprobs, 2, labels.long()[:, None, :].expand(B, T, N)).contiguous()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))
+    labellens = (N - label_pad.sum(dim=1)).to(torch.int32)
+    args = (lp_emit, lp_phi, logit_pad, repeat, labellens)
+    loss, alpha = C.ctc_forward(*args)
+    g = torch.ones_like(loss)
+    d_emit, d_phi = C.ctc_backward(g, *args, alpha)
+    res = {}
+    for which, fn, plain, ins, outs in (
+            ("forward", lambda: C.ctc_forward(*args), lambda: C.ctc_forward_plain(*args), args, (alpha, loss)),
+            ("backward", lambda: C.ctc_backward(g, *args, alpha), lambda: C.ctc_backward_plain(g, *args, alpha),
+             (g,) + args + (alpha,), (d_emit, d_phi))):
+        # the device clock (device_ms: the profiler, or where its traces drop every record, CUDA events
+        # around 10 launches queued behind a spin kernel; one kernel a call)
+        ms, wall, clock = timed(fn, 10, (f"ctc_{which}_kernel",))
+        # the plain version, a launch-bound loop of ~10 (forward) and ~30 (backward) ops a frame: one
+        # call's CUDA-event time (no trace: tracing its ~10^4 launches made later traces drop records)
+        plain_ms = time_ms(plain, iters=1, warmup=1)
+        b_ms, b_by = bound(nbytes(*ins) + nbytes(*outs), 0.0, "fp32")
+        res.update({f"{which}_ms": ms, f"{which}_wall_ms": wall, f"{which}_clock": clock,
+                    f"{which}_plain_ms": plain_ms, f"{which}_bound_ms": b_ms,
+                    f"{which}_bound_by": b_by, f"{which}_step_us_per_frame": ms * 1e3 / T})
+    # the library call: F.ctc_loss on (T, B, K) log-probs, per-sample losses; its backward alone
+    lp_t = logprobs.detach().transpose(0, 1).requires_grad_(True)
+    targets, in_lens = labels.long(), (T - logit_pad.sum(dim=1)).long()
+    tgt_lens = labellens.long()
+    lib_fwd = lambda: F.ctc_loss(lp_t, targets, in_lens, tgt_lens, reduction="none")  # noqa: E731
+    lib_loss = lib_fwd()
+    res["forward_library_ms"] = timed(lib_fwd, 20)[0]
+    res["backward_library_ms"] = timed(lambda: torch.autograd.grad(lib_loss.sum(), lp_t, retain_graph=True), 20)[0]
+    # F.ctc_loss's per-sample losses, None where it gives inf (an infeasible sample): the kernels line is strict JSON
+    res["library_loss"] = [v if v != float("inf") else None for v in lib_loss.tolist()]
+    return res
+
+
+# the ASR step's parameter gradients, kernels against plain, rel-L2 per module. The CTC's log-alphas
+# of a 1024-frame sequence reach some -5e3, where an fp32 ulp is ~5e-4, and every derivative of the
+# recurrence is exp(a - out) of two such values: the gradients carry that rounding, so an ulp of
+# change in the ASR's inputs or in an attention's sums moves them by ~1e-4 (the phase prints the
+# plain step's own move under a one-ulp nudge of its latents). A wrong kernel moves them by O(1).
+ASR_GRAD_TOL = 1e-3
+
+
+class CaptureGrads:
+    """An optimizer that records the gradients and leaves the params."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params):
+        from smalltts_tpu_torch.utils import checkpoint as ckpt
+
+        self.grads = grads
+        return ckpt.map_pytree(lambda t: t.new_zeros(t.shape), grads), state
+
+
+def module_grad_rel_l2(got, want):
+    """{module: rel-L2 of its gradient leaves} over the first two path parts."""
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+
+    fg, fw = ckpt.flatten_pytree(got), ckpt.flatten_pytree(want)
+    sums = {}
+    for n, gr in fg.items():
+        mod = "/".join(n.split("/")[:2])
+        a, c = sums.get(mod, (0.0, 0.0))
+        sums[mod] = (a + float((gr - fw[n]).norm()) ** 2, c + float(fw[n].norm()) ** 2)
+    return {mod: (a / max(c, 1e-60)) ** 0.5 for mod, (a, c) in sums.items() if c > 0}
+
+
+def aux_trainer_phase(torch, dev, entries, which):
+    """Phase train asr / train sv: the port's train_asr (ASRConfig()) or
+    train_sv (SVConfig(), CodecConfig(), the fallback teacher) at full
+    width, batch 2, the dummy loader, seed 0: 5 steps with one save (the
+    last, into a temporary directory that is removed). The counters, reset
+    just before: the ASR step's 7 attention launches (the conformer's head
+    dim 4, fp32) and one of each CTC kernel a step; the SV step launches no
+    kernel of the port. The loss finite, the BatchNorm running statistics
+    moved from the init, the save reloading as train_distill reads it,
+    equal to the returned params. Median step ms of steps 2-5 and latent
+    frames a second (batch x 256), peak max_memory_allocated; one more step
+    profiled (host dispatch, wall, device busy, idle share, kernels a step,
+    the CTC and attention kernels' device ms). The ASR step against the
+    same step under kernels.force_plain(): loss within 1e-5 relative, each
+    module's gradient within ASR_GRAD_TOL rel-L2, beside the plain step's
+    own move when its latents go one ulp up. After train sv, sv_teacher_embed
+    at VOXCELEB_ECAPA on seed-0 random weights over the decoded 24 kHz
+    batch: (2, 192), finite."""
+    import contextlib
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.models.asr import ASRConfig, init_asr
+    from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, init_codec
+    from smalltts_tpu_torch.models.sv import SVConfig, init_sv
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.train import asr_train as AT
+    from smalltts_tpu_torch.train import sv_train as ST
+    from smalltts_tpu_torch.train.optim import aux_optimizer
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.convert import params_from_jax
+
+    t_phase = time.perf_counter()
+    asr = which == "asr"
+    cfg = ASRConfig() if asr else SVConfig()
+    codec_cfg = CodecConfig()
+    steps, b = 5, 2
+    print(f"phase train {which}: {'train_asr, ASRConfig()' if asr else 'train_sv, SVConfig(), CodecConfig(), the fallback teacher'}"
+          f", batch {b}, dummy loader, seed 0: {steps} steps with a save", flush=True)
+    init = (init_asr if asr else init_sv)(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    codec = None if asr else init_codec(torch.Generator(device=dev).manual_seed(1), codec_cfg, device=dev)
+    stamps, losses = [], []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+
+    tmp = tempfile.mkdtemp(prefix=f"{which}_smoke_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        if asr:
+            params = AT.train_asr(AT.ASRTrainConfig(num_steps=steps, batch_size=b, save_every=steps - 1), cfg, seed=0,
+                                  checkpoint_dir=tmp, device=dev, on_step=on_step, log_every=10 ** 9)
+        else:
+            params = ST.train_sv(ST.SVTrainConfig(num_steps=steps, batch_size=b, save_every=steps - 1), cfg, codec_cfg,
+                                 seed=0, checkpoint_dir=tmp, device=dev, on_step=on_step, log_every=10 ** 9)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        peak = torch.cuda.max_memory_allocated()
+        want = {"attention": cfg.conformer.num_layers * steps, "ctc_forward": steps, "ctc_backward": steps} if asr else {}
+        check(launches == want, f"train {which}: launches {launches}, want {want}")
+        check(all(np.isfinite(losses)), f"train {which}: losses {losses}")
+        fi, fp = ckpt.flatten_pytree(init), ckpt.flatten_pytree(params)
+        stats = [k for k in fi if k.endswith(("/mean", "/var"))]
+        moved = sum(not torch.equal(fi[k], fp[k]) for k in stats)
+        check(moved == len(stats) > 0, f"train {which}: {moved} of {len(stats)} BatchNorm statistics moved")
+        back = ckpt.flatten_pytree(params_from_jax(ckpt.load_pytree(os.path.join(tmp, "checkpoint_latest.npz")), cfg))
+        check(back.keys() == fp.keys() and all(torch.equal(back[k], fp[k].cpu()) for k in fp),
+              f"train {which}: the save does not reload equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_ms = [(t1 - t0_) * 1e3 for t0_, t1 in zip(stamps, stamps[1:])]
+    med = statistics.median(step_ms)
+    row = dict(config="ASRConfig()" if asr else "SVConfig(), CodecConfig(), fallback teacher", batch=b, steps=steps,
+               losses=losses, step_ms=step_ms, step_ms_median=med, latent_frames_per_s=b * 256 / (med / 1e3),
+               wall_s=wall_s, peak_memory_bytes=peak, launches=launches, batchnorm_stats_moved=moved)
+
+    # one more step profiled, on the trained state
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             dummy_batch(np.random.default_rng(7), DummyDataConfig(batch_size=b)).items() if k != "texts"}
+    tx, _ = aux_optimizer(params, 200_000, clip_norm=None if asr else 5.0)
+    opt = tx.init(params)
+    if asr:
+        step = AT.make_asr_step(cfg, tx)
+        one = lambda: step(params, opt, batch)  # noqa: E731
+    else:
+        teacher_fn, teacher_p = ST.make_fallback_teacher(cfg.emb_dim, device=dev)
+        step = ST.make_sv_step(cfg, codec_cfg, tx, teacher_fn)
+        one = lambda: step(params, opt, codec, teacher_p, batch)  # noqa: E731
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    dispatch = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy, kern = profile_batch(lambda: (one(), torch.cuda.synchronize()))
+    wall = statistics.median(walls)
+    row["profile"] = dict(dispatch_ms=dispatch, wall_ms=walls, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                          kernels=sum(c for _, _, c in kern),
+                          ctc_kernel_ms={m: sum(t for k, t, _ in kern if m in k) for m in
+                                         ("ctc_forward_kernel", "ctc_backward_kernel")},
+                          attention_kernel_ms=sum(t for k, t, _ in kern if any(m in k for m in ATTN_KERNELS)),
+                          top=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:8]])
+
+    if asr:  # kernels against plain: one step's loss and gradients; the plain step's rounding floor beside
+        lat = batch["latents"]
+        nudged = dict(batch, latents=torch.where(lat != 0, torch.nextafter(lat, torch.full_like(lat, float("inf"))),
+                                                 lat))
+        res = []
+        for plain, b_ in ((False, batch), (True, batch), (True, nudged)):
+            cap = CaptureGrads()
+            with kernels.force_plain() if plain else contextlib.nullcontext():
+                _, _, loss = AT.make_asr_step(cfg, cap)(params, {}, b_)
+            res.append((float(loss), cap.grads))
+        (lk, gk), (lp, gp), (_, gn) = res
+        loss_err = abs(lk - lp) / max(abs(lp), 1e-30)
+        worst = max(module_grad_rel_l2(gk, gp).values())
+        floor = max(module_grad_rel_l2(gn, gp).values())
+        print(f"  train asr kernels vs plain: loss rel err {loss_err:.3e} (tolerance 1e-5), worst module gradient "
+              f"rel-L2 {worst:.3e} (tolerance {ASR_GRAD_TOL}); the plain step with its latents one ulp up: "
+              f"{floor:.3e}", flush=True)
+        check(loss_err <= 1e-5 and worst <= ASR_GRAD_TOL,
+              f"train asr kernels vs plain: loss {loss_err:.3e}, worst module gradient {worst:.3e}")
+        row["kernels_vs_plain"] = dict(loss=lk, loss_rel_err=loss_err, grad_rel_l2_worst=worst,
+                                       plain_one_ulp_grad_rel_l2_worst=floor)
+        for e in entries:
+            if e["name"].startswith("ctc_"):
+                e["launches"] = launches.get(e["name"], 0)
+                e["launches_per_asr_step"] = e["launches"] / steps
+    else:  # the waveform teacher at the voxceleb ECAPA's width over the decoded batch
+        from smalltts_tpu_torch.models.sv_teacher import VOXCELEB_ECAPA, init_sv_teacher, make_teacher_fn
+
+        teacher = init_sv_teacher(torch.Generator(device=dev).manual_seed(0), VOXCELEB_ECAPA, device=dev)
+        fn, _ = make_teacher_fn(teacher)
+        with torch.no_grad():
+            audio = codec_decode(codec, batch["latents"], codec_cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            emb = fn(teacher, audio, batch["latents_lengths"] * codec_cfg.hop)
+            torch.cuda.synchronize()
+        check(emb.shape == (b, 192) and bool(torch.isfinite(emb).all()), f"sv_teacher_embed: {tuple(emb.shape)}")
+        row["sv_teacher_embed"] = dict(audio=list(audio.shape), emb=list(emb.shape), wall_ms=(time.perf_counter() - t0) * 1e3)
+    print(f"  train {which}: {json.dumps(row)}", flush=True)
+    e = next(e for e in entries if e["name"] == "ctc_forward")
+    e[f"train_{which}"] = row
+    torch.cuda.empty_cache()
+    print(f"  phase train {which}: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+def corpus_phase(entries, timeout_s=600):
+    """Phase train corpus: write_corpus of 16 utterances into a temporary
+    directory, then `python -m smalltts_tpu_torch.train.asr_train --data-dir
+    DIR --steps 2` in its own process, which encodes the corpus with a
+    random-init native codec on the card (it warns so) and trains; its exit
+    code must be 0 and it must log step 0."""
+    import shutil
+    import tempfile
+
+    import smalltts_tpu_torch
+    from smalltts_tpu_torch.data.synthetic import write_corpus
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(smalltts_tpu_torch.__file__)))
+    tmp = tempfile.mkdtemp(prefix="corpus_smoke_")
+    try:
+        utts = write_corpus(os.path.join(tmp, "corpus"), n_utts=16, n_speakers=4, seed=0)
+        cmd = [sys.executable, "-m", "smalltts_tpu_torch.train.asr_train", "--data-dir", os.path.join(tmp, "corpus"),
+               "--steps", "2", "--checkpoint-dir", os.path.join(tmp, "ckpt")]
+        print(f"phase train corpus: {len(utts)} utterances written; {' '.join(cmd[1:])}", flush=True)
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=timeout_s)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    tail = (res.stdout + res.stderr)[-1500:]
+    print("  " + tail.replace("\n", "\n  "), flush=True)
+    check(res.returncode == 0 and "step 0: asr_ctc=" in res.stdout, f"train corpus: exit {res.returncode}")
+    check("random-init codec" in res.stderr, "train corpus: no random-init codec warning")
+    e = next(e for e in entries if e["name"] == "ctc_forward")
+    e["train_corpus"] = dict(utterances=len(utts), rc=res.returncode, seconds=secs)
+    print(f"  phase train corpus: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
 TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PORT_KERNELS = ATTN_KERNELS + ("adaln_kernel", "qk_norm_rope_kernel", "gemm_wgmma_kernel", W8_TC, W8_STREAM)
 
@@ -1832,7 +2284,8 @@ def distill_phase(torch, dev, entries):
       into a temporary directory that is removed) and 3 in bf16: the
       attention launches of each iteration, counted, equal to what
       distill_attention_launches derives (step 0's gates are shut: `step >
-      0`), no other kernel, and no attention shape that was not held
+      0`), one launch of each CTC kernel an iteration with the ASR's gate
+      open and no other kernel, and no attention shape that was not held
       against plain above; the metrics finite; student, scorer and disc
       changed; the teacher bit-equal to its start; the saved npz files
       reload equal. Peak max_memory_allocated. Then, on the trained state,
@@ -1900,18 +2353,20 @@ def distill_phase(torch, dev, entries):
                 for (name, k), n in kernels.SHAPE_LAUNCHES.items() if name == "attention"}
 
     def device_times(fn, n=3):
-        """n device-clock times (ms) of fn's kernel from separate profiled
-        calls of `timed`; a call whose trace lost records is taken again,
-        up to 2n calls, and fewer than n device readings fail the run."""
-        got = []
+        """(n device-clock times (ms) of fn's kernel from separate calls of
+        `timed`, their clocks joined by "+"); a call with no device-clock
+        reading is taken again, up to 2n calls, and fewer than n device
+        readings fail the run."""
+        got, clocks = [], set()
         for _ in range(2 * n):
             ms, _, clock = timed(fn, 20, ATTN_KERNELS)
-            if clock == "device":
+            if clock in DEVICE_CLOCKS:
                 got.append(ms)
+                clocks.add(clock)
                 if len(got) == n:
                     break
         check(len(got) == n, f"attention: {len(got)} of {n} device-clock times")
-        return got
+        return got, "+".join(sorted(clocks))
 
     rows = []
     for label, dtype, B, H, Tq, S, D_ in shapes:
@@ -1937,14 +2392,14 @@ def distill_phase(torch, dev, entries):
         check(max(grad_err.values()) <= TRAIN_GRAD_TOL[str(dtype).split(".")[-1]]
               and float(grads[0][0][-1].abs().max()) == 0.0, f"attention Function {label} {kind}: {grad_err}")
         del grads, leaves
-        ms_runs = device_times(lambda: A.fused_attention(q, k, v, m))
+        ms_runs, clock = device_times(lambda: A.fused_attention(q, k, v, m))
         plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
                        20)[0]
         b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, attn_kind(dtype, D_))
         row = dict(shape=f"{label} B={B} H={H} D={D_}", key=shape_key(B, H, Tq, S, D_, kind), dtype=kind, max_abs_err=abs_e,
                    rel_err=rel_e, grad_rel_err=grad_err, ms=statistics.median(ms_runs), ms_runs=ms_runs,
-                   clock="device", plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                   clock=clock, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
         rows.append(row)
         print("  attention at the distiller's shapes: " + json.dumps(row), flush=True)
         del q, k, v, dout, got, want
@@ -1973,23 +2428,13 @@ def distill_phase(torch, dev, entries):
                 if k != "texts"}
 
     # ------------------------------------------------------------ kernels vs plain
-    class Capture:
-        """An optimizer that records the gradients and leaves the params."""
-
-        def init(self, params):
-            return {}
-
-        def update(self, grads, state, params):
-            self.grads = grads
-            return ckpt.map_pytree(torch.zeros_like, grads), state
-
     batch = batch_of(11)
     dgen = torch.Generator(device=dev).manual_seed(12)
     sd, dd, scd = D.student_draws(dgen, batch), D.disc_draws(dgen, batch), D.scorer_draws(dgen, batch, 1)
     tcfg = D.DistillConfig(asr_start_step=0, sv_start_step=0, scorer_updates=1)
     res = []
     for plain in (False, True):
-        txs = (Capture(), Capture(), Capture())
+        txs = (CaptureGrads(), CaptureGrads(), CaptureGrads())
         with kernels.force_plain() if plain else contextlib.nullcontext():
             _, _, carry, metrics = D.make_student_step(cfg, disc_cfg, asr_cfg, sv_cfg, txs[0], tcfg)(
                 teacher, {}, teacher, teacher, disc, asr, sv, batch, 1, sd)
@@ -1997,18 +2442,11 @@ def distill_phase(torch, dev, entries):
             _, _, s_loss = D.make_scorer_step(cfg, txs[2], 1)(teacher, {}, teacher, batch, carry, scd)
         res.append(({**{k: float(v) for k, v in metrics.items()}, "disc_loss": float(d_loss),
                      "scorer_loss": float(s_loss)},
-                    {n: ckpt.flatten_pytree(t.grads) for n, t in zip(("student", "disc", "scorer"), txs)}))
+                    {n: t.grads for n, t in zip(("student", "disc", "scorer"), txs)}))
         del carry, txs
     (mk, gk), (mp_, gp) = res
     loss_err = {k: abs(mk[k] - mp_[k]) / max(abs(mp_[k]), 1e-30) for k in mk}
-    grad_err = {}
-    for net, flat in gk.items():
-        sums = {}
-        for n, gr in flat.items():
-            mod = "/".join(n.split("/")[:2])
-            a, c = sums.get(mod, (0.0, 0.0))
-            sums[mod] = (a + float((gr - gp[net][n]).norm()) ** 2, c + float(gp[net][n].norm()) ** 2)
-        grad_err[net] = {mod: (a / max(c, 1e-60)) ** 0.5 for mod, (a, c) in sums.items() if c > 0}
+    grad_err = {net: module_grad_rel_l2(g_, gp[net]) for net, g_ in gk.items()}
     worst = {net: max(e.values()) for net, e in grad_err.items()}
     print(f"  kernels vs plain, fp32 batch 2, one student (gates open), disc and scorer step: metrics {json.dumps(mk)}; "
           f"relative error (tolerance {DISTILL_LOSS_TOL}): {json.dumps({k: float(f'{v:.3e}') for k, v in loss_err.items()})}; "
@@ -2021,8 +2459,8 @@ def distill_phase(torch, dev, entries):
     attn["distill_kernels_vs_plain"] = dict(metrics=mk, metrics_rel_err=loss_err, grad_rel_l2_worst=worst)
     del res, gk, gp
 
-    # the CTC loss alone at the student step's shape (a Python loop over the ASR's frames): host time
-    # of its forward and backward, synchronized, median of 3
+    # the CTC loss alone at the student step's shape (the CTC kernels): host time of its forward and
+    # backward, synchronized, median of 3
     from smalltts_tpu_torch.ops.losses import ctc_loss
     from smalltts_tpu_torch.ops.masking import length_mask
 
@@ -2174,9 +2612,12 @@ def distill_phase(torch, dev, entries):
             iter_shapes = [{k: n - prev.get(k, 0) for k, n in cur.items() if n - prev.get(k, 0)}
                            for prev, cur in zip([{}] + shapes_seen, shapes_seen)]
             want_iter = [per_iter[s > tcfg.asr_start_step] for s in range(steps)]
-            check(iter_launches == want_iter and set(launches) == {"attention"},
+            # the CTC kernels: one of each a student step with the ASR's gate open
+            want_ctc = sum(s > tcfg.asr_start_step for s in range(steps))
+            check(iter_launches == want_iter and set(launches) == {"attention", "ctc_forward", "ctc_backward"}
+                  and launches["ctc_forward"] == launches["ctc_backward"] == want_ctc,
                   f"train distill {dtype}: attention launches by iteration {iter_launches}, want {want_iter}; "
-                  f"all launches {launches}")
+                  f"all launches {launches}, want {want_ctc} of each CTC kernel")
             unheld = set().union(*iter_shapes) - row_keys
             check(not unheld, f"train distill {dtype}: attention launched at shapes not held against plain: {unheld}")
             check(all(np.isfinite(v) for m_ in metrics_seen for v in m_.values()),
@@ -2190,6 +2631,7 @@ def distill_phase(torch, dev, entries):
                   f"train distill {dtype}: the teacher changed")
             iter_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps, stamps[1:])]
             row = dict(dtype=dtype, batch=2, iterations=steps, metrics=metrics_seen, iteration_ms=iter_ms,
+                       ctc_launches={k: launches[k] for k in ("ctc_forward", "ctc_backward")},
                        iteration_ms_median=statistics.median(iter_ms), wall_s=wall, peak_memory_bytes=peak,
                        attention_launches_by_iteration=iter_launches, attention_launches_by_shape=iter_shapes)
             if save:
@@ -2231,6 +2673,9 @@ def distill_phase(torch, dev, entries):
                                            "gates open": run["attention_launches_by_shape"][1].get(r["key"], 0)}
                                        for k, run in runs.items()}
     attn["train_distill"] = runs
+    for e in entries:
+        if e["name"].startswith("ctc_"):
+            e["launches_train_distill"] = {k: r["ctc_launches"][e["name"]] for k, r in runs.items()}
     attn["launches_train_distill"] = {k: r["attention_launches_by_iteration"] for k, r in runs.items()}
     del teacher, disc, asr, sv
     torch.cuda.empty_cache()

@@ -32,7 +32,7 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("attention", "dit_block", "w8")
+SOURCES = ("attention", "dit_block", "w8", "ctc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -160,6 +160,10 @@ SIGNATURES = {
     },
     "w8": {
         "st_w8_matmul": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "ctc": {
+        "st_ctc_forward": ([_P] * 7 + [_I, _I, _I, _P], _I),
+        "st_ctc_backward": ([_P] * 9 + [_I, _I, _I, _P], _I),
     },
 }
 

@@ -32,6 +32,7 @@ draws in.
 
     python -m smalltts_tpu_torch.train.distill --teacher T.npz --asr A.npz --sv S.npz
         [--steps 40000] [--batch-size 2] [--checkpoint-dir assets/dmd_checkpoints]
+        [--data-dir DIR] [--data-codec-checkpoint C]
 """
 
 from __future__ import annotations
@@ -53,8 +54,8 @@ from smalltts_tpu_torch.ops.losses import cosine_loss, ctc_loss
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.ops.precision import DTYPES, cast_floats
 from smalltts_tpu_torch.ops.schedule import apply_noise, x_pred_from_velocity
-from smalltts_tpu_torch.train.optim import apply_updates
-from smalltts_tpu_torch.utils.checkpoint import flatten_pytree, map_pytree, unflatten_pytree
+from smalltts_tpu_torch.train.optim import apply_updates, value_and_grad
+from smalltts_tpu_torch.utils.checkpoint import map_pytree
 
 TIMESTEPS = (1.0, 1.0, 0.75, 0.50, 0.25)
 SCORER_UPDATES = 5
@@ -123,18 +124,6 @@ def scorer_draws(gen: torch.Generator, batch, n_updates: int):
     return {"noise_z": torch.randn(n, generator=gen, device=dev),
             "ts": torch.rand((n_updates, lat.shape[0]), generator=gen, device=dev),
             "noise_t": torch.randn(n, generator=gen, device=dev)}
-
-
-def _value_and_grad(params, loss_fn):
-    """(loss, aux, grads) of loss_fn(params) -> (loss, aux), the gradient of
-    every leaf of `params` (zero where the loss does not reach it)."""
-    flat = flatten_pytree(params)
-    leaves = [p.detach().requires_grad_(True) for p in flat.values()]
-    with torch.enable_grad():
-        loss, aux = loss_fn(unflatten_pytree(dict(zip(flat, leaves))))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(flat.items(), grads)}
-    return loss.detach(), aux, unflatten_pytree(grads)
 
 
 def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cfg: ASRConfig, sv_cfg: SVConfig, tx,
@@ -211,7 +200,7 @@ def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cf
             return total, {"st_pseudo": pseudo.detach(), "st_gan": gan.detach(), "st_asr": ctc.detach(),
                            "st_sv": sv_loss.detach(), "x_t": x_t.detach()}
 
-        _, aux, grads = _value_and_grad(student, student_loss)
+        _, aux, grads = value_and_grad(student, student_loss)
         with torch.no_grad():
             updates, student_opt = tx.update(grads, student_opt, student)
             student = apply_updates(student, updates)
@@ -252,7 +241,7 @@ def make_disc_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, compu
             real, fake = torch.chunk(logits, 2)
             return (fake ** 2 + (real - 1.0) ** 2).mean(), new_p
 
-        loss, new_p, grads = _value_and_grad(disc, disc_loss)
+        loss, new_p, grads = value_and_grad(disc, disc_loss)
         with torch.no_grad():
             updates, disc_opt = tx.update(grads, disc_opt, disc)
             disc = apply_updates(map_pytree(torch.Tensor.detach, new_p), updates)
@@ -287,7 +276,7 @@ def make_scorer_step(cfg: BackboneConfig, tx, n_updates: int = SCORER_UPDATES, c
                 diff = ((v_pred - v_target) * valid) ** 2
                 return diff.sum() / torch.clamp_min(valid.sum() * v_pred.shape[-1], 1.0), None
 
-            loss, _, grads = _value_and_grad(scorer, fm_loss)
+            loss, _, grads = value_and_grad(scorer, fm_loss)
             with torch.no_grad():
                 updates, scorer_opt = tx.update(grads, scorer_opt, scorer)
                 scorer = apply_updates(scorer, updates)
@@ -396,14 +385,18 @@ def train_distill(
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="DMD2 distillation of the teacher into the 4-step student, on the card "
-                                             "(dummy data).")
+    from smalltts_tpu_torch.data.local import cli_data_iter
+
+    ap = argparse.ArgumentParser(description="DMD2 distillation of the teacher into the 4-step student, on the card.")
     ap.add_argument("--steps", type=int, default=40_000)
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--teacher", default="assets/teacher_checkpoints/checkpoint_ema.npz")
     ap.add_argument("--asr", default="assets/asr_checkpoints/checkpoint_latest.npz")
     ap.add_argument("--sv", default="assets/sv_checkpoints/checkpoint_latest.npz")
     ap.add_argument("--checkpoint-dir", default="assets/dmd_checkpoints")
+    ap.add_argument("--data-dir", default=None,
+                    help="local corpus (metadata.csv or paired .wav/.txt); default: dummy random tensors")
+    ap.add_argument("--data-codec-checkpoint", default=None, help="native codec weights for corpus encoding")
     args = ap.parse_args(argv)
     missing = [f"--{name} {path}" for name, path in (("teacher", args.teacher), ("asr", args.asr), ("sv", args.sv))
                if not os.path.isfile(path)]
@@ -412,7 +405,8 @@ def main(argv=None) -> None:
               file=sys.stderr)
         raise SystemExit(2)
     train_distill(DistillConfig(num_steps=args.steps, batch_size=args.batch_size), teacher_checkpoint=args.teacher,
-                  asr_checkpoint=args.asr, sv_checkpoint=args.sv, checkpoint_dir=args.checkpoint_dir)
+                  asr_checkpoint=args.asr, sv_checkpoint=args.sv, checkpoint_dir=args.checkpoint_dir,
+                  data_iter=cli_data_iter(args.data_dir, args.data_codec_checkpoint, args.batch_size))
 
 
 if __name__ == "__main__":

@@ -131,6 +131,19 @@ class AdamW(NamedTuple):
                                            "count": count_inc.to(torch.int32)}
 
 
+def value_and_grad(params, loss_fn):
+    """(loss, aux, grads) of loss_fn(params) -> (loss, aux), the gradient of
+    every leaf of `params` (zero where the loss does not reach it), as
+    JAX's value_and_grad(has_aux=True) gives them."""
+    flat = flatten_pytree(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat.values()]
+    with torch.enable_grad():
+        loss, aux = loss_fn(unflatten_pytree(dict(zip(flat, leaves))))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(flat.items(), grads)}
+    return loss.detach(), aux, unflatten_pytree(grads)
+
+
 def apply_updates(params, updates):
     """p + u in p's dtype (optax.apply_updates)."""
     flat_u = flatten_pytree(updates)

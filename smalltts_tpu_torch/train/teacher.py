@@ -14,7 +14,7 @@ the step waits for the card.
 
     python -m smalltts_tpu_torch.train.teacher --steps N [--batch-size 16]
         [--compute-dtype bfloat16] [--resume DIR/train_state.npz]
-        [--checkpoint-dir assets/teacher_checkpoints]
+        [--checkpoint-dir assets/teacher_checkpoints] [--data-dir DIR] [--codec-checkpoint C]
 """
 
 from __future__ import annotations
@@ -205,7 +205,9 @@ def train_teacher(
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="Train the flow-matching teacher on the card (dummy data).")
+    from smalltts_tpu_torch.data.local import cli_data_iter
+
+    ap = argparse.ArgumentParser(description="Train the flow-matching teacher on the card.")
     ap.add_argument("--steps", type=int, default=330_000)
     ap.add_argument("--batch-size", type=int, default=16)
     ap.add_argument("--compute-dtype", default="bfloat16", choices=sorted(DTYPES),
@@ -214,10 +216,17 @@ def main(argv=None) -> None:
                     help="a reference torch checkpoint (.pt/.pth/.bin) to fine-tune from")
     ap.add_argument("--resume", default=None, help="a train_state.npz written by this trainer")
     ap.add_argument("--checkpoint-dir", default="assets/teacher_checkpoints")
+    ap.add_argument("--data-dir", default=None,
+                    help="local corpus: metadata.csv ('wav|text') or paired .wav/.txt files "
+                         "(default: dummy random tensors)")
+    ap.add_argument("--codec-checkpoint", default=None,
+                    help="native codec weights for corpus encoding (with assets/codec/*.onnx present the "
+                         "imported encoder is used instead)")
     args = ap.parse_args(argv)
     train_teacher(TeacherTrainConfig(num_steps=args.steps, batch_size=args.batch_size,
                                      compute_dtype=args.compute_dtype),
-                  pretrained=args.pretrained, resume_from=args.resume, checkpoint_dir=args.checkpoint_dir)
+                  pretrained=args.pretrained, resume_from=args.resume, checkpoint_dir=args.checkpoint_dir,
+                  data_iter=cli_data_iter(args.data_dir, args.codec_checkpoint, args.batch_size))
 
 
 if __name__ == "__main__":

@@ -136,14 +136,21 @@ CTC_CASES = {
     "feasible": ([20, 14, 9], [5, 3, 4], False),
     "repeats": ([20, 14, 9], [5, 3, 4], True),
     "infeasible": ([20, 3, 5], [5, 4, 5], True),  # 3 frames for 4 labels; 5 frames for 5 labels with repeats
+    # 384 label positions (the serving contract's phoneme bucket), most past the label count, where they
+    # still run through the recurrence (optax pads only at the final gather)
+    "n384": ([64, 50], [40, 20], True),
+    # padded frames inside a feasible sample (and at the start of another): they keep the states
+    "padded_inside": ([20, 20, 9], [5, 3, 4], False),
 }
+# (B, T, K, N) of each case
+CTC_SHAPES = {"n384": (2, 64, 400, 384)}
 
 
 @pytest.mark.parametrize("case", list(CTC_CASES))
 def test_ctc_loss_matches_optax(case):
     frames, labs, repeats = CTC_CASES[case]
     rs = np.random.RandomState(len(case))
-    B, Tn, K, N = 3, 20, 9, 5
+    B, Tn, K, N = CTC_SHAPES.get(case, (3, 20, 9, 5))
     logits = rs.randn(B, Tn, K).astype(np.float32)
     labels = rs.randint(1, K, (B, N)).astype(np.int32)
     if repeats:
@@ -152,6 +159,9 @@ def test_ctc_loss_matches_optax(case):
     label_pad = 1.0 - lengths_mask(labs, N).astype(np.float32)
     labels = np.where(label_pad > 0, 0, labels).astype(np.int32)
     logit_pad = 1.0 - lengths_mask(frames, Tn).astype(np.float32)
+    if case == "padded_inside":
+        logit_pad[0, 6:9] = 1.0
+        logit_pad[1, :4] = 1.0
 
     def jloss(x):
         return optax.ctc_loss(x, logit_pad, labels, label_pad)
