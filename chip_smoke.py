@@ -78,12 +78,17 @@
    step against its plain versions, the voxceleb ECAPA teacher over the
    decoded batch; and phase train corpus (see `corpus_phase`): a synthetic
    corpus written, and the ASR trainer's command line with --data-dir on it
-   in its own process. Last, phase train distill (see `distill_phase`): the
+   in its own process. Then phase train distill (see `distill_phase`): the
    attention kernel at the distiller's shapes (the ASR's head dim 4, the
    discriminator's 1030 keys), one student, disc and scorer step against
    the plain versions, and train_distill at full width, 3 iterations at
    batch 2 in fp32 with a save and 3 in bf16, with the exact attention
-   and CTC launches of each step.
+   and CTC launches of each step. Last, phase train imf (see `imf_phase`):
+   one fp32 IMF step against the plain versions, the bf16 teacher's
+   rollout against its plain versions, and train_imf at full width,
+   batch 2: plain in fp32 (with a save, served as IMF-2) and bf16,
+   adversarial and DMD, with the exact attention launches of each
+   iteration.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -1025,6 +1030,7 @@ def main() -> int:
         aux_trainer_phase(torch, dev, entries, which)
     corpus_phase(entries)
     distill_phase(torch, dev, entries)
+    imf_phase(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -2682,6 +2688,296 @@ def distill_phase(torch, dev, entries):
     print(f"  attention launches an iteration by shape: "
           f"{json.dumps({r['key']: r['launches_per_iteration'] for r in rows})}", flush=True)
     print(f"  phase train distill: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+# IMF training, kernels against plain over one fp32 step: the loss, and each module's gradient rel-L2
+# (fp32 sums in another order, as the distill phase bounds them)
+IMF_LOSS_TOL = 1e-4
+IMF_GRAD_TOL = 1e-4
+# the bf16 teacher's rollout (float32 activations over bf16 weights, as in JAX) against the plain versions:
+# fp32 sums in another order through 4 substeps of 12 layers
+IMF_ROLLOUT_TOL = 1e-4
+# unprofiled iterations timed a variant, after its first
+IMF_TIMED = 5
+
+
+def imf_launches(cfg, disc_cfg, tc, data):
+    """Attention launches of one IMF iteration (student step, then the disc
+    or scorer step), derived from the configs: {(B, H, Tq, S, D):
+    launches}. A backbone forward launches one a text, style and DiT layer;
+    a cached denoise (the split layout) one a DiT layer; the backward
+    launches none (PyTorch ops). The student step: the student's
+    conditioning (text, style), the teacher's rollout_substeps denoises
+    (and one more with roll-in or the boundary pair on), the student's
+    forward with grad; with gan_weight the teacher's style encoder, the
+    full-interval student forward, the teacher's backbone forward on the
+    fake and the discriminator, then the disc step's teacher backbone
+    forward and discriminator at batch 4; with dmd_weight the composition's
+    focus_num_steps student forwards, the teacher's 3x CFG backbone forward
+    and the scorer's, then dmd_scorer_updates scorer forwards."""
+    b, P, R, T = data.batch_size, data.max_phonemes, data.max_ref, data.max_latents
+    L = cfg.dit.n_blocks
+    text = lambda n: (n, cfg.text.num_heads, P, P, cfg.text.head_dim)  # noqa: E731
+    style = lambda n: (n, cfg.style.num_heads, R, R, cfg.style.head_dim)  # noqa: E731
+    dit = lambda n: (n, cfg.dit.heads, T, T + R + P, cfg.dit.head_dim)  # noqa: E731
+    s_disc = disc_cfg.num_tail_layers * T + R + P
+    disc = lambda n: (n, disc_cfg.conformer.num_heads, s_disc, s_disc,  # noqa: E731
+                      disc_cfg.model_dim // disc_cfg.conformer.num_heads)
+    attn = {}
+
+    def add(key, n):
+        attn[key] = attn.get(key, 0) + n
+
+    def backbone(n):
+        add(text(n), cfg.text.num_layers)
+        add(style(n), cfg.style.num_layers)
+        add(dit(n), L)
+
+    teacher_denoises = tc.rollout_substeps + (tc.boundary_prob > 0)
+    add(text(b), cfg.text.num_layers)
+    add(style(b), cfg.style.num_layers)
+    add(dit(b), L * (teacher_denoises + (tc.rollin_prob > 0) + 1))  # + the roll-in's and the loss's student
+    if tc.gan_weight > 0:
+        add(style(b), cfg.style.num_layers)
+        add(dit(b), L)
+        backbone(b)
+        add(disc(b), disc_cfg.conformer.num_layers)
+        backbone(b)
+        add(disc(2 * b), disc_cfg.conformer.num_layers)
+    if tc.dmd_weight > 0:
+        add(dit(b), L * tc.focus_num_steps)
+        backbone(3 * b)
+        backbone(b)
+        for _ in range(tc.dmd_scorer_updates):
+            backbone(b)
+    return attn
+
+
+def imf_phase(torch, dev, entries):
+    """Phase train imf: IMF training through the port's train_imf at full
+    width (the default BackboneConfig, 328M, no remat as in the JAX
+    package; DiscriminatorConfig(960, 960)), batch 2, the dummy loader,
+    seed-0 random weights (the zero-init leaves re-drawn) as the teacher.
+
+    - Kernels against kernels.force_plain(): one fp32 make_imf_step step
+      from the same student (r_gate drawn) and draws, with an optimizer that
+      records the gradients: the loss within IMF_LOSS_TOL, each module's
+      gradient within IMF_GRAD_TOL rel-L2.
+    - The bf16 teacher's rollout (4 substeps, the split tree) against its
+      plain versions: IMF_ROLLOUT_TOL rel-L2, exactly 4 x 12 attention
+      launches and no other kernel.
+    - train_imf, IMF_TIMED + 2 iterations each: plain fp32 (a save at the
+      last) and bf16 (the teacher, so the student, in bf16), adversarial
+      (gan_weight 1e-3) and DMD (dmd_weight 1.0, 2 scorer updates) in
+      fp32. Each iteration's attention launches by shape equal
+      imf_launches' and nothing else launches (no attention shape that the
+      distill phase did not hold against plain), the losses finite, the
+      teacher unchanged, the frozen leaves equal to the teacher's. The ms
+      of the IMF_TIMED unprofiled iterations after the first (median, min,
+      max), peak max_memory_allocated, and the last iteration profiled
+      (device busy, kernels; the idle share 1 - busy / that median). The
+      saved fp32 student reloads equal and is served once by
+      SmallTTS(checkpoint=...) as IMF-2."""
+    import contextlib
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, encode_conditions, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.discriminator import DiscriminatorConfig
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.masking import length_mask
+    from smalltts_tpu_torch.ops.precision import cast_floats
+    from smalltts_tpu_torch.train import imf as I
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.convert import params_from_jax
+
+    attn = next(e for e in entries if e["name"] == "attention")
+    t_phase = time.perf_counter()
+    cfg = BackboneConfig()
+    disc_cfg = DiscriminatorConfig(transformer_dim=cfg.hidden_dim, ref_dim=cfg.hidden_dim)
+    data = DummyDataConfig(batch_size=2)
+    print("phase train imf: train_imf, default BackboneConfig (teacher and student), DiscriminatorConfig(960, 960), "
+          "batch 2, seed 0, dummy loader", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    teacher = redraw_zero_init(init_backbone(gen, cfg, device=dev), gen)
+
+    def batch_of(seed):
+        return {k: torch.as_tensor(v, device=dev) for k, v in dummy_batch(np.random.default_rng(seed), data).items()
+                if k != "texts"}
+
+    # ------------------------------------------------------------ kernels vs plain, one fp32 step
+    batch = batch_of(31)
+    tc = I.ImfConfig()
+    student = I.init_imf_student(teacher)
+    student["r_gate"] = 0.1 * torch.randn(student["r_gate"].shape, generator=gen, device=dev)
+    draws = I.imf_draws(torch.Generator(device=dev).manual_seed(32), batch, tc)
+    res = []
+    for plain in (False, True):
+        tx = CaptureGrads()
+        with kernels.force_plain() if plain else contextlib.nullcontext():
+            _, _, loss = I.make_imf_step(cfg, tx, tc)(student, {}, teacher, batch, draws)
+        res.append((float(loss), tx.grads))
+    (lk, gk), (lp, gp) = res
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = module_grad_rel_l2(gk, gp)
+    worst = max(grad_err.values())
+    print(f"  kernels vs plain, one fp32 step: loss {lk:.6f} against {lp:.6f}, relative error {loss_err:.3e} "
+          f"(tolerance {IMF_LOSS_TOL}); worst module gradient rel-L2 {worst:.3e} (tolerance {IMF_GRAD_TOL}): "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in grad_err.items()})}", flush=True)
+    check(np.isfinite(lk) and loss_err <= IMF_LOSS_TOL, f"imf loss kernels vs plain: {lk} against {lp}")
+    check(worst <= IMF_GRAD_TOL, f"imf gradients kernels vs plain: {grad_err}")
+    frozen = [k for k, g_ in ckpt.flatten_pytree(gk).items() if set(k.split("/")) & set(I.IMF_FROZEN)]
+    check(frozen and all(not ckpt.flatten_pytree(gk)[k].any() for k in frozen), "imf: a frozen leaf got a gradient")
+    attn["imf_kernels_vs_plain"] = dict(loss=lk, loss_rel_err=loss_err, grad_rel_l2=grad_err)
+    del res, gk, gp, student
+
+    # ------------------------------------------------------------ the bf16 rollout against plain
+    t16 = cast_floats(teacher, torch.bfloat16)
+    mask = length_mask(batch["latents_lengths"], data.max_latents)
+    with torch.no_grad():
+        cond = encode_conditions(t16, cfg, batch["ref_latents"], batch["ref_latents_lengths"], batch["phonemes"],
+                                 length_mask(batch["phonemes_lengths"], data.max_phonemes))
+    x_t = torch.randn(batch["latents"].shape, generator=gen, device=dev)
+    t_, r_ = torch.tensor([0.9, 0.6], device=dev), torch.tensor([0.3, 0.02], device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    got = I.teacher_rollout(t16, cfg, x_t, mask, t_, r_, cond, tc.rollout_substeps)
+    torch.cuda.synchronize()
+    roll_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want_roll = {"attention": cfg.dit.n_blocks * tc.rollout_substeps}
+    with kernels.force_plain():
+        want = I.teacher_rollout(t16, cfg, x_t, mask, t_, r_, cond, tc.rollout_substeps)
+    roll_err = float((got - want).norm() / want.norm())
+    print(f"  bf16 teacher's rollout ({tc.rollout_substeps} substeps) against plain: rel-L2 {roll_err:.3e} "
+          f"(tolerance {IMF_ROLLOUT_TOL}); launches {json.dumps(roll_launches)}", flush=True)
+    check(bool(torch.isfinite(got).all()) and roll_err <= IMF_ROLLOUT_TOL, f"imf bf16 rollout rel-L2 {roll_err:.3e}")
+    check(roll_launches == want_roll, f"imf bf16 rollout launches {roll_launches}, want {want_roll}")
+    attn["imf_bf16_rollout_vs_plain"] = dict(rel_l2=roll_err, launches=roll_launches)
+    del t16, cond, got, want
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ train_imf
+    held = {r["key"] for r in attn.get("distill_shapes", [])}
+    start = {k: t.clone() for k, t in ckpt.flatten_pytree(teacher).items()}
+    tmp = tempfile.mkdtemp(prefix="imf_smoke_")
+    runs = {}
+    try:
+        steps = IMF_TIMED + 2  # the first, the timed, the profiled
+        for name, dtype, extra in (("plain fp32", torch.float32, {}), ("plain bf16", torch.bfloat16, {}),
+                                   ("adv fp32", torch.float32, {"gan_weight": 1e-3}),
+                                   ("dmd fp32", torch.float32, {"dmd_weight": 1.0})):
+            tc = I.ImfConfig(num_steps=steps, batch_size=data.batch_size,
+                             save_every=steps - 1 if name == "plain fp32" else 10 ** 9, **extra)
+            want_attn = imf_launches(cfg, disc_cfg, tc, data)
+            stamps, counts, shapes, metrics_seen = [], [], [], []
+            prof = torch_profile(activities=[ProfilerActivity.CUDA])
+
+            def on_step(step, metrics):
+                torch.cuda.synchronize()
+                if step == steps - 1:
+                    prof.stop()
+                stamps.append(time.perf_counter())
+                counts.append(dict(kernels.LAUNCHES))
+                shapes.append({k: n for k, n in kernels.SHAPE_LAUNCHES.items() if k[0] == "attention"})
+                metrics_seen.append({k: float(v) for k, v in metrics.items()})
+                if step == steps - 2:  # the last iteration profiled, device activity only
+                    prof.start()
+                    stamps.append(time.perf_counter())
+
+            teacher_p = cast_floats(teacher, dtype)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            student, loss = I.train_imf(tc, cfg, checkpoint_dir=tmp, teacher_params=teacher_p, seed=0, device=dev,
+                                        log_every=10 ** 9, on_step=on_step)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            # per iteration: the launches by name and the attention's by shape, dtype summed
+            iters, iter_shapes = [], []
+            for prev, cur, sp, sc in zip([{}] + counts, counts, [{}] + shapes, shapes):
+                iters.append({k: n - prev.get(k, 0) for k, n in cur.items() if n - prev.get(k, 0)})
+                by = {}
+                for (_, key), n in sc.items():
+                    if n - sp.get(("attention", key), 0):
+                        by[key[:5]] = by.get(key[:5], 0) + n - sp.get(("attention", key), 0)
+                        kind = "bf16" if key[5] == torch.bfloat16 else "fp32"
+                        check(f"B={key[0]} H={key[1]} Tq={key[2]} S={key[3]} D={key[4]} {kind}" in held,
+                              f"train imf {name}: attention at {key} was not held against plain")
+                iter_shapes.append(by)
+            want_iter = {"attention": sum(want_attn.values())}
+            check(all(it == want_iter for it in iters), f"train imf {name}: launches by iteration {iters}, "
+                                                        f"want {want_iter}")
+            check(all(by == want_attn for by in iter_shapes), f"train imf {name}: attention by shape {iter_shapes}, "
+                                                              f"want {want_attn}")
+            check(all(np.isfinite(v) for m in metrics_seen for v in m.values()) and np.isfinite(loss),
+                  f"train imf {name}: metrics {metrics_seen}")
+            flat = ckpt.flatten_pytree(student)
+            check(all(torch.equal(t, start[k].to(dtype)) for k, t in ckpt.flatten_pytree(teacher_p).items()),
+                  f"train imf {name}: the teacher changed")
+            frozen = [k for k in start if set(k.split("/")) & set(I.IMF_FROZEN)]
+            check(all(torch.equal(flat[k], start[k].to(dtype)) for k in frozen),
+                  f"train imf {name}: a frozen leaf moved")
+            check(sum(not torch.equal(flat[k], start[k].to(dtype)) for k in start) > 0 and bool(flat["r_gate"].any()),
+                  f"train imf {name}: the student did not change")
+            kern = [(e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages() if _dev_us(e) > 0]
+            busy = sum(t for _, t, _ in kern)
+            step_ms = [(b_ - a_) * 1e3 for a_, b_ in zip(stamps[:-2], stamps[1:-2])]  # after the first, unprofiled
+            check(len(step_ms) == IMF_TIMED, f"train imf {name}: {len(step_ms)} timed iterations")
+            prof_ms = (stamps[-1] - stamps[-2]) * 1e3
+            med = statistics.median(step_ms)
+            # the idle share against the unprofiled iterations' wall: the profiler slows the host ~3x
+            row = dict(dtype=str(dtype).split(".")[-1], batch=data.batch_size, iterations=steps, metrics=metrics_seen,
+                       iteration_ms=step_ms, iteration_ms_median=med, iteration_ms_min=min(step_ms),
+                       iteration_ms_max=max(step_ms), wall_s=wall_s, peak_memory_bytes=peak,
+                       launches_per_iteration=iters[0],
+                       attention_by_shape={"B={} H={} Tq={} S={} D={}".format(*k): n for k, n in want_attn.items()},
+                       profiled_iteration=dict(wall_ms=prof_ms, device_busy_ms=busy, idle_share=1.0 - busy / med,
+                                               kernels=sum(c for _, _, c in kern),
+                                               attention_kernel_ms=sum(t for k_, t, _ in kern
+                                                                       if any(m in k_ for m in ATTN_KERNELS)),
+                                               top=[dict(kernel=k_[:90], ms=t, count=c) for k_, t, c in
+                                                    sorted(kern, key=lambda r: -r[1])[:8]]))
+            row["latent_frames_per_s"] = data.batch_size * data.max_latents / (med / 1e3)
+            if name == "plain fp32":
+                path = os.path.join(tmp, "imf_student_latest.npz")
+                back = ckpt.flatten_pytree(params_from_jax(ckpt.load_pytree(path), cfg))
+                check(back.keys() == flat.keys() and all(torch.equal(back[k], flat[k].cpu()) for k in flat),
+                      "train imf: imf_student_latest.npz does not reload equal")
+                kernels.reset_launches()
+                tts = SmallTTS(checkpoint=path, pcm16_out=True, seed=0)
+                durations, waves, ids = serve_requests()
+                out = tts.synthesize(tts.encode_reference(waves[0]), ids[0], durations[0])
+                torch.cuda.synchronize()
+                served = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                check(tts.sampler == "imf" and tts.num_steps == 2 and out.dtype == np.int16
+                      and int(np.abs(out).max()) > 0 and all(served.get(k, 0) > 0 for k in SCAN_KERNELS),
+                      f"train imf: the saved student served as {tts.sampler}-{tts.num_steps}, launches {served}")
+                row["served"] = dict(sampler=f"{tts.sampler}-{tts.num_steps}", samples=int(out.shape[-1]),
+                                     launches=served)
+                del tts
+            print(f"  train_imf {name}: {json.dumps(row)}", flush=True)
+            runs[name] = row
+            del student, flat, teacher_p, prof
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    attn["train_imf"] = runs
+    attn["launches_train_imf"] = {k: r["launches_per_iteration"].get("attention", 0) for k, r in runs.items()}
+    print("  train_imf iteration ms (median, min, max of the timed): " + json.dumps(
+        {k: [r["iteration_ms_median"], r["iteration_ms_min"], r["iteration_ms_max"]] for k, r in runs.items()}),
+        flush=True)
+    del teacher
+    torch.cuda.empty_cache()
+    print(f"  phase train imf: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def profile_batch(fn):

@@ -4,12 +4,14 @@
 (ratio 2.5), a grouped Conv1d(k=31, groups=16) + Mish positional stem.
 
 Two paths. The cached inference path computes the per-block cross K/V for
-the [ref | text] conditioning once per utterance, and its block scan runs
-through the hand-written Hopper kernels of ops/kernels/dit_block.py (the
-port of the Pallas whole-scan kernel) on the fused serving layout
-([q|k|v|gate] and [w1|w3] products). The full forward of training,
-`dit_forward`, runs the split layout in PyTorch ops, differentiable, with
-the attention kernel behind its autograd Function (nn.sdpa).
+the [ref | text] conditioning once per utterance. On the fused serving
+layout ([q|k|v|gate] and [w1|w3] products) its block scan runs through the
+hand-written Hopper kernels of ops/kernels/dit_block.py (the port of the
+Pallas whole-scan kernel); on the split layout of training it is a loop of
+`_block_core` in PyTorch ops, differentiable, as the JAX package's
+lax.scan is. The full forward of training, `dit_forward`, runs the split
+layout the same way. Both split paths reach the attention kernel through
+nn.sdpa (behind its autograd Function where a gradient is wanted).
 """
 
 from __future__ import annotations
@@ -255,6 +257,9 @@ def rope_cos_sin(cfg: DiTConfig, seq_len: int, device) -> Tuple[torch.Tensor, to
     return interleaved_cos_sin(seq_len, cfg.rot_dim, device)
 
 
+_SELF_ATTN = ("qkv_self", "gate", "to_out", "q_norm", "k_norm")  # the attention leaves a cached split block reads
+
+
 def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cross_v, cross_mask,
                        step_mods=None, rope=None):
     """Denoise-step forward over the precomputed cross K/V (dit.py:515-578).
@@ -263,7 +268,9 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
     once per utterance, cross_mask (B, Sc) their mask. `step_mods` =
     (mods (L, 6H), final (2H)) from precompute_step_modulations; without it
     the modulations are computed from `time_embedding` (B, H). `rope`, the
-    (cos, sin) tables (T, rot_dim), defaults to rope_cos_sin's."""
+    (cos, sin) tables (T, rot_dim), defaults to rope_cos_sin's. A tree in
+    the fused serving layout runs the scan kernels (bf16 or int8 weights on
+    the card); any other runs `_block_core` layer by layer."""
     b = x.shape[0]
     x = _input_embed(p["input_embed"], cfg, x, mask)
     if step_mods is None:
@@ -275,8 +282,14 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
         mods = mods_i[:, None, :].expand(mods_i.shape[0], b, mods_i.shape[-1])
         final = final_i[None, :].expand(b, final_i.shape[-1])
     cos, sin = rope_cos_sin(cfg, x.shape[1], x.device) if rope is None else rope
-    x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, p["blocks"], cos, sin,
-                       heads=cfg.heads, head_dim=cfg.head_dim)
+    if "qkvg" in p["blocks"]["attn"]:
+        x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, p["blocks"], cos, sin,
+                           heads=cfg.heads, head_dim=cfg.head_dim)
+    else:  # the split layout: the blocks in PyTorch ops (dit.py:561-576), without remat as there
+        used = {"attn": {k: v for k, v in p["blocks"]["attn"].items() if k in _SELF_ATTN}, "ff": p["blocks"]["ff"]}
+        joint_key_mask = torch.cat([mask, cross_mask], dim=1)
+        for l, blk in enumerate(nn.layers(used, cfg.n_blocks)):
+            x = _block_core(blk, cfg, x, mods[l], mask, joint_key_mask, cos, sin, cross_k[l], cross_v[l])
     return _adaln_final_from_mod(final, x)
 
 
@@ -315,17 +328,24 @@ def _ff(p, x):
     return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
 
 
-def _block(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, ref_seq, phoneme_mem):
-    """One uncached block: its cross K/V projections, then _block_core (dit.py:371-382, 408-415)."""
-    k_ref, v_ref = _project_cross(blk["attn"], cfg, ref_seq, "ref")
-    k_text, v_text = _project_cross(blk["attn"], cfg, phoneme_mem, "text")
+def _block_core(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, k_cross, v_cross):
+    """One block over projected cross K/V (B, heads, Sc, D), `mod` its
+    adaLN modulation (B, 6H) (dit.py:371-385)."""
     norm, gate_msa, shift_mlp, scale_mlp, gate_mlp = _apply_adaln_zero(mod, x)
     q, k_self, v_self, gate = _self_qkv_gate(blk["attn"], cfg, norm, cos, sin)
-    k = torch.cat([k_self, k_ref, k_text], dim=2)
-    v = torch.cat([v_self, v_ref, v_text], dim=2)
+    k = torch.cat([k_self, k_cross], dim=2)
+    v = torch.cat([v_self, v_cross], dim=2)
     x = x + torch.tanh(gate_msa)[:, None] * _attend(blk["attn"], gate, q, k, v, mask, joint_key_mask)
     norm2 = nn.layernorm_noaffine(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
     return x + torch.tanh(gate_mlp)[:, None] * _ff(blk["ff"], norm2)
+
+
+def _block(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, ref_seq, phoneme_mem):
+    """One uncached block: its cross K/V projections, then _block_core (dit.py:408-415)."""
+    k_ref, v_ref = _project_cross(blk["attn"], cfg, ref_seq, "ref")
+    k_text, v_text = _project_cross(blk["attn"], cfg, phoneme_mem, "text")
+    return _block_core(blk, cfg, x, mod, mask, joint_key_mask, cos, sin, torch.cat([k_ref, k_text], dim=2),
+                       torch.cat([v_ref, v_text], dim=2))
 
 
 def dit_forward(p, cfg: DiTConfig, x, ref_seq, ref_mask, phoneme_embedding, phonemes_mask, time_embedding,

@@ -3,7 +3,8 @@
 
 Teacher: AdamW lr 1.5e-4, betas (0.9, 0.999), wd 1e-2, linear warmup 1500
 steps (start factor 1e-6) then cosine to 1e-5, grad-clip 1.0. Distill:
-AdamW lr 1e-5. ASR/SV: AdamW 1e-4.
+AdamW lr 1e-5. ASR/SV: AdamW 1e-4. IMF (train/imf.py): clip 1.0, then
+AdamW 1e-5 at optax's default wd 1e-4, the student's conditioning frozen.
 
 `AdamW` is the JAX package's optax chain, multi_transform({"train":
 chain(clip_by_global_norm, adamw), "freeze": set_to_zero}), written out:
@@ -26,7 +27,7 @@ never waits for the card.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple, Union
+from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
@@ -151,11 +152,15 @@ def apply_updates(params, updates):
 
 
 def adamw(params, learning_rate, weight_decay: float = 1e-2, b1: float = 0.9, b2: float = 0.999,
-          clip_norm: Union[float, None] = None) -> AdamW:
+          clip_norm: Union[float, None] = None, frozen: Tuple[str, ...] = ()) -> AdamW:
     """AdamW over `params`' trainable leaves; `learning_rate` is a float or a
-    schedule (warmup_cosine)."""
+    schedule (warmup_cosine). A leaf whose path holds one of the names in
+    `frozen` is not trainable (optax.masked over the chain: no update, no
+    moment, and its gradient stays out of the global norm)."""
     lr = learning_rate if callable(learning_rate) else _constant(float(learning_rate))
-    return AdamW(lr, weight_decay, b1, b2, 1e-8, clip_norm, flatten_pytree(trainable_mask(params)))
+    trainable = {n: t and not set(n.replace("#", "/").split("/")) & set(frozen)
+                 for n, t in flatten_pytree(trainable_mask(params)).items()}
+    return AdamW(lr, weight_decay, b1, b2, 1e-8, clip_norm, trainable)
 
 
 def teacher_optimizer(params, num_steps: int = 330_000, warmup: int = 1_500):
