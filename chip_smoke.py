@@ -23,8 +23,10 @@
    host time per call (median of 1000). Phase A, CTC (see `ctc_phase`):
    ops/losses.ctc_loss with the CTC kernels (csrc/ctc.cu) against the
    plain versions on the card at the trainers' (2, 1024, 198), feasible,
-   repeated-label, infeasible and 384-label batches, loss and gradient;
-   kernel, plain and F.ctc_loss times.
+   repeated-label, infeasible, 384-label, switch, 512-, 4095-label, long
+   and batch-8 batches, loss and gradient; ptxas's spills; kernel (the
+   backward's factor blocks and chains also alone), plain, F.ctc_loss
+   times and the chain floors.
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
@@ -107,6 +109,20 @@ and the device time per launch of the scan's kernels at both served row
 counts and of the 12-layer scan (bf16 and int8 weights), each tree's
 median, its turns' values and the change's minus the parent's in each
 adjacent pair of turns. A turn is `python3 chip_smoke.py --worker DIR`.
+
+    python3 chip_smoke.py --asr-compare DIR
+
+times the ASR trainer's step (phase train asr's) of the package in DIR
+against this one's, in turns DIR, this, this, DIR, twice, each a process
+of its own (`--asr-worker DIR`): host dispatch, wall, device busy, idle
+share and the CTC kernels' device time.
+
+    python3 chip_smoke.py --ctc [--ctc-parent DIR]
+
+runs phase A, CTC alone, then the forward's sweep over N and the
+backward's over the states a thread (`ctc_sweep`); with --ctc-parent, the
+kernels of DIR (built here) against this checkout's, bit for bit and timed
+in turns.
 """
 
 from __future__ import annotations
@@ -323,8 +339,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
         return 2
-    # --worker DIR: one side of --compare, the package in DIR
-    other = _arg("--worker")
+    # --worker DIR / --asr-worker DIR: one side of --compare / --asr-compare, the package in DIR
+    other = _arg("--worker") or _arg("--asr-worker")
     sys.path.insert(0, os.path.abspath(other) if other else os.path.dirname(os.path.abspath(__file__)))
     try:
         import smalltts_tpu_torch  # noqa: F401
@@ -332,9 +348,13 @@ def main() -> int:
         print("chip_smoke: the smalltts_tpu_torch package is not beside this script", file=sys.stderr)
         return 2
     if other:
-        return worker(torch)
+        return asr_worker(torch) if "--asr-worker" in sys.argv else worker(torch)
     if "--compare" in sys.argv:
         return compare(_arg("--compare"))
+    if "--asr-compare" in sys.argv:
+        return asr_compare(_arg("--asr-compare"))
+    if "--ctc" in sys.argv:
+        return ctc_only(torch)
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -344,8 +364,11 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
+    probe = threading.Thread(target=ctc_probe)  # the CTC timing build, beside the kernels'
+    probe.start()
     secs = kernels.build_all()
-    print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s per source, "
+    probe.join()
+    print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s per source (and ctc_probe), "
           f"{time.perf_counter() - t0:.2f} s wall", flush=True)
 
     def err(got, want):
@@ -445,7 +468,7 @@ def main() -> int:
                             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
                         fp32_train_shapes=train_rows, ptxas=ptxas))
 
-    ctc_phase(torch, dev, entries)
+    ctc_phase(torch, dev, entries, parent=_arg("--ctc-parent"))
 
     # ------------------------------------------------------------- kernel B
     from smalltts_tpu_torch.models.dit import DiTConfig, fuse_serving_projections, init_dit, rope_cos_sin
@@ -1506,15 +1529,41 @@ CTC_SRC = "smalltts_tpu_torch/csrc/ctc.cu"
 CTC_REPLACES = "smalltts_tpu/train/asr_train.py:34"
 CTC_LOSS_TOL = 1e-5  # each loss relative to itself: expf/log1pf against PyTorch's, an ulp a step
 CTC_GRAD_TOL = 1e-4  # max|diff| / max|plain| of the gradient w.r.t. the logits
-CTC_CASES = ("trainer", "feasible", "repeats", "infeasible", "n384", "padded_inside")
+CTC_ROUTE = ("CUDA. Forward: one block a sequence, one state a thread up to 512 states, 2-8 above; "
+             "padded frames in runs without a barrier, their flags carried as bits 64 frames ahead. "
+             "Backward: one launch; factor blocks compute the six exp multipliers of every state across the "
+             "card, one chain block a sequence runs only the adjoint's products and sums over multipliers "
+             "brought in by cp.async.bulk, 8 frames a copy")
+# switch_below / switch_above: N + 1 = 512 states (one a thread in both kernels: the forward's 512
+# threads, the backward's 256 consumers of 2) and one more (two a forward thread, four a consumer);
+# long: T = 2500, past the backward's ring of frames in flight many times
+CTC_CASES = ("trainer", "feasible", "repeats", "infeasible", "n384", "padded_inside", "switch_below",
+             "switch_above", "n512", "n4095", "long", "b8")
+# (T, N, K, frames, label counts) of the generated cases
+CTC_SHAPES = {
+    "feasible": (400, 100, 60, [400, 300, 250], [100, 80, 50]),
+    "repeats": (400, 100, 60, [400, 300, 250], [100, 80, 50]),
+    "infeasible": (400, 100, 60, [400, 60, 100], [100, 80, 90]),
+    "n384": (1024, 384, None, [1024, 900], [384, 300]),
+    "padded_inside": (400, 100, 60, [400, 400, 300], [100, 80, 50]),
+    "switch_below": (600, None, 60, [600, 500], [None, 150]),
+    "switch_above": (600, None, 60, [600, 500], [None, 150]),
+    "n512": (1100, 512, 60, [1100, 800], [512, 300]),
+    "n4095": (4200, 4095, 60, [4200, 3000], [4095, 2000]),
+    "long": (2500, 600, 60, [2500, 2100], [600, 250]),
+    "b8": (400, 100, 60, [400, 390, 370, 350, 300, 250, 200, 120], [100, 95, 90, 80, 60, 50, 30, 0]),
+}
 
 
 def ctc_case(name, seed=0):
     """(logits (B, T, K), logit_pad, labels, label_pad) as numpy: the
     trainers' shape (2, 1024, 198) with the dummy loader's lengths (the
-    ASR's 4x upsampled latent frames), or a batch of the named kind (N =
-    384 is the serving contract's phoneme bucket; padded_inside has padded
-    frames inside feasible samples, which keep their states)."""
+    ASR's 4x upsampled latent frames), or a batch of the named kind
+    (CTC_SHAPES; N = 384 is the serving contract's phoneme bucket;
+    padded_inside has padded frames inside feasible samples, which keep
+    their states; the switch cases sit at either side of the kernels'
+    switch from one state a thread to several, N + 1 = 512 and 513; long
+    runs past the backward's frames in flight)."""
     import numpy as np
 
     from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
@@ -1526,10 +1575,11 @@ def ctc_case(name, seed=0):
         frames, labels, labs = 4 * batch["latents_lengths"], batch["phonemes"], batch["phonemes_lengths"]
         T, K = 4 * 256, phoneme_len
     else:
-        T, N, K = (1024, 384, phoneme_len) if name == "n384" else (400, 100, 60)
-        frames, labs = {"feasible": ([400, 300, 250], [100, 80, 50]), "repeats": ([400, 300, 250], [100, 80, 50]),
-                        "infeasible": ([400, 60, 100], [100, 80, 90]), "n384": ([1024, 900], [384, 300]),
-                        "padded_inside": ([400, 400, 300], [100, 80, 50])}[name]
+        T, N, K, frames, labs = CTC_SHAPES[name]
+        K = K or phoneme_len
+        if N is None:
+            N = 511 if name == "switch_below" else 512
+            labs = [N if n is None else n for n in labs]
         labels = rs.randint(1, K, (len(frames), N)).astype(np.int32)
         if name in ("repeats", "infeasible"):  # labels 7i and 7i + 1 equal
             labels[:, 1::7] = labels[:, 0::7][:, :labels[:, 1::7].shape[1]]
@@ -1538,27 +1588,68 @@ def ctc_case(name, seed=0):
     if name == "padded_inside":
         logit_pad[0, 100:140] = 1.0
         logit_pad[1, 0:10] = 1.0
+    if name == "b8":
+        logit_pad[2, 50:80] = 1.0
     label_pad = (np.arange(labels.shape[1])[None] >= np.asarray(labs)[:, None]).astype(np.float32)
     logits = (2.0 * rs.randn(len(frames), T, K)).astype(np.float32)
     return logits, logit_pad, labels, label_pad
 
 
-def ctc_phase(torch, dev, entries):
+def ctc_inputs(torch, logits, logit_pad, labels, label_pad):
+    """The recurrence's inputs as ops/losses.ctc_loss makes them: (lp_emit,
+    lp_phi, pad, repeat, labellens), and the log-probs."""
+    import torch.nn.functional as F
+
+    B, T, _ = logits.shape
+    N = labels.shape[1]
+    logprobs = torch.log_softmax(logits, dim=-1)
+    lp_phi = logprobs[:, :, 0].contiguous()
+    lp_emit = torch.gather(logprobs, 2, labels.long()[:, None, :].expand(B, T, N)).contiguous()
+    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))
+    labellens = (N - label_pad.sum(dim=1)).to(torch.int32)
+    return (lp_emit, lp_phi, logit_pad, repeat, labellens), logprobs
+
+
+def ptxas_ctc(log_path: str) -> dict:
+    """Registers and spill bytes of each CTC kernel instance in an nvcc
+    `-Xptxas -v` log, by the kernel's name and template argument."""
+    import re
+
+    out, name = {}, None
+    for line in open(log_path):
+        m = re.search(r"Compiling entry function '\w*?(ctc_[a-z]+_kernel)(I(?:L\w+?E)+E)?", line)
+        if m:
+            args = re.findall(r"L\w(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = dict(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
+def ctc_phase(torch, dev, entries, parent=None):
     """Phase A, CTC: ops/losses.ctc_loss with the CTC kernels against the
     same call under kernels.force_plain() (the plain versions on the card),
-    fp32, at the trainers' shape (2, 1024, 198) over 198 labels with the
-    dummy loader's lengths, a feasible, a repeated-label and an infeasible
-    batch (loss ~1e5), 384 labels and padded frames inside samples: each
-    loss within CTC_LOSS_TOL of the
-    plain one relative to itself, the gradient w.r.t. the logits within
-    CTC_GRAD_TOL of the largest plain value; one launch of each kernel a
-    call. Then, at the trainers' shape and at N = 384, each kernel's device
-    time beside its plain version's,
-    F.ctc_loss's forward and backward on the same log-probs (reduction
-    "none"; inf on an infeasible sample), and the bound: the bytes each
-    moves over 3.35 TB/s (the recurrence's T dependent steps are not in the
-    bound). The two kernels' entries get their launches from the train asr
-    phase."""
+    fp32, at every CTC_CASES batch: the trainers' shape (2, 1024, 198) over
+    198 labels with the dummy loader's lengths, a feasible, a repeated-label
+    and an infeasible batch (loss ~1e5), 384 labels, padded frames inside
+    samples, N at either side of the kernels' switch from one state a
+    thread to several, N = 512 and 4095, T = 2500 and B = 8:
+    each loss within CTC_LOSS_TOL of the plain one relative to itself, the
+    gradient w.r.t. the logits within CTC_GRAD_TOL of the largest plain
+    value; exactly one launch of each kernel a call. ptxas must report no
+    spill in any CTC kernel. Then, at the trainers' shape and at N = 384
+    (see ctc_times), each kernel's device time, the backward's factor blocks
+    and chains alone, the plain versions', F.ctc_loss's, the bytes bound and
+    the chain floor (the last three through ctc_probe). With `parent` (a checkout of the previous kernels),
+    loss, alpha and d_emit must equal its kernels' bit for bit at the
+    trainers' shape and N = 384 (ctc_parent_check). The two kernels' entries
+    get their launches from the train asr phase."""
     import contextlib
 
     import torch.nn.functional as F
@@ -1568,12 +1659,18 @@ def ctc_phase(torch, dev, entries):
     from smalltts_tpu_torch.ops.losses import ctc_loss
 
     t_phase = time.perf_counter()
-    print(f"phase A, CTC: ctc_loss kernels vs force_plain, fp32 (loss {CTC_LOSS_TOL} relative to itself, gradient "
+    ptxas = ptxas_ctc(os.path.join(kernels.BUILD_DIR, "ctc.log"))
+    print(f"phase A, CTC: ptxas (ctc.cu): {json.dumps(ptxas)}", flush=True)
+    check(len(ptxas) >= 8 and not any(r["spill_stores"] or r["spill_loads"] for r in ptxas.values()),
+          f"a CTC kernel spills, or is missing from the build log: {ptxas}")
+    print(f"  ctc_loss kernels vs force_plain, fp32 (loss {CTC_LOSS_TOL} relative to itself, gradient "
           f"{CTC_GRAD_TOL} of the largest plain value)", flush=True)
     rows, timing = [], {}
     for name in CTC_CASES:
+        t_case = time.perf_counter()
         logits, logit_pad, labels, label_pad = (torch.as_tensor(a, device=dev) for a in ctc_case(name))
-        B = logits.shape[0]
+        B, T, _ = logits.shape
+        N = labels.shape[1]
         out = []
         for plain in (False, True):
             x = logits.clone().requires_grad_(True)
@@ -1594,43 +1691,113 @@ def ctc_phase(torch, dev, entries):
               f"ctc {name}: loss rel err {loss_err:.3e}, gradient rel err {grad_err:.3e}")
         if name == "infeasible":
             check(float(lk[1]) > 5e4 and float(lk[2]) > 5e4, f"ctc infeasible: losses {lk.tolist()}")
-        row = dict(case=name, shape=list(logits.shape) + [labels.shape[1]], loss=lk.tolist(),
+        row = dict(case=name, shape=[B, T, logits.shape[2], N], backward_per=C.backward_per(N), loss=lk.tolist() if B <= 3 else None,
                    loss_abs_err=float((lk - lp).abs().max()), loss_rel_err=loss_err, grad_abs_err=grad_abs,
                    grad_rel_err=grad_err)
         if name in ("trainer", "n384"):
-            row.update(ctc_times(torch, F, C, logits, logit_pad, labels, label_pad))
+            row.update(ctc_times(torch, F, C, kernels, logits, logit_pad, labels, label_pad))
             timing[name] = row
+        row["case_s"] = time.perf_counter() - t_case
         rows.append(row)
         print("  " + json.dumps(row), flush=True)
         del logits, x, out
+        torch.cuda.empty_cache()
+    bits = ctc_parent_check(torch, dev, C, kernels, parent) if parent else None
     head = timing["trainer"]
     for which in ("forward", "backward"):
         entries.append(dict(name=f"ctc_{which}", route="cuda", source=CTC_SRC, replaces=CTC_REPLACES,
                             replaces_note="optax.ctc_loss in the JAX trainers' jitted steps; no pallas_call",
-                            launches=None, max_abs_err=head["loss_abs_err" if which == "forward" else "grad_abs_err"],
+                            route_note=CTC_ROUTE, launches=None,
+                            max_abs_err=head["loss_abs_err" if which == "forward" else "grad_abs_err"],
                             **{k: head[f"{which}_{k}"] for k in ("ms", "wall_ms", "clock", "plain_ms", "bound_ms",
-                                                                   "bound_by", "library_ms", "step_us_per_frame")},
-                            shape=head["shape"], n384={k: timing["n384"][f"{which}_{k}"] for k in
-                                                       ("ms", "plain_ms", "bound_ms", "library_ms")},
-                            cases=rows if which == "forward" else None))
+                                                                   "bound_by", "library_ms", "step_us_per_frame",
+                                                                   "chain_floor_ms", "chain_floor_ns_per_frame",
+                                                                   "chain_floor_threads")},
+                            shape=head["shape"], chained_frames=head["chained_frames"],
+                            n384={k: timing["n384"][f"{which}_{k}"] for k in
+                                  ("ms", "plain_ms", "bound_ms", "library_ms", "step_us_per_frame", "chain_floor_ms",
+                                   "chain_floor_ns_per_frame", "chain_floor_threads")},
+                            phases={k: {c: timing[c][f"backward_{k}_ms"] for c in timing}
+                                    for k in ("factors", "chains")} if which == "backward" else None,
+                            cases=rows if which == "forward" else None, ptxas=ptxas if which == "forward" else None,
+                            parent_bits=bits))
     print(f"  phase A, CTC: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
-def ctc_times(torch, F, C, logits, logit_pad, labels, label_pad):
-    """Device ms of each CTC kernel, its plain version's (one call, CUDA
-    events) and F.ctc_loss's forward and backward on the same log-probs,
-    and the bound, at one case's shape."""
+def ctc_consumers(N, per):
+    """The backward chain's consumer threads: ceil((N + 1) / per), to a whole warp."""
+    return -(-(-(-(N + 1) // per)) // 32) * 32
+
+
+_ctc_probe = {}
+_ctc_probe_lock = threading.Lock()
+
+
+def ctc_probe():
+    """The timing build of the CTC source, csrc/ctc_probe.cu (ctc.cu with
+    CTC_PROBE, and the floor kernel), compiled with the package's nvcc
+    flags into its build directory once per content of the sources; the
+    package never loads it. main() starts it beside the kernels' build."""
+    import ctypes
+    import hashlib
+
+    from smalltts_tpu_torch.ops import kernels
+
+    with _ctc_probe_lock:
+        if "lib" not in _ctc_probe:
+            srcs = [os.path.join(kernels.CSRC, f) for f in ("ctc_probe.cu", "ctc.cu", "sm90_common.cuh")]
+            h = hashlib.sha256(" ".join(kernels.NVCC_FLAGS).encode())
+            for path in srcs:
+                with open(path, "rb") as f:
+                    h.update(f.read())
+            os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+            so = os.path.join(kernels.BUILD_DIR, f"libctc_probe_{h.hexdigest()[:16]}.so")
+            if not os.path.exists(so):
+                res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so + ".tmp", srcs[0]],
+                                     capture_output=True, text=True)
+                check(res.returncode == 0, f"ctc_probe.cu does not build: {res.stderr[-2000:]}")
+                os.replace(so + ".tmp", so)
+            lib = ctypes.CDLL(so)
+            P, I = ctypes.c_void_p, ctypes.c_int
+            lib.st_ctc_backward_phases.argtypes, lib.st_ctc_backward_phases.restype = [P] * 11 + [I] * 5 + [P], I
+            lib.st_ctc_floor.argtypes, lib.st_ctc_floor.restype = [P, P, I, I, I, P], I
+            lib.st_ctc_error.argtypes, lib.st_ctc_error.restype = [I], ctypes.c_char_p
+            _ctc_probe["lib"] = lib
+        return _ctc_probe["lib"]
+
+
+def ctc_floor_ms(torch, kernels, threads, mode, frames_chained, frames=8192):
+    """frames_chained x the ns a frame of ctc_floor_kernel (mode 0: the
+    forward's two lae and one exchange; 1: the backward's adjoint step and
+    one exchange) at `threads` threads, the block's own, in ms: the least
+    time the chain of those frames takes."""
+    lib = ctc_probe()
+    out = torch.zeros((1,), dtype=torch.float32, device="cuda")
+    sink = torch.empty((threads,), dtype=torch.float32, device="cuda")
+    ns = []
+    for _ in range(3):
+        kernels.check(lib, "ctc", lib.st_ctc_floor(out.data_ptr(), sink.data_ptr(), threads, frames, mode,
+                                                    torch.cuda.current_stream().cuda_stream), "ctc_floor")
+        torch.cuda.synchronize()
+        ns.append(float(out[0]))
+    return min(ns) * frames_chained / 1e6, min(ns)
+
+
+def ctc_times(torch, F, C, kernels, logits, logit_pad, labels, label_pad):
+    """Device ms of each CTC kernel, the backward's factor blocks alone and
+    its chains alone (ctc_probe, over factors already computed), its plain
+    version's (one call, CUDA events) and F.ctc_loss's forward and backward
+    on the same log-probs; the bytes bound and the chain floor, at one
+    case's shape. The chain floor counts the frames a chain runs: the
+    unpadded frames of the batch's longest sequence (padded runs take no
+    exchange), at one frame's floor measured at the block's own threads."""
     B, T, _ = logits.shape
     N = labels.shape[1]
-    logprobs = torch.log_softmax(logits, dim=-1)
-    lp_phi = logprobs[:, :, 0].contiguous()
-    lp_emit = torch.gather(logprobs, 2, labels.long()[:, None, :].expand(B, T, N)).contiguous()
-    repeat = F.pad((labels[:, :-1] == labels[:, 1:]).float(), (0, 1))
-    labellens = (N - label_pad.sum(dim=1)).to(torch.int32)
-    args = (lp_emit, lp_phi, logit_pad, repeat, labellens)
+    args, logprobs = ctc_inputs(torch, logits, logit_pad, labels, label_pad)
     loss, alpha = C.ctc_forward(*args)
     g = torch.ones_like(loss)
-    d_emit, d_phi = C.ctc_backward(g, *args, alpha)
+    per = C.backward_per(N)
+    d_emit, d_phi = C.backward_launch(g, *args, alpha, per)
     res = {}
     for which, fn, plain, ins, outs in (
             ("forward", lambda: C.ctc_forward(*args), lambda: C.ctc_forward_plain(*args), args, (alpha, loss)),
@@ -1646,10 +1813,36 @@ def ctc_times(torch, F, C, logits, logit_pad, labels, label_pad):
         res.update({f"{which}_ms": ms, f"{which}_wall_ms": wall, f"{which}_clock": clock,
                     f"{which}_plain_ms": plain_ms, f"{which}_bound_ms": b_ms,
                     f"{which}_bound_by": b_by, f"{which}_step_us_per_frame": ms * 1e3 / T})
+    # the backward's two kinds of blocks alone (ctc_probe): the factor blocks (the chains exit at once),
+    # and the chains over the factors a whole launch computed (no flag to wait for)
+    probe, stream = ctc_probe(), torch.cuda.current_stream().cuda_stream
+    fac = torch.empty((B * T * 6 * (-(-(N + 1) // 8) * 8),), dtype=torch.float32, device=logits.device)
+    ptrs = [x.contiguous().data_ptr() for x in (g,) + args + (alpha,)]
+
+    def phases(n):
+        sync = torch.zeros((1 + B * T,), dtype=torch.int32, device=logits.device)
+        kernels.check(probe, "ctc", probe.st_ctc_backward_phases(
+            *ptrs, fac.data_ptr(), sync.data_ptr(), d_emit.data_ptr(), d_phi.data_ptr(), B, T, N, per, n, stream),
+            "ctc_backward phases")
+
+    phases(3)
+    res["backward_factors_ms"] = timed(lambda: phases(1), 10, ("ctc_backward_kernel",))[0]
+    phases(3)
+    res["backward_chains_ms"] = timed(lambda: phases(2), 10, ("ctc_backward_kernel",))[0]
+    # the chain floors: the frames each chain runs (the longest sequence's unpadded frames), a frame of
+    # the forward's two lae and of the backward's adjoint step, each with one exchange through shared
+    # memory, at the threads of the kernel's block (the backward's consumers)
+    chained = int((logit_pad == 0).sum(dim=1).max())
+    for which, threads, mode in (("forward", min(512, -(-(N + 1) // 32) * 32), 0),
+                                 ("backward", ctc_consumers(N, per), 1)):
+        floor_ms, ns = ctc_floor_ms(torch, kernels, threads, mode, chained)
+        res.update({f"{which}_chain_floor_ms": floor_ms, f"{which}_chain_floor_ns_per_frame": ns,
+                    f"{which}_chain_floor_threads": threads})
+    res["chained_frames"] = chained
     # the library call: F.ctc_loss on (T, B, K) log-probs, per-sample losses; its backward alone
     lp_t = logprobs.detach().transpose(0, 1).requires_grad_(True)
     targets, in_lens = labels.long(), (T - logit_pad.sum(dim=1)).long()
-    tgt_lens = labellens.long()
+    tgt_lens = args[4].long()
     lib_fwd = lambda: F.ctc_loss(lp_t, targets, in_lens, tgt_lens, reduction="none")  # noqa: E731
     lib_loss = lib_fwd()
     res["forward_library_ms"] = timed(lib_fwd, 20)[0]
@@ -1657,6 +1850,112 @@ def ctc_times(torch, F, C, logits, logit_pad, labels, label_pad):
     # F.ctc_loss's per-sample losses, None where it gives inf (an infeasible sample): the kernels line is strict JSON
     res["library_loss"] = [v if v != float("inf") else None for v in lib_loss.tolist()]
     return res
+
+
+def ctc_parent_check(torch, dev, C, kernels, parent):
+    """The kernels of `parent` (a checkout of the previous csrc/ctc.cu, built
+    here with the same nvcc flags) against this checkout's on the same
+    inputs, at the trainers' shape and N = 384: loss, alpha and d_emit must
+    be equal bit for bit (the arithmetic of every state is unchanged); d_phi
+    may differ by the order of its sum over the states."""
+    import ctypes
+
+    src = os.path.join(parent, "smalltts_tpu_torch", "csrc", "ctc.cu")
+    so = os.path.join(kernels.BUILD_DIR, "libctc_parent.so")
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so, src], capture_output=True, text=True)
+    check(res.returncode == 0, f"the parent's ctc.cu does not build: {res.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.st_ctc_forward.argtypes, lib.st_ctc_forward.restype = [P] * 7 + [I, I, I, P], I
+    lib.st_ctc_backward.argtypes, lib.st_ctc_backward.restype = [P] * 9 + [I, I, I, P], I
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {}
+    for name in ("trainer", "n384"):
+        logits, logit_pad, labels, label_pad = (torch.as_tensor(a, device=dev) for a in ctc_case(name))
+        args, _ = ctc_inputs(torch, logits, logit_pad, labels, label_pad)
+        B, T, N = args[0].shape
+        loss, alpha = C.forward_launch(*args)
+        g = torch.linspace(0.5, 2.0, B, device=dev)
+        d_emit, d_phi = C.backward_launch(g, *args, alpha, C.backward_per(N))
+        p_loss, p_alpha = torch.empty_like(loss), torch.empty_like(alpha)
+        p_emit, p_phi = torch.empty_like(d_emit), torch.empty_like(d_phi)
+        ptrs = [x.data_ptr() for x in args]
+        check(lib.st_ctc_forward(*ptrs, p_alpha.data_ptr(), p_loss.data_ptr(), B, T, N, stream) == 0,
+              "parent ctc_forward")
+        check(lib.st_ctc_backward(g.data_ptr(), *ptrs, alpha.data_ptr(), p_emit.data_ptr(), p_phi.data_ptr(), B, T,
+                                  N, stream) == 0, "parent ctc_backward")
+        torch.cuda.synchronize()
+        out[name] = dict(loss_equal=bool(torch.equal(loss, p_loss)), alpha_equal=bool(torch.equal(alpha, p_alpha)),
+                         d_emit_equal=bool(torch.equal(d_emit, p_emit)),
+                         d_phi_max_abs_diff=float((d_phi - p_phi).abs().max()),
+                         d_phi_max_abs=float(p_phi.abs().max()))
+        # both kernels of each tree, timed in turns on the same inputs: parent, this, this, parent
+        fwd = {"parent": lambda: lib.st_ctc_forward(*ptrs, p_alpha.data_ptr(), p_loss.data_ptr(), B, T, N, stream),
+               "this": lambda: C.forward_launch(*args)}
+        bwd = {"parent": lambda: lib.st_ctc_backward(g.data_ptr(), *ptrs, alpha.data_ptr(), p_emit.data_ptr(),
+                                                     p_phi.data_ptr(), B, T, N, stream),
+               "this": lambda: C.backward_launch(g, *args, alpha, C.backward_per(N))}
+        for which, fns in (("forward", fwd), ("backward", bwd)):
+            ms = {k: [] for k in fns}
+            for k in ("parent",) + tuple(fns)[1:] + tuple(fns)[1:][::-1] + ("parent",):
+                ms[k].append(timed(fns[k], 10, (f"ctc_{which}_kernel",))[0])
+            out[name][f"{which}_ms"] = ms
+        print(f"  bit for bit against the parent's kernels, {name}: {json.dumps(out[name])}", flush=True)
+        check(out[name]["loss_equal"] and out[name]["alpha_equal"] and out[name]["d_emit_equal"],
+              f"ctc {name}: not bit-equal to the parent's kernels: {out[name]}")
+    return out
+
+
+def ctc_only(torch):
+    """`--ctc`: phase A, CTC alone (the CTC source and ctc_probe built
+    alone, together), then ctc_sweep; with `--ctc-parent DIR`, also the
+    bit-for-bit check against the kernels of DIR. Prints every row."""
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels import ctc as C
+
+    dev = torch.device("cuda")
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    probe = threading.Thread(target=ctc_probe)
+    probe.start()
+    kernels.load("ctc")
+    probe.join()
+    print(f"build: ctc and ctc_probe {time.perf_counter() - t0:.2f} s", flush=True)
+    entries = []
+    ctc_phase(torch, dev, entries, parent=_arg("--ctc-parent"))
+    ctc_sweep(torch, dev, C, kernels)
+    return 0
+
+
+def ctc_sweep(torch, dev, C, kernels):
+    """Device ms of the forward kernel at B 2, T 1024 over N, beside the
+    forward's chain floor a frame at its block's threads, and of the
+    backward over the states a consumer thread at N 198, 384 and 1024:
+    where one block stops being bound by its chain, and where each PER
+    belongs. Random log-probs, every label position in use, no padding."""
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for N in (198, 256, 320, 384, 448, 511, 512, 768, 1024):
+        B, T = 2, 1024
+        lp = torch.log_softmax(2.0 * torch.randn((B, T, 61), generator=gen, device=dev), dim=-1)
+        labels = torch.randint(1, 61, (B, N), generator=gen, device=dev)
+        args, _ = ctc_inputs(torch, lp, torch.zeros((B, T), device=dev), labels.to(torch.int32),
+                             torch.zeros((B, N), device=dev))
+        ms = timed(lambda: C.forward_launch(*args), 10, ("ctc_forward_kernel",))[0]
+        threads = min(512, -(-(N + 1) // 32) * 32)
+        rows.append(dict(kernel="forward", N=N, threads=threads, ms=ms, us_per_frame=ms * 1e3 / T,
+                         floor_us_per_frame=ctc_floor_ms(torch, kernels, threads, 0, 1)[1] / 1e3))
+        if N in (198, 384, 1024):
+            loss, alpha = C.forward_launch(*args)
+            g = torch.ones_like(loss)
+            for per in (1, 2, 4, 8):
+                if ctc_consumers(N, per) > 512:
+                    continue
+                ms = timed(lambda: C.backward_launch(g, *args, alpha, per), 10, ("ctc_backward_kernel",))[0]
+                rows.append(dict(kernel="backward", N=N, per=per, ms=ms, us_per_frame=ms * 1e3 / T))
+    for r in rows:
+        print("  sweep " + json.dumps(r), flush=True)
+    return rows
 
 
 # the ASR step's parameter gradients, kernels against plain, rel-L2 per module. The CTC's log-alphas
@@ -3233,6 +3532,99 @@ def compare(other, blocks=3):
             "parent": [t["device_ms"][k] for t in res["parent"]], "change": [t["device_ms"][k] for t in res["change"]]}
         for k in res["change"][0]["device_ms"]}
     print(json.dumps({"compare": summary}))
+    return 0
+
+
+def asr_worker(torch, steps=10):
+    """One turn of --asr-compare, in a process of its own: builds the kernels
+    the ASR step launches (attention, ctc) of the package on sys.path and
+    times its step as phase train asr profiles it (ASRConfig(), batch 2,
+    the dummy batch of seed 7, seed-0 weights, the step not applied): two
+    warm-up steps, the host dispatch of one, the wall of `steps` steps each
+    synchronized, and one step under torch.profiler (device busy, the CTC
+    kernels' device ms); then the CTC wrappers' host time a call at the
+    trainers' shape (100 calls queued, no sync). Prints one JSON line."""
+    import numpy as np
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.models.asr import ASRConfig, init_asr
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.train import asr_train as AT
+    from smalltts_tpu_torch.train.optim import aux_optimizer
+
+    dev = torch.device("cuda")
+    for name in ("attention", "ctc"):
+        kernels.load(name)
+    cfg = ASRConfig()
+    params = init_asr(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             dummy_batch(np.random.default_rng(7), DummyDataConfig(batch_size=2)).items() if k != "texts"}
+    tx, _ = aux_optimizer(params, 200_000, clip_norm=None)
+    opt = tx.init(params)
+    step = AT.make_asr_step(cfg, tx)
+    for _ in range(2):
+        step(params, opt, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, opt, batch)
+    dispatch = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy, kern = profile_batch(lambda: (step(params, opt, batch), torch.cuda.synchronize()))
+    from smalltts_tpu_torch.ops.kernels import ctc as C
+
+    args, _ = ctc_inputs(torch, *(torch.as_tensor(a, device=dev) for a in ctc_case("trainer")))
+    loss, alpha = C.ctc_forward(*args)
+    g = torch.ones_like(loss)
+    host_us = {}
+    for name, fn in (("ctc_forward", lambda: C.ctc_forward(*args)),
+                     ("ctc_backward", lambda: C.ctc_backward(g, *args, alpha))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fn()
+        host_us[name] = (time.perf_counter() - t0) * 1e4
+        torch.cuda.synchronize()
+    print(json.dumps({"ctc_host_us_per_call": host_us, "dispatch_ms": dispatch, "wall_ms": walls, "wall_ms_median": _median(walls),
+                      "device_busy_ms": busy, "idle_share": 1.0 - busy / _median(walls),
+                      "kernels": sum(c for _, _, c in kern),
+                      "ctc_kernel_ms": {m: sum(t for k, t, _ in kern if m in k)
+                                        for m in ("ctc_forward_kernel", "ctc_backward_kernel")}}), flush=True)
+    return 0
+
+
+def asr_compare(other, blocks=2):
+    """--asr-compare DIR: the ASR step of the package in DIR against this
+    checkout's, `blocks` runs of the turns DIR, this, this, DIR, each turn
+    `python3 chip_smoke.py --asr-worker TREE` in a fresh process
+    (asr_worker). Prints each turn and each tree's medians."""
+    trees = {"parent": os.path.abspath(other), "change": os.path.dirname(os.path.abspath(__file__))}
+    print(f"card: {card_line()}", flush=True)
+    res = {n: [] for n in trees}
+    for _ in range(blocks):
+        for name in ("parent", "change", "change", "parent"):
+            p = subprocess.run([sys.executable, os.path.abspath(__file__), "--asr-worker", trees[name]],
+                               capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+            if p.returncode != 0 or not lines:
+                raise RuntimeError(f"asr-compare: the {name} worker failed (exit {p.returncode}):\n{p.stderr[-3000:]}")
+            res[name].append(json.loads(lines[-1]))
+            print(f"turn {name}: {lines[-1]}", flush=True)
+    summary = {name: {"wall_ms_median": _median([x for t in turns for x in t["wall_ms"]]),
+                      "wall_ms_turn_medians": [t["wall_ms_median"] for t in turns],
+                      "dispatch_ms": [t["dispatch_ms"] for t in turns],
+                      "device_busy_ms": [t["device_busy_ms"] for t in turns],
+                      "idle_share": [t["idle_share"] for t in turns],
+                      "ctc_kernel_ms": [t["ctc_kernel_ms"] for t in turns],
+                      "ctc_host_us_per_call": [t["ctc_host_us_per_call"] for t in turns]}
+               for name, turns in res.items()}
+    print(json.dumps({"asr_compare": summary}))
     return 0
 
 

@@ -1,7 +1,7 @@
 // Device and host helpers shared by the Hopper kernels of attention.cu,
-// dit_block.cu and w8.cu (the last two through sm90_wgmma.cuh):
+// dit_block.cu, w8.cu (the last two through sm90_wgmma.cuh) and ctc.cu:
 // shared-memory addresses, the thread-block cluster barrier and distributed
-// shared memory addressing, and the card's SM count.
+// shared memory addressing, mbarriers, and the card's SM count.
 
 #pragma once
 
@@ -40,6 +40,30 @@ __device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
   return remote;
 }
 
+// mbarriers in shared memory: init (arrival count), an arrival that also
+// expects `bytes` of asynchronous copies, a plain arrival, and the wait for
+// a phase of the given parity
+__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
+}
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
 // SMs of the current device (132 on an H100 SXM), read once
 int sm_count() {
   static const int n = [] {

@@ -1,7 +1,8 @@
-// What the wgmma + TMA kernels of dit_block.cu and w8.cu share: mbarriers, the
-// 2-D TMA load and its tensor maps (encoded on the host, a weight's cached),
-// the shared-memory descriptor of a 128-byte-swizzled tile, the wgmma
-// fence / commit / wait, and a distributed-shared-memory load.
+// What the wgmma + TMA kernels of dit_block.cu and w8.cu share: the 2-D TMA
+// load (completing on the mbarriers of sm90_common.cuh) and its tensor maps
+// (encoded on the host, a weight's cached), the shared-memory descriptor of a
+// 128-byte-swizzled tile, the wgmma fence / commit / wait, and a
+// distributed-shared-memory load.
 
 #pragma once
 
@@ -25,27 +26,6 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint
          static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(b)), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(b)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(b)) : "memory");
-}
-// wait until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 // the box of `map` at (c0 = column, c1 = row) into shared memory; its bytes complete on `bar`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1, uint64_t* bar) {
   asm volatile(

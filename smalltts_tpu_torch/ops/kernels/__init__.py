@@ -163,7 +163,8 @@ SIGNATURES = {
     },
     "ctc": {
         "st_ctc_forward": ([_P] * 7 + [_I, _I, _I, _P], _I),
-        "st_ctc_backward": ([_P] * 9 + [_I, _I, _I, _P], _I),
+        "st_ctc_factor_floats": ([_I, _I, _I], _L),
+        "st_ctc_backward": ([_P] * 11 + [_I] * 4 + [_P], _I),
     },
 }
 

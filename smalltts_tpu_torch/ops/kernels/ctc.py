@@ -19,6 +19,12 @@ and d lp_phi (B, T) for the loss's cotangent g (B,). csrc/ctc.cu writes the
 recurrence out; the plain versions below are the same fp32 operations in
 PyTorch ops, a loop over frames vectorised over the states.
 
+The routes (csrc/ctc.cu says why): the forward holds a sequence's states in
+one block, one state a thread up to 512 and several above; the backward is
+one launch whose factor blocks compute every exp/log of the adjoint across
+the card while one chain block a sequence runs the adjoint's products and
+sums (`backward_per` states a consumer thread).
+
 Each wrapper takes its plain version for CPU tensors (and under the
 test-only `kernels.force_plain()`), and otherwise launches its kernel or
 raises. The Function decides once, in its forward (autograd runs the
@@ -32,7 +38,7 @@ import torch
 from smalltts_tpu_torch.ops import kernels
 
 LOG_EPS = -1e5  # optax.ctc_loss's log_epsilon: log(0), finite
-MAX_LABELS = 4095  # the kernels' largest N: 512 threads of 8 state indices
+MAX_LABELS = 4095  # the kernels' largest N: 512 threads of 8 states, 512 consumers of 8
 
 
 def _eps(repeat):
@@ -118,11 +124,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def ctc_forward(lp_emit, lp_phi, pad, repeat, labellens):
-    """(loss (B,), alpha (B, T + 1, 2N + 1)) of optax's recurrence."""
-    if kernels.use_plain(lp_emit):
-        return ctc_forward_plain(lp_emit, lp_phi, pad, repeat, labellens)
-    _check("ctc_forward", lp_emit, lp_phi, pad, repeat, labellens)
+# The backward's chain gives each consumer thread PER contiguous states, at
+# most 256 consumers below 1025 states and 512 above (chip_smoke.py --ctc
+# sweeps PER).
+def backward_per(n: int) -> int:
+    """States a consumer thread of ctc_backward's chain holds."""
+    return next(p for p in (1, 2, 4, 8) if n + 1 <= 256 * p or p == 8)
+
+
+def forward_launch(lp_emit, lp_phi, pad, repeat, labellens):
+    """The forward kernel (checked inputs); counts nothing: ctc_forward
+    counts its launches."""
     b, t, n = lp_emit.shape
     ins = [x.contiguous() for x in (lp_emit, lp_phi, pad, repeat, labellens)]
     alpha = torch.empty((b, t + 1, 2 * n + 1), dtype=torch.float32, device=lp_emit.device)
@@ -131,8 +143,33 @@ def ctc_forward(lp_emit, lp_phi, pad, repeat, labellens):
     status = lib.st_ctc_forward(*(x.data_ptr() for x in ins), alpha.data_ptr(), loss.data_ptr(), b, t, n,
                                 _stream(lp_emit))
     kernels.check(lib, "ctc", status, "ctc_forward")
-    kernels.count_launch("ctc_forward")
     return loss, alpha
+
+
+def backward_launch(g, lp_emit, lp_phi, pad, repeat, labellens, alpha, per):
+    """The backward kernel (checked inputs), `per` states a consumer thread:
+    (d_emit, d_phi). Counts nothing: ctc_backward counts its launches."""
+    b, t, n = lp_emit.shape
+    ins = [x.contiguous() for x in (g, lp_emit, lp_phi, pad, repeat, labellens, alpha)]
+    lib = kernels.load("ctc")
+    factors = torch.empty((lib.st_ctc_factor_floats(b, t, n),), dtype=torch.float32, device=lp_emit.device)
+    sync = torch.zeros((1 + b * t,), dtype=torch.int32, device=lp_emit.device)  # claim counter, ready flags
+    d_emit = torch.empty((b, t, n), dtype=torch.float32, device=lp_emit.device)
+    d_phi = torch.empty((b, t), dtype=torch.float32, device=lp_emit.device)
+    status = lib.st_ctc_backward(*(x.data_ptr() for x in ins), factors.data_ptr(), sync.data_ptr(),
+                                 d_emit.data_ptr(), d_phi.data_ptr(), b, t, n, per, _stream(lp_emit))
+    kernels.check(lib, "ctc", status, "ctc_backward")
+    return d_emit, d_phi
+
+
+def ctc_forward(lp_emit, lp_phi, pad, repeat, labellens):
+    """(loss (B,), alpha (B, T + 1, 2N + 1)) of optax's recurrence."""
+    if kernels.use_plain(lp_emit):
+        return ctc_forward_plain(lp_emit, lp_phi, pad, repeat, labellens)
+    _check("ctc_forward", lp_emit, lp_phi, pad, repeat, labellens)
+    out = forward_launch(lp_emit, lp_phi, pad, repeat, labellens)
+    kernels.count_launch("ctc_forward")
+    return out
 
 
 def ctc_backward(g, lp_emit, lp_phi, pad, repeat, labellens, alpha):
@@ -143,13 +180,7 @@ def ctc_backward(g, lp_emit, lp_phi, pad, repeat, labellens, alpha):
     b, t, n = lp_emit.shape
     if g.shape != (b,) or alpha.shape != (b, t + 1, 2 * n + 1):
         raise ValueError(f"ctc_backward: g {tuple(g.shape)}, alpha {tuple(alpha.shape)}")
-    ins = [x.contiguous() for x in (g, lp_emit, lp_phi, pad, repeat, labellens, alpha)]
-    d_emit = torch.empty((b, t, n), dtype=torch.float32, device=lp_emit.device)
-    d_phi = torch.empty((b, t), dtype=torch.float32, device=lp_emit.device)
-    lib = kernels.load("ctc")
-    status = lib.st_ctc_backward(*(x.data_ptr() for x in ins), d_emit.data_ptr(), d_phi.data_ptr(), b, t, n,
-                                 _stream(lp_emit))
-    kernels.check(lib, "ctc", status, "ctc_backward")
+    d_emit, d_phi = backward_launch(g, lp_emit, lp_phi, pad, repeat, labellens, alpha, backward_per(n))
     kernels.count_launch("ctc_backward")
     return d_emit, d_phi
 

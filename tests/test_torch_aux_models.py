@@ -141,9 +141,16 @@ CTC_CASES = {
     "n384": ([64, 50], [40, 20], True),
     # padded frames inside a feasible sample (and at the start of another): they keep the states
     "padded_inside": ([20, 20, 9], [5, 3, 4], False),
+    # the boundaries the kernels branch on: one label position; 33 positions, most past the count; no
+    # label in any sample (the loss reads phi[0]); one frame; a sample with every frame padded
+    "n1": ([20, 14, 9], [1, 0, 1], False),
+    "n33": ([40, 30, 25], [12, 5, 20], False),
+    "no_labels": ([20, 14, 9], [0, 0, 0], False),
+    "t1": ([1, 1, 1], [1, 0, 2], False),
+    "all_padded": ([20, 0, 9], [5, 3, 4], False),
 }
 # (B, T, K, N) of each case
-CTC_SHAPES = {"n384": (2, 64, 400, 384)}
+CTC_SHAPES = {"n384": (2, 64, 400, 384), "n1": (3, 20, 9, 1), "n33": (3, 40, 9, 33), "t1": (3, 1, 9, 5)}
 
 
 @pytest.mark.parametrize("case", list(CTC_CASES))

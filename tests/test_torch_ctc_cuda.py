@@ -9,10 +9,12 @@ card machine, which has no JAX:
   at chip_smoke.py's phase A batches (`ctc_case`): the trainers' shape (2,
   1024, 198) over 198 labels with the dummy loader's lengths, a feasible, a
   repeated-label and an infeasible batch (loss ~1e5), 384 labels (the
-  serving contract's phoneme bucket), and padded frames inside feasible
-  samples. The loss within 1e-5 of the plain loss relative to itself, the
-  gradient within 1e-4 of the largest plain value (the blank adjoint's sum
-  over the states in another order); one launch of each kernel a call.
+  serving contract's phoneme bucket), padded frames inside feasible
+  samples, N at either side of the kernels' switch from one state a
+  thread to several (N + 1 = 512), N = 512 and 4095, T = 2500 and B = 8. The
+  loss within 1e-5 of the plain loss relative to itself, the gradient
+  within 1e-4 of the largest plain value (the blank adjoint's sum over the
+  states in another order); exactly one launch of each kernel a call.
 - A CUDA tensor never reaches a plain version outside force_plain(); the
   wrappers raise on other dtypes and on mismatched shapes.
 """
