@@ -20,7 +20,12 @@
    products, each shape on the kernel its
    route names (tensor cores wherever TMA can read the operands), timed on
    the device clock or the run fails. Then the GEMM and attention wrappers'
-   host time per call (median of 1000). Phase A, CTC (see `ctc_phase`):
+   host time per call (median of 1000). Phase A, head dim 4 (see
+   `attn_small_phase`): the ASR's attention kernel against plain at its
+   (2, 16, 1024) in fp32 and bf16, timed against its bound (exponentials,
+   multiply-adds over the live keys, or bytes: `small_bound`), at ragged
+   lengths, masks with dead tiles between live ones, two gated sources and
+   unaligned views, and attention_backward's time. Phase A, CTC (see `ctc_phase`):
    ops/losses.ctc_loss with the CTC kernels (csrc/ctc.cu) against the
    plain versions on the card at the trainers' (2, 1024, 198), feasible,
    repeated-label, infeasible, 384-label, switch, 512-, 4095-label, long
@@ -117,6 +122,13 @@ against this one's, in turns DIR, this, this, DIR, twice, each a process
 of its own (`--asr-worker DIR`): host dispatch, wall, device busy, idle
 share and the CTC kernels' device time.
 
+    python3 chip_smoke.py --attn-small [--attn-small-parent DIR]
+
+runs phase A, head dim 4, alone, with a sweep of S = Tq over 256-4096 and
+B x H over 8-128; with --attn-small-parent (here or in the whole run), the
+head-dim-4 kernel of DIR (built here) beside this checkout's, held against
+plain and timed in turns.
+
     python3 chip_smoke.py --ctc [--ctc-parent DIR]
 
 runs phase A, CTC alone, then the forward's sweep over N and the
@@ -127,6 +139,7 @@ in turns.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -183,11 +196,12 @@ def bound(nbytes: float, flops: float, kind: str):
 
 
 def attn_kind(dtype, D) -> str:
-    """The peak an attention launch's bound is taken at: bf16 tensor cores;
-    fp32 through the 3xTF32 kernel, or, at head dim 4, the CUDA cores."""
-    if str(dtype).endswith("bfloat16"):
-        return "bf16"
-    return "fp32" if D == 4 else "fp32_3xtf32"
+    """The peak an attention launch's bound is taken at: bf16 tensor cores,
+    or fp32 through the 3xTF32 kernel. Head dim 4 runs on the CUDA cores in
+    either dtype and has a bound of its own (small_bound)."""
+    if D == 4:
+        raise ValueError("a head dim of 4 is bounded by small_bound")
+    return "bf16" if str(dtype).endswith("bfloat16") else "fp32_3xtf32"
 
 
 def ptxas_report(log_path: str) -> dict:
@@ -355,6 +369,8 @@ def main() -> int:
         return asr_compare(_arg("--asr-compare"))
     if "--ctc" in sys.argv:
         return ctc_only(torch)
+    if "--attn-small" in sys.argv:
+        return attn_small_only(torch)
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -458,6 +474,9 @@ def main() -> int:
     tf32 = {n: r for n, r in ptxas.items() if n.startswith("attn_tf32_kernel")}
     check(len(tf32) == 3 and not any(r["spill_stores"] or r["spill_loads"] for r in tf32.values()),
           f"the 3xTF32 kernels spill, or are missing from the build log: {tf32}")
+    small = {n: r for n, r in ptxas.items() if n.startswith("attn_small_kernel")}
+    check(len(small) == 2 and not any(r["spill_stores"] or r["spill_loads"] for r in small.values()),
+          f"the head-dim-4 kernels spill, or are missing from the build log: {small}")
     # the served DiT form in bf16 (T 40, Sc 448): 48 of a batch's 68 launches
     head = next(r for r in shapes if r["shape"].startswith("dit T=40 + cross Sc=448") and r["dtype"] == "bfloat16")
     fp32 = train_rows[0]  # the teacher's DiT shape: 12 launches a teacher step, 252 a distillation iteration
@@ -467,6 +486,7 @@ def main() -> int:
                         fp32_kernel=dict(kernel="attn_tf32_kernel", **{k: fp32[k] for k in (
                             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
                         fp32_train_shapes=train_rows, ptxas=ptxas))
+    attn_small_phase(torch, dev, entries, parent=_arg("--attn-small-parent"))
 
     ctc_phase(torch, dev, entries, parent=_arg("--ctc-parent"))
 
@@ -1524,6 +1544,248 @@ def onnx_phases(torch, dev, entries):
 # the attention Function's dq/dk/dv against autograd through attention_plain, max|diff|/max|plain|:
 # fp32 sums in another order, and the backward reads the kernel's output; in bf16 that output
 # is rounded to bf16 and each gradient is rounded once (tests/test_torch_train_cuda.py)
+
+# ------------------------------------------------------------------ attention, head dim 4
+
+ATTN_SMALL = ("attn_small_kernel<",)  # profiler name of the head-dim-4 kernel (both trees')
+# the SFUs' exponential rate on Hopper: 16 MUFU.EX2 a clock on each SM
+SFU_PER_CLOCK = 16
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock in Hz, as `nvidia-smi
+    --query-gpu=clocks.max.sm --format=csv,noheader` reads it, read once;
+    1980 MHz (the H100 SXM's) where it cannot be read, said so."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(res.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        print(f"  (clocks.max.sm not read: {res.stdout.strip()!r}; the SFU bound takes 1980 MHz)", flush=True)
+        return 1980e6
+
+
+def live_keys(*masks) -> int:
+    """The keys a head-dim-4 launch weighs, summed over the batch rows: a
+    row's live keys over every source, or all its keys where none is live
+    (the uniform average)."""
+    live = sum(m.sum(1) for m in masks)
+    return int((live + (live == 0) * sum(m.shape[1] for m in masks)).sum())
+
+
+def small_bound(torch, nbytes_, B, H, Tq, S, s_live):
+    """(ms, by, term, old_ms) of a head-dim-4 attention launch (D 4, S keys
+    over every source, s_live = live_keys): the largest of its bytes over
+    MEM_BW, its multiply-adds (4 x H x Tq x s_live x D flops) at 67 TFLOP/s
+    and its exponentials (one a (row, live key) pair: H x Tq x s_live) at
+    SFU_PER_CLOCK a clock on each SM at the card's maximum SM clock. The
+    kernel runs fp32 on the CUDA cores in either dtype. by is "bytes" or
+    "operations", term the largest term's name. old_ms is the earlier
+    yardstick: bytes, or 4 B H Tq S D flops over every key at 67 TFLOP/s."""
+    pairs = float(H * Tq * s_live)
+    sfu = SFU_PER_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * sm_clock_hz()
+    terms = {"bytes": nbytes_ / MEM_BW, "multiply-adds": 16.0 * pairs / PEAK["fp32"], "exponentials": pairs / sfu}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations", term,
+            bound(nbytes_, 16.0 * B * H * Tq * S, "fp32")[0])
+
+
+def small_masks(torch, dev, g, B, S):
+    """(B, S) key masks: rows 0 .. B - 3 live up to a length drawn from [S/2,
+    S] (as the ASR's), row B - 2 live at its ends with the middle dead (dead
+    tiles between live ones), row B - 1 fully masked (a uniform average)."""
+    j = torch.arange(S, device=dev)
+    m = j[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+    m[-2] = (j < S // 10) | (j >= 7 * S // 10)
+    m[-1] = False
+    return m
+
+
+def attention_parent(kernels, parent):
+    """st_attention of `parent`'s csrc/attention.cu (another checkout with the
+    same C interface, for example a `git archive` of the parent commit),
+    built here with the package's nvcc flags, as a function of (q, k, v,
+    key_mask, out)."""
+    import ctypes
+
+    from smalltts_tpu_torch.ops.kernels import attention as A
+
+    so = os.path.join(kernels.BUILD_DIR, "libattention_parent.so")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
+                          os.path.join(parent, "smalltts_tpu_torch", "csrc", "attention.cu")], capture_output=True, text=True)
+    check(res.returncode == 0, f"the parent's attention.cu does not build: {res.stderr[-2000:]}")
+    lib = ctypes.CDLL(so)
+    lib.st_attention.argtypes, lib.st_attention.restype = kernels.SIGNATURES["attention"]["st_attention"]
+
+    def run(q, k, v, m, out):
+        args, _masks = A.st_args(q, k, v, m, None, None, None, None, out)
+        check(lib.st_attention(*args) == 0, "the parent's attention kernel did not launch")
+        return out
+
+    return run
+
+
+def attn_small_phase(torch, dev, entries, parent=None, sweep=False):
+    """Phase A, head dim 4: attn_small_kernel (fp32 on the CUDA cores, either
+    dtype) against attention_plain (DISTILL_FWD_TOL: 1e-5 fp32, 2e-2 bf16).
+
+    - The ASR's (2, 16, 1024) with its key mask (lengths from [S/2, S]),
+      fp32 and bf16: device ms beside plain, scaled_dot_product_attention,
+      the restated bound (small_bound) and its ratio to the kernel's time.
+    - Lengths that are no multiple of the 64-key tile or the 4-lane group,
+      Tq 1, 37, 130 against S 1, 63, 65, 1031, at B 3 (small_masks: a
+      length-masked row, one with dead tiles between live ones, one fully
+      masked); two sources with the gate (S 65 + 130: a row with keys only
+      in the second, a fully masked row); q/k/v views not aligned to a
+      whole key (rows 5 values apart: element copies), each dtype. Each one
+      launch.
+    - attention_backward (PyTorch ops) at the ASR shape, fp32 as the runs
+      send it: device ms a call (every kernel of the call).
+    - With `parent` (a checkout, built here: attention_parent), its kernel
+      against this one at the ASR shape in both dtypes, held against plain
+      and timed in turns (parent, this, this, parent); with `sweep`, S = Tq
+      in 256-4096 and B x H in 8-128 (B 2), fp32, every key live, timed in
+      the same turns (this tree alone without `parent`), each row with the
+      bound and the kernel's share of it.
+    The rows go into the attention entry of `entries` ("head_dim_4"), the
+    kernels line's."""
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels import attention as A
+
+    print("phase A, head dim 4: attn_small_kernel vs plain (1e-5 fp32, 2e-2 bf16); SFU bound at "
+          f"{sm_clock_hz() / 1e6:.0f} MHz x {torch.cuda.get_device_properties(0).multi_processor_count} SMs", flush=True)
+    g = torch.Generator(device=dev).manual_seed(15)
+    run_parent = attention_parent(kernels, parent) if parent else None
+    tol = {torch.float32: DISTILL_FWD_TOL["float32"], torch.bfloat16: DISTILL_FWD_TOL["bfloat16"]}
+
+    def held(label, dtype, q, k, v, m, **two):
+        kernels.reset_launches()
+        got = A.fused_attention(q, k, v, m, **two)
+        torch.cuda.synchronize()
+        check(kernels.LAUNCHES.get("attention", 0) == 1, f"attention D=4 {label}: not one launch")
+        want = A.attention_plain(q, k, v, m, **two)
+        abs_e = float((got.float() - want.float()).abs().max())
+        rel_e = abs_e / float(want.float().abs().max())
+        check(bool(torch.isfinite(got).all()) and rel_e <= tol[dtype],
+              f"attention D=4 {label} {dtype}: rel err {rel_e:.3e}")
+        return got, abs_e, rel_e
+
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    rows, edges = [], []
+    B, H, S = 2, 16, 1024
+    for dtype in (torch.float32, torch.bfloat16):
+        kind = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v = (rnd((B, H, S, 4), dtype) for _ in range(3))
+        m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+        got, abs_e, rel_e = held(f"asr {kind}", dtype, q, k, v, m)
+        ms, wall, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_SMALL)
+        check(clock in DEVICE_CLOCKS, f"attention D=4 asr {kind}: no device-clock time")
+        plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
+        lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
+                       20)[0]
+        s_live = live_keys(m)
+        b_ms, b_by, term, old_ms = small_bound(torch, nbytes(q, k, v, m, got), B, H, S, S, s_live)
+        row = dict(shape=f"asr B={B} H={H} Tq={S} S={S} D=4", dtype=kind, live_keys=s_live, max_abs_err=abs_e,
+                   rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                   bound_by=b_by, bound_term=term, bound_share=b_ms / ms, old_bound_ms=old_ms)
+        if run_parent:
+            out_p = torch.empty_like(got)
+            run_parent(q, k, v, m, out_p)
+            torch.cuda.synchronize()
+            want = A.attention_plain(q, k, v, m)
+            p_rel = float((out_p.float() - want.float()).abs().max() / want.float().abs().max())
+            check(p_rel <= tol[dtype], f"the parent's D=4 kernel {kind}: rel err {p_rel:.3e}")
+            fns = {"parent": lambda: run_parent(q, k, v, m, out_p), "this": lambda: A.fused_attention(q, k, v, m)}
+            turns = {"parent": [], "this": []}
+            for name in ("parent", "this", "this", "parent"):
+                turns[name].append(timed(fns[name], 20, ATTN_SMALL)[0])
+            row.update(parent_rel_err=p_rel, parent_ms=turns["parent"], this_ms=turns["this"],
+                       speedup=_median(turns["parent"]) / _median(turns["this"]))
+        if dtype == torch.float32:  # the backward the ASR step runs, in PyTorch ops
+            dout = rnd((B, H, S, 4), dtype)
+            row["backward_ms"], row["backward_wall_ms"], row["backward_clock"] = timed(
+                lambda: A.attention_backward(q, k, v, m, got, dout), 10)
+        rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+
+        for Tq in (1, 37, 130):
+            for S_ in (1, 63, 65, 1031):
+                q, k, v = rnd((3, 4, Tq, 4), dtype), rnd((3, 4, S_, 4), dtype), rnd((3, 4, S_, 4), dtype)
+                _, abs_e, rel_e = held(f"Tq={Tq} S={S_} {kind}", dtype, q, k, v, small_masks(torch, dev, g, 3, S_))
+                edges.append(dict(shape=f"B=3 H=4 Tq={Tq} S={S_}", dtype=kind, max_abs_err=abs_e, rel_err=rel_e))
+        q = rnd((3, 4, 37, 4), dtype)
+        k, v, k2, v2 = rnd((3, 4, 65, 4), dtype), rnd((3, 4, 65, 4), dtype), rnd((3, 4, 130, 4), dtype), rnd((3, 4, 130, 4), dtype)
+        m1, m2 = small_masks(torch, dev, g, 3, 65), small_masks(torch, dev, g, 3, 130)
+        m1[1] = False  # row 1: keys only in the second source
+        _, abs_e, rel_e = held(f"two sources, gated {kind}", dtype, q, k, v, m1, k2=k2, v2=v2, key_mask2=m2,
+                               gate=rnd(q.shape, dtype))
+        edges.append(dict(shape="B=3 H=4 Tq=37 S=65 + 130, gated", dtype=kind, max_abs_err=abs_e, rel_err=rel_e))
+        buf = rnd((3, 3, 4, 130, 5), dtype)  # q, k, v rows 5 values apart: not aligned to a whole key
+        _, abs_e, rel_e = held(f"unaligned views {kind}", dtype, *(buf[i, ..., :4] for i in range(3)),
+                               small_masks(torch, dev, g, 3, 130))
+        edges.append(dict(shape="B=3 H=4 Tq=S=130, rows 5 apart", dtype=kind, max_abs_err=abs_e, rel_err=rel_e))
+    print(f"  {len(edges)} edge cases within tolerance, worst rel err "
+          f"{max(e['rel_err'] for e in edges if e['dtype'] == 'fp32'):.3e} fp32, "
+          f"{max(e['rel_err'] for e in edges if e['dtype'] == 'bf16'):.3e} bf16", flush=True)
+
+    swept = []
+    if sweep:
+        for S_ in (256, 512, 1024, 2048, 4096):
+            for H_ in (4, 16, 64):
+                q, k, v = (rnd((2, H_, S_, 4), torch.float32) for _ in range(3))
+                m = torch.ones((2, S_), dtype=torch.bool, device=dev)
+                got = A.fused_attention(q, k, v, m)
+                if 2 * H_ * S_ * S_ <= 2 ** 30:
+                    want = A.attention_plain(q, k, v, m)
+                    rel_e = float((got - want).abs().max() / want.abs().max())
+                    check(rel_e <= tol[torch.float32], f"attention D=4 sweep S={S_} H={H_}: rel err {rel_e:.3e}")
+                    del want
+                else:
+                    rel_e = None
+                fns = {"this": lambda: A.fused_attention(q, k, v, m)}
+                if run_parent:
+                    out_p = torch.empty_like(got)
+                    fns["parent"] = lambda: run_parent(q, k, v, m, out_p)
+                turns = {n: [] for n in fns}
+                for name in ("parent", "this", "this", "parent"):
+                    if name in fns:
+                        turns[name].append(timed(fns[name], 10, ATTN_SMALL)[0])
+                b_ms, b_by, term, old_ms = small_bound(torch, nbytes(q, k, v, m, got), 2, H_, S_, S_, live_keys(m))
+                row = dict(S=S_, BH=2 * H_, rel_err=rel_e, ms=_median(turns["this"]), this_ms=turns["this"],
+                           bound_ms=b_ms, bound_by=b_by, bound_term=term, bound_share=b_ms / _median(turns["this"]),
+                           old_bound_ms=old_ms)
+                if run_parent:
+                    row.update(parent_ms=turns["parent"], speedup=_median(turns["parent"]) / row["ms"])
+                swept.append(row)
+                print("  sweep " + json.dumps(row), flush=True)
+                del q, k, v, got
+    for e in entries:
+        if e["name"] == "attention":
+            e["head_dim_4"] = dict(kernel="attn_small_kernel", asr=rows, edge_cases=edges, sweep=swept)
+
+
+def attn_small_only(torch):
+    """`--attn-small`: attention.cu built alone, then attn_small_phase with
+    the sweep; with `--attn-small-parent DIR`, DIR's kernel beside this one
+    in every timed row. Prints every row."""
+    from smalltts_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.load("attention")
+    print(f"build: attention {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = ptxas_report(os.path.join(kernels.BUILD_DIR, "attention.log"))
+    small = {n: r for n, r in ptxas.items() if n.startswith("attn_small_kernel")}
+    print(f"  ptxas (attn_small_kernel; the whole run fails on a spill): {json.dumps(small)}", flush=True)
+    attn_small_phase(torch, dev, [], parent=_arg("--attn-small-parent"), sweep=True)
+    return 0
+
+
 CTC_SRC = "smalltts_tpu_torch/csrc/ctc.cu"
 # no pallas_call: the JAX trainers run optax.ctc_loss inside their jitted steps (XLA's loop)
 CTC_REPLACES = "smalltts_tpu/train/asr_train.py:34"
@@ -2701,10 +2963,15 @@ def distill_phase(torch, dev, entries):
         plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 10)[0]
         lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :]),
                        20)[0]
-        b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, attn_kind(dtype, D_))
+        extra = {}
+        if D_ == 4:  # exponentials, multiply-adds over the live keys, or bytes; the old yardstick beside
+            b_ms, b_by, extra["bound_term"], extra["old_bound_ms"] = small_bound(
+                torch, nbytes(q, k, v, m, got), B, H, Tq, S, live_keys(m))
+        else:
+            b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * Tq * S * D_, attn_kind(dtype, D_))
         row = dict(shape=f"{label} B={B} H={H} D={D_}", key=shape_key(B, H, Tq, S, D_, kind), dtype=kind, max_abs_err=abs_e,
                    rel_err=rel_e, grad_rel_err=grad_err, ms=statistics.median(ms_runs), ms_runs=ms_runs,
-                   clock=clock, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+                   clock=clock, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, **extra)
         rows.append(row)
         print("  attention at the distiller's shapes: " + json.dumps(row), flush=True)
         del q, k, v, dout, got, want
@@ -3542,8 +3809,9 @@ def asr_worker(torch, steps=10):
     the dummy batch of seed 7, seed-0 weights, the step not applied): two
     warm-up steps, the host dispatch of one, the wall of `steps` steps each
     synchronized, and one step under torch.profiler (device busy, the CTC
-    kernels' device ms); then the CTC wrappers' host time a call at the
-    trainers' shape (100 calls queued, no sync). Prints one JSON line."""
+    kernels' and the attention kernel's device ms, the attention's share of
+    busy); then the CTC wrappers' host time a call at the trainers' shape
+    (100 calls queued, no sync). Prints one JSON line."""
     import numpy as np
 
     from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
@@ -3576,6 +3844,8 @@ def asr_worker(torch, steps=10):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     busy, kern = profile_batch(lambda: (step(params, opt, batch), torch.cuda.synchronize()))
+    attn_ms = sum(t for k, t, _ in kern if any(m in k for m in ATTN_KERNELS))
+    attn_n = sum(c for k, _, c in kern if any(m in k for m in ATTN_KERNELS))
     from smalltts_tpu_torch.ops.kernels import ctc as C
 
     args, _ = ctc_inputs(torch, *(torch.as_tensor(a, device=dev) for a in ctc_case("trainer")))
@@ -3595,7 +3865,9 @@ def asr_worker(torch, steps=10):
                       "device_busy_ms": busy, "idle_share": 1.0 - busy / _median(walls),
                       "kernels": sum(c for _, _, c in kern),
                       "ctc_kernel_ms": {m: sum(t for k, t, _ in kern if m in k)
-                                        for m in ("ctc_forward_kernel", "ctc_backward_kernel")}}), flush=True)
+                                        for m in ("ctc_forward_kernel", "ctc_backward_kernel")},
+                      "attention_kernel_ms": attn_ms, "attention_launches": attn_n,
+                      "attention_share": attn_ms / busy}), flush=True)
     return 0
 
 
@@ -3622,6 +3894,8 @@ def asr_compare(other, blocks=2):
                       "device_busy_ms": [t["device_busy_ms"] for t in turns],
                       "idle_share": [t["idle_share"] for t in turns],
                       "ctc_kernel_ms": [t["ctc_kernel_ms"] for t in turns],
+                      "attention_kernel_ms": [t["attention_kernel_ms"] for t in turns],
+                      "attention_share": [t["attention_share"] for t in turns],
                       "ctc_host_us_per_call": [t["ctc_host_us_per_call"] for t in turns]}
                for name, turns in res.items()}
     print(json.dumps({"asr_compare": summary}))

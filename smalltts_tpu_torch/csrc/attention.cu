@@ -59,14 +59,56 @@
 //    merged as bf16 does where the (b, h, q tile) blocks cannot fill the
 //    SMs (the teacher's DiT: 64 blocks, 6 splits).
 //  * D = 4, fp32 and bf16 (the ASR conformer's 16 heads of 4, which the
-//    distiller's CTC loss runs over 1024 frames): attn_small_kernel. An mma
-//    tile needs K = 16, so a 4-wide head would be 3/4 zero padding; instead
-//    one thread owns one query row, its q and O (4 floats each) in
-//    registers, and the block's 128 rows share 64-key tiles of K, V and the
-//    mask in shared memory (every lane reads the same key: a broadcast).
-//    Scores, the online softmax and PV are fp32 on the CUDA cores; bf16
-//    inputs are widened on load and the output rounded once, then gated as
-//    the bf16 kernel gates.
+//    distiller's CTC loss runs over 1024 frames): attn_small_kernel, fp32 on
+//    the CUDA cores. It replaces an earlier kernel (one query row a thread: 8
+//    warps an SM over 1.94 waves at the ASR shape, a full-accuracy expf and
+//    64 scores in registers a thread, element loads with an integer divide,
+//    masked keys at full cost), which ran at 14% of its bound. An mma tile
+//    needs K = 8 or 16, so a 4-wide head would be mostly zero padding, and
+//    the tensor cores would not take the exponentials off: at D = 4 a (row,
+//    key) pair costs one exp beside 8 multiply-adds, and at the SFUs' 16 a
+//    clock an SM the exps take as long as the products at 67 TFLOP/s (8 us
+//    each at the ASR's (2, 16, 1024) with every key live). Against that:
+//    - Fill the card, and read each key for several rows. A group of SG = 4
+//      lanes owns SR = 2 query rows; lane g takes keys g, g + 4, ... of each
+//      64-key tile for both rows, with its own (m, l, O[4]) a row, and the
+//      group merges them at the end by a log-sum-exp combine over warp
+//      shuffles. A first design (one row a lane, 64 registers, 32 warps an
+//      SM) ran at ~3.5 (row, key) pairs a clock an SM, what shared memory
+//      delivers for two 16-byte key reads a pair (128 bytes a clock); two
+//      rows a lane halve those reads. A block is 256 threads (128 rows), at
+//      most 128 registers a thread (102 fp32, 120 bf16, no spill): at the
+//      ASR shape 256 blocks, 2 an SM (16 warps), one wave. Tried beside it
+//      on the card, none faster in fp32 at the ASR shape: 8 lanes of 4 rows
+//      (faster in bf16, which no run sends), 8 lanes of 2 rows (32 warps at
+//      64 registers), 4 lanes of 4 rows in 128-thread blocks.
+//    - One special-function op a score. q is scaled once by log2(e) /
+//      sqrt(D), so a score is a power of 2 and p = ex2.approx.ftz(score -
+//      m): one MUFU.EX2, relative error ~2^-22 (the fp32 tolerance is
+//      1e-5). A lane's 32 scores of a tile (16 keys x 2 rows) stay in
+//      registers between their max and their exps.
+//    - Whole keys. A key is 16 bytes in fp32 and 8 in bf16; a thread copies
+//      one while the current tile runs. fp32 tiles are double-buffered by
+//      16-byte cp.async; a bf16 key is loaded into a register and stored
+//      widened into the fp32 tile after the current tile (cp.async cannot
+//      widen, and widening in the reading lanes would cost integer ops for
+//      every row; an 8-byte cp.async into a staging slot measured the same).
+//      Lane g reads keys g, g + 4, ...: a warp's 4 key indices are 64
+//      contiguous bytes, its 8 groups read the same ones (a broadcast), so
+//      no bank conflicts. Rows not aligned to a whole key take element
+//      copies.
+//    - Skip dead tiles exactly. The key mask is per batch row, so every row
+//      of a block sees the same tiles. The barrier that publishes a tile
+//      counts its live keys (__syncthreads_count); two warp ballots keep
+//      its mask as 64 bits. Once a live key has been seen, a tile with none
+//      would add exactly 0 in fp32 (weight 2^(-1e9 log2 e - m) = 0), so it
+//      is skipped. A tile before the first live one runs, and its weight
+//      becomes 0 when a live key arrives; a row with no live key runs every
+//      tile: the uniform average. Only a tile that is partly live or cut
+//      short by the end tests its keys' masks.
+//    Masked keys score -1e9 (in log2 units), never -inf; keys past the end
+//    score -inf (no weight). bf16 inputs are widened on load and the output
+//    rounded once, then gated as the bf16 kernel gates.
 //
 // Measured times (H100 80GB HBM3, 700 W) are in PERF.md section 6.
 //
@@ -99,111 +141,6 @@ struct AttnArgs {
   float scale;
 };
 
-
-// ------------------------------------------------------------------ small head dims, CUDA cores
-
-template <typename T>
-__device__ __forceinline__ float to_f(T v);
-template <>
-__device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-constexpr int SNT = 128;  // threads (query rows) per block
-constexpr int SBK = 64;   // keys per shared-memory tile
-
-template <typename T, int D>
-__global__ void __launch_bounds__(SNT) attn_small_kernel(const AttnArgs a) {
-  __shared__ float Ks[SBK * D];
-  __shared__ float Vs[SBK * D];
-  __shared__ unsigned char Ms[SBK];
-  const int tid = threadIdx.x, t = blockIdx.x * SNT + tid, h = blockIdx.y, b = blockIdx.z;
-  const bool live = t < a.Tq;
-
-  float q[D], acc[D];
-  const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1] + (long long)(live ? t : 0) * a.sq[2];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    q[d] = live ? to_f<T>(qp[d]) : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int src = 0; src < 2; ++src) {
-    const int S = a.S[src];
-    if (S == 0) continue;
-    const T* kp = static_cast<const T*>(a.k[src]) + b * a.sk[src][0] + h * a.sk[src][1];
-    const T* vp = static_cast<const T*>(a.v[src]) + b * a.sv[src][0] + h * a.sv[src][1];
-    const unsigned char* mp = a.m[src] + b * a.msb[src];
-    for (int j0 = 0; j0 < S; j0 += SBK) {
-      const int nk = min(SBK, S - j0);
-      __syncthreads();  // the previous tile's readers are done
-      for (int i = tid; i < SBK * D; i += SNT) {
-        const int j = i / D, d = i - j * D;
-        Ks[i] = j < nk ? to_f<T>(kp[(long long)(j0 + j) * a.sk[src][2] + d]) : 0.f;
-        Vs[i] = j < nk ? to_f<T>(vp[(long long)(j0 + j) * a.sv[src][2] + d]) : 0.f;
-      }
-      if (tid < SBK) Ms[tid] = tid < nk ? mp[j0 + tid] : 0;
-      __syncthreads();
-
-      float s[SBK], tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < SBK; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < D; ++d) dot = fmaf(q[d], Ks[j * D + d], dot);
-        float sc = dot * a.scale;
-        if (j >= nk) sc = -INFINITY;  // past the end: no weight at all
-        else if (!Ms[j]) sc = -1e9f;  // masked: replaced, as the reference does
-        s[j] = sc;
-        tmax = fmaxf(tmax, sc);
-      }
-      const float mnew = fmaxf(m, tmax);  // finite: a tile holds at least one key
-      const float alpha = expf(m - mnew);  // 0 on the first tile (m = -inf)
-      float psum = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < SBK; ++j) {
-        const float p = expf(s[j] - mnew);
-        psum += p;
-#pragma unroll
-        for (int d = 0; d < D; ++d) acc[d] = fmaf(p, Vs[j * D + d], acc[d]);
-      }
-      l = l * alpha + psum;
-      m = mnew;
-    }
-  }
-
-  if (!live) return;
-  const float inv = 1.f / l;
-  T* out = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1] + (long long)t * a.so[2];
-  const T* g = a.gate ? static_cast<const T*>(a.gate) + b * a.sg[0] + h * a.sg[1] + (long long)t * a.sg[2] : nullptr;
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const float o = acc[d] * inv;
-    if constexpr (std::is_same<T, float>::value) {
-      out[d] = g ? __fmul_rn(o, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g[d])))) : o;  // o * (1 / (1 + exp(-g)))
-    } else {
-      // o rounded, then exp(-g), 1 + that, its reciprocal and the product each rounded to bf16
-      const __nv_bfloat16 ob = __float2bfloat16_rn(o);
-      if (!g) {
-        out[d] = ob;
-      } else {
-        const __nv_bfloat16 e = __float2bfloat16_rn(expf(-__bfloat162float(g[d])));
-        const __nv_bfloat16 den = __hadd_rn(__float2bfloat16_rn(1.f), e);
-        out[d] = __hmul_rn(ob, __float2bfloat16_rn(__fdiv_rn(1.f, __bfloat162float(den))));
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-int launch_small(const AttnArgs& a, cudaStream_t stream) {
-  dim3 grid((a.Tq + SNT - 1) / SNT, a.H, a.B);
-  attn_small_kernel<T, D><<<grid, SNT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------------------------ bf16, tensor cores
 
@@ -928,6 +865,276 @@ int launch_tf32(const AttnArgs& a, cudaStream_t stream) {
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ head dim 4, CUDA cores
+
+constexpr int SG = 4;             // lanes a query row group: lane g takes keys g, g + SG, ... of each tile
+constexpr int SR = 2;             // query rows a lane (a group's rows): each key read serves SR rows
+constexpr int SNT = 256;          // threads a block
+constexpr int SMINB = 2;          // blocks an SM the registers must leave room for
+constexpr int SROWS = SNT / SG * SR;  // query rows a block
+constexpr int SBK = 64;           // keys a tile
+constexpr int SKPL = SBK / SG;    // keys a lane a tile
+constexpr float SLOG2E = 1.4426950408889634f;
+constexpr float SMASKED = -1e9f * SLOG2E;  // a masked key's score, -1e9, in the kernel's log2 units
+
+// 2^x on the special-function unit (one MUFU.EX2): relative error ~2^-22;
+// 2^-inf = +0, and a result below 2^-126 is flushed to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 4 bytes (an fp32 of a row that is not 16-byte aligned) by cp.async; zero-filled where !ok
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem_dst)), "l"(src), "r"(ok ? 4 : 0));
+}
+
+// 4 bf16 (8 bytes, the first in the low half) widened to fp32: a bf16 is the high half of its float
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u), __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// the 4 values of a row: one 8- or 16-byte load where `vec`, else 4 element loads
+__device__ __forceinline__ uint2 ld_bf16x4(const __nv_bfloat16* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint2*>(p);
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(p);
+  return make_uint2(e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16);
+}
+__device__ __forceinline__ float4 load4(const float* p, bool vec) {
+  return vec ? *reinterpret_cast<const float4*>(p) : make_float4(p[0], p[1], p[2], p[3]);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec) { return widen4(ld_bf16x4(p, vec)); }
+
+// tile i of the sequence [source 0's tiles | source 1's]: its source, first key and key count
+struct SmallTile {
+  int src, j0, nk;
+};
+__device__ __forceinline__ SmallTile small_tile_at(const AttnArgs& a, int i, int n0) {
+  const int src = i >= n0 ? 1 : 0;
+  const int j0 = (i - (src ? n0 : 0)) * SBK;
+  return {src, j0, min(SBK, (src ? a.S[1] : a.S[0]) - j0)};
+}
+
+// One lane's SKPL keys of one tile (ks/vs: the tile's fp32 keys and values)
+// into the online softmax (m, l, o) of its SR rows, all in log2 units; the
+// SKPL x SR scores stay in registers between their max and their exps.
+// MIXED: a tile cut short by the end (lim = its key count - g) or with
+// masked keys (`mine`: the tile's live-key bits shifted down by g): a key
+// past the end scores -inf, a masked one SMASKED. Otherwise every key is
+// live and nothing is tested.
+template <bool MIXED>
+__device__ __forceinline__ void small_tile(const float4* ks, const float4* vs, const float4 (&q)[SR], int g, int lim,
+                                           uint64_t mine, float (&m)[SR], float (&l)[SR], float4 (&o)[SR]) {
+  float s[SKPL][SR];
+#pragma unroll
+  for (int i = 0; i < SKPL; ++i) {
+    const float4 k = ks[g + SG * i];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      float sc = fmaf(q[r].w, k.w, fmaf(q[r].z, k.z, fmaf(q[r].y, k.y, q[r].x * k.x)));
+      if (MIXED) {
+        if (SG * i >= lim) sc = -INFINITY;
+        else if (!((mine >> (SG * i)) & 1)) sc = SMASKED;
+      }
+      s[i][r] = sc;
+    }
+  }
+  float ms[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    float tmax = s[0][r];
+#pragma unroll
+    for (int i = 1; i < SKPL; ++i) tmax = fmaxf(tmax, s[i][r]);
+    const float mnew = fmaxf(m[r], tmax);
+    // -inf only where this lane has had no key yet (MIXED): subtract 0 then, so 2^(-inf - 0) = 0, not NaN
+    ms[r] = MIXED && mnew == -INFINITY ? 0.f : mnew;
+    const float alpha = ex2(m[r] - ms[r]);  // 0 on the lane's first key (m = -inf)
+    l[r] *= alpha;
+    o[r].x *= alpha;
+    o[r].y *= alpha;
+    o[r].z *= alpha;
+    o[r].w *= alpha;
+    m[r] = mnew;
+  }
+#pragma unroll
+  for (int i = 0; i < SKPL; ++i) {
+    const float4 v = vs[g + SG * i];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      const float p = ex2(s[i][r] - ms[r]);
+      l[r] += p;
+      o[r].x = fmaf(p, v.x, o[r].x);
+      o[r].y = fmaf(p, v.y, o[r].y);
+      o[r].z = fmaf(p, v.z, o[r].z);
+      o[r].w = fmaf(p, v.w, o[r].w);
+    }
+  }
+}
+
+// `vec`: every q, k and v row is 4 * sizeof(T)-byte aligned (launch_small's check)
+template <typename T, int D>
+__global__ void __launch_bounds__(SNT, SMINB) attn_small_kernel(const AttnArgs a, const bool vec) {
+  static_assert(D == 4, "the small-head kernel is written for a head dim of 4");
+  constexpr bool F32 = std::is_same<T, float>::value;
+  __shared__ __align__(16) float4 kv_s[2][2][SBK];  // [stage][K, V][key], fp32
+  __shared__ unsigned live_s[2][SBK / 32];          // [stage] the tile's live-key bits
+  const int tid = threadIdx.x, g = tid % SG, h = blockIdx.y, b = blockIdx.z;
+  const int t0 = blockIdx.x * SROWS + tid / SG * SR;  // the lane's rows: t0 .. t0 + SR - 1
+
+  // q scaled once by log2(e) / sqrt(D): a score is then a power of 2
+  float4 q[SR];
+  {
+    const T* qp = static_cast<const T*>(a.q) + b * a.sq[0] + h * a.sq[1];
+    const float c = a.scale * SLOG2E;
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      const float4 v = t0 + r < a.Tq ? load4(qp + (long long)(t0 + r) * a.sq[2], vec) : make_float4(0.f, 0.f, 0.f, 0.f);
+      q[r] = make_float4(v.x * c, v.y * c, v.z * c, v.w * c);
+    }
+  }
+
+  // the copy of a tile: thread tid < 2 SBK takes key kj of K (kv 0) or V (kv 1), one whole key;
+  // threads tid < SBK also read key kj's mask byte
+  const int kv = tid / SBK, kj = tid % SBK;
+  const bool copier = tid < 2 * SBK;
+  const int n0 = (a.S[0] + SBK - 1) / SBK, n = n0 + (a.S[1] + SBK - 1) / SBK;
+  uint2 held = make_uint2(0u, 0u);  // bf16: this thread's key of the next tile, until its stage is free
+  bool live_key = false;            // tid < SBK: key kj of the next tile is live
+
+  auto prefetch = [&](int i) {  // start the copy of tile i into stage i & 1
+    const SmallTile tl = small_tile_at(a, i, n0);
+    const bool ok = kj < tl.nk;
+    if (copier) {  // this (b, h)'s K or V of the tile's source, by selects (registers, not a parameter's address)
+      const bool s1 = tl.src;
+      const void* p = kv ? (s1 ? a.v[1] : a.v[0]) : (s1 ? a.k[1] : a.k[0]);
+      const long long sb = kv ? (s1 ? a.sv[1][0] : a.sv[0][0]) : (s1 ? a.sk[1][0] : a.sk[0][0]);
+      const long long sh = kv ? (s1 ? a.sv[1][1] : a.sv[0][1]) : (s1 ? a.sk[1][1] : a.sk[0][1]);
+      const long long st = kv ? (s1 ? a.sv[1][2] : a.sv[0][2]) : (s1 ? a.sk[1][2] : a.sk[0][2]);
+      const T* src = static_cast<const T*>(p) + b * sb + h * sh + (ok ? (long long)(tl.j0 + kj) * st : 0);
+      if constexpr (std::is_same<T, float>::value) {
+        float* dst = reinterpret_cast<float*>(&kv_s[i & 1][kv][kj]);
+        if (vec) {
+          cp_async16(dst, src, ok);
+        } else {
+#pragma unroll
+          for (int d = 0; d < 4; ++d) cp_async4(dst + d, src + d, ok);
+        }
+        cp_async_commit();
+      } else {
+        held = ok ? ld_bf16x4(src, vec) : make_uint2(0u, 0u);
+      }
+    }
+    if (tid < SBK) live_key = ok && (tl.src ? a.m[1] + b * a.msb[1] : a.m[0] + b * a.msb[0])[tl.j0 + kj];
+  };
+  auto publish = [&](int i) {  // complete tile i's copy; the barrier returns its live keys to every thread
+    if (copier) {
+      if constexpr (std::is_same<T, float>::value) cp_async_wait<0>();
+      else kv_s[i & 1][kv][kj] = widen4(held);
+    }
+    if (tid < SBK) {  // warps 0 and 1, whole
+      const unsigned bits = __ballot_sync(0xffffffffu, live_key);
+      if (kj % 32 == 0) live_s[i & 1][kj / 32] = bits;
+    }
+    return __syncthreads_count(live_key);
+  };
+
+  float m[SR], l[SR];
+  float4 o[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+    o[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  bool seen = false;  // a live key has been seen: a tile with none adds exactly 0 from here on
+  int live = 0;
+  if (n > 0) {
+    prefetch(0);
+    live = publish(0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int cur = i & 1, now = live;
+    if (i + 1 < n) prefetch(i + 1);
+    if (now == SBK) {
+      small_tile<false>(kv_s[cur][0], kv_s[cur][1], q, g, SBK, 0, m, l, o);
+    } else if (now > 0 || !seen) {
+      const uint64_t bits = live_s[cur][0] | (uint64_t)live_s[cur][1] << 32;
+      small_tile<true>(kv_s[cur][0], kv_s[cur][1], q, g, small_tile_at(a, i, n0).nk - g, bits >> g, m, l, o);
+    }
+    seen = seen || now > 0;
+    if (i + 1 < n) live = publish(i + 1);
+  }
+
+  // merge each row over the group's lanes: M = max m, w = 2^(m - M), then the sums of w l and w O;
+  // then lane g stores SEL elements of row g / (SG / SR), from element (g % (SG / SR)) * SEL
+  constexpr int LPR = SG / SR, SEL = 4 / LPR;  // lanes a row and elements a lane at the store
+  static_assert(SG % SR == 0 && 4 % LPR == 0, "a row's 4 elements are split evenly over its lanes");
+  float val[SEL];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    float M = m[r];
+#pragma unroll
+    for (int x = 1; x < SG; x <<= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, x));
+    const float w = ex2(m[r] - M);  // 0 for a lane that saw no key, or only masked keys beside a live one
+    float lr = l[r] * w, os[4] = {o[r].x * w, o[r].y * w, o[r].z * w, o[r].w * w};
+#pragma unroll
+    for (int x = 1; x < SG; x <<= 1) {
+      lr += __shfl_xor_sync(0xffffffffu, lr, x);
+#pragma unroll
+      for (int d = 0; d < 4; ++d) os[d] += __shfl_xor_sync(0xffffffffu, os[d], x);
+    }
+    if (g / LPR == r) {
+      const float inv = 1.f / lr;
+#pragma unroll
+      for (int e = 0; e < SEL; ++e) {
+        float od = os[e];  // os[(g % LPR) * SEL + e], by selects
+#pragma unroll
+        for (int c = 1; c < LPR; ++c)
+          if (g % LPR == c) od = os[c * SEL + e];
+        val[e] = od * inv;
+      }
+    }
+  }
+  const int t = t0 + g / LPR;
+  if (t >= a.Tq) return;
+
+  const int d0 = (g % LPR) * SEL;
+  T* out = static_cast<T*>(a.out) + b * a.so[0] + h * a.so[1] + (long long)t * a.so[2] + d0;
+  const T* gp = a.gate ? static_cast<const T*>(a.gate) + b * a.sg[0] + h * a.sg[1] + (long long)t * a.sg[2] + d0 : nullptr;
+#pragma unroll
+  for (int e = 0; e < SEL; ++e) {
+    if constexpr (F32) {
+      out[e] = gp ? gate_f32(val[e], gp[e]) : val[e];
+    } else {
+      // the value rounded, then exp(-g), 1 + that, its reciprocal and the product each rounded to bf16
+      const __nv_bfloat16 ob = __float2bfloat16_rn(val[e]);
+      if (!gp) {
+        out[e] = ob;
+      } else {
+        const __nv_bfloat16 ex = __float2bfloat16_rn(expf(-__bfloat162float(gp[e])));
+        const __nv_bfloat16 den = __hadd_rn(__float2bfloat16_rn(1.f), ex);
+        out[e] = __hmul_rn(ob, __float2bfloat16_rn(__fdiv_rn(1.f, __bfloat162float(den))));
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_small(const AttnArgs& a, cudaStream_t stream) {
+  // whole-key loads: every q, k and v row (4 values) aligned to its size
+  const auto aligned = [](const void* p, const long long* st) {
+    return reinterpret_cast<uintptr_t>(p) % (4 * sizeof(T)) == 0 && st[0] % 4 == 0 && st[1] % 4 == 0 && st[2] % 4 == 0;
+  };
+  bool vec = aligned(a.q, a.sq);
+  for (int src = 0; src < 2; ++src)
+    if (a.S[src]) vec = vec && aligned(a.k[src], a.sk[src]) && aligned(a.v[src], a.sv[src]);
+  const dim3 grid((a.Tq + SROWS - 1) / SROWS, a.H, a.B);
+  attn_small_kernel<T, 4><<<grid, SNT, 0, stream>>>(a, vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: q, k1, v1, m1, k2, v2, m2, gate, out (k2/v2/m2/gate may be null).
@@ -959,13 +1166,14 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
   // fp32: the 3xTF32 tensor-core kernel (16-byte aligned q/k/v/gate/out rows
   // are the wrapper's check); bf16: the bf16 tensor-core kernel (16-byte
   // aligned q/k/v rows and 4-byte aligned out pairs); D = 4, either dtype: the
-  // small-head kernel (element loads, no alignment needed)
+  // small-head kernel (whole-key loads where q/k/v rows are aligned, element
+  // loads otherwise: no alignment needed)
   switch (dtype * 1000 + D) {
-    case 4: return launch_small<float, 4>(a, s);
+    case 4: return launch_small<float>(a, s);
     case 64: return launch_tf32<64>(a, s);
     case 120: return launch_tf32<120>(a, s);
     case 128: return launch_tf32<128>(a, s);
-    case 1004: return launch_small<__nv_bfloat16, 4>(a, s);
+    case 1004: return launch_small<__nv_bfloat16>(a, s);
     case 1064: return launch_mma<64>(a, D, s);
     case 1120: return launch_mma<128>(a, D, s);
     case 1128: return launch_mma<128>(a, D, s);

@@ -13,7 +13,8 @@ combine; `attention_split_plain` is that split and merge in plain PyTorch,
 for the tests. fp32 runs the same design on the tensor cores with fp32
 accuracy (3xTF32: each operand split into tf32 hi + lo, three products).
 A head dim of 4 (the ASR conformer's), fp32 or bf16, runs a CUDA-core
-kernel of its own, one query row a thread.
+kernel of its own: four lanes a query row, each over every fourth key, with
+the tiles the key mask leaves dead skipped.
 
 `attention` is the kernel behind a torch.autograd.Function, for training:
 its forward is `fused_attention` over one key source, ungated; its backward
@@ -106,6 +107,30 @@ def _strides(t: torch.Tensor, name: str):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
+def st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out):
+    """(args, masks): the arguments of the C entry `st_attention`
+    (csrc/attention.cu) for checked CUDA tensors (dtype, head dim, the 9
+    pointers, the 23 (b, h, t) and mask strides, (B, H, Tq, S1, S2),
+    1/sqrt(D), the current stream), and the contiguous bool masks they
+    point to, which must live until the launch is queued."""
+    B, H, Tq, D = q.shape
+    two = k2 is not None
+    m1 = key_mask.to(torch.bool).contiguous()
+    m2 = key_mask2.to(torch.bool).contiguous() if two else None
+    none = [0, 0, 0]
+    strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
+               + (_strides(k2, "k2") + _strides(v2, "v2") if two else none + none)
+               + (_strides(gate, "gate") if gate is not None else none)
+               + _strides(out, "out") + [m1.stride(0), m2.stride(0) if two else 0])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), m1.data_ptr(),
+            k2.data_ptr() if two else None, v2.data_ptr() if two else None,
+            m2.data_ptr() if two else None,
+            gate.data_ptr() if gate is not None else None, out.data_ptr()]
+    return (_DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
+            (ctypes.c_int * 5)(B, H, Tq, k.shape[2], k2.shape[2] if two else 0), 1.0 / math.sqrt(D),
+            ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)), (m1, m2)
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -161,22 +186,9 @@ def fused_attention(
         for t in [q, k, v, out] + ([k2, v2] if two else []) + ([gate] if gate is not None else []):
             if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
                 raise ValueError("attention: fp32 q/k/v/gate/out need 16-byte aligned rows (strides of 4)")
-    m1 = key_mask.to(torch.bool).contiguous()
-    m2 = key_mask2.to(torch.bool).contiguous() if two else None
-    none = [0, 0, 0]
-    strides = (_strides(q, "q") + _strides(k, "k") + _strides(v, "v")
-               + (_strides(k2, "k2") + _strides(v2, "v2") if two else none + none)
-               + (_strides(gate, "gate") if gate is not None else none)
-               + _strides(out, "out") + [m1.stride(0), m2.stride(0) if two else 0])
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), m1.data_ptr(),
-            k2.data_ptr() if two else None, v2.data_ptr() if two else None,
-            m2.data_ptr() if two else None,
-            gate.data_ptr() if gate is not None else None, out.data_ptr()]
     lib = kernels.load("attention")
-    status = lib.st_attention(
-        _DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
-        (ctypes.c_int * 5)(B, H, Tq, S1, S2), 1.0 / math.sqrt(D),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    args, _masks = st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out)
+    status = lib.st_attention(*args)
     kernels.check(lib, "attention", status, "attention kernel")
     kernels.count_launch(NAME, (B, H, Tq, S1 + S2, D, q.dtype))
     return out

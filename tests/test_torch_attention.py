@@ -40,7 +40,7 @@ def inputs(B, H, Tq, S, D, seed=0):
     return q, k, v, mask
 
 
-@pytest.mark.parametrize("D", [64, 120, 128])
+@pytest.mark.parametrize("D", [4, 64, 120, 128])
 def test_plain_matches_pallas_and_sdpa(D):
     q, k, v, mask = inputs(3, 2, 24, 40, D, seed=D)
     got = fused_attention(T(q), T(k), T(v), T(mask))
@@ -52,7 +52,7 @@ def test_plain_matches_pallas_and_sdpa(D):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("D", [64, 120])
+@pytest.mark.parametrize("D", [4, 64, 120])
 def test_two_sources_and_gate_match_concatenated_keys(D):
     q, k, v, mask = inputs(2, 3, 16, 20, D, seed=1)
     _, k2, v2, mask2 = inputs(2, 3, 16, 33, D, seed=2)

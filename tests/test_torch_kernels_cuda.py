@@ -9,7 +9,9 @@ another order); 2e-2 in bf16 (a few bf16 roundings of 2^-8 taken at other
 points; the plain version rounds where PyTorch's bf16 ops do); 1e-2 for the
 w8 products, whose one bf16 rounding may fall on the other side of a
 boundary when the fp32 sum is taken in another order (2^-8 of a value).
-The adaLN and q/k norm kernels, and the DiT GEMM's gated residual through
+Gradients through the attention's Function (the kernel's output feeds the
+PyTorch backward) against autograd through the plain version: 1e-4 fp32,
+2e-2 bf16, as chip_smoke.py's TRAIN_GRAD_TOL. The adaLN and q/k norm kernels, and the DiT GEMM's gated residual through
 an identity weight (where the product is exact), are also held bit for bit:
 at most 1e-4 of elements may differ. A difference starts as one flipped
 rounding (fp32 sums in another order, the card's rsqrt and tanh in the
@@ -32,6 +34,7 @@ from smalltts_tpu_torch.ops.rope import interleaved_cos_sin
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # gradients through attention's Function
 W8_TOL = 1e-2
 
 
@@ -61,27 +64,68 @@ def key_mask(B, S, g, dev):
     return m
 
 
+def gap(S, dev):
+    """A key mask row live at its ends and dead in the middle: dead 64-key
+    tiles between live ones, where S allows."""
+    j = torch.arange(S, device=dev)
+    return (j < S // 10) | (j >= 7 * S // 10)
+
+
+# head dim 4 (the ASR conformer's 16 heads of 4): the ASR's (2, 16, 1024), and lengths that are no
+# multiple of the kernel's 64-key tile or its 4-lane group, at B 3: a length-masked row, a row whose
+# dead tiles lie between live ones (gap), a fully masked row
+SMALL = [(2, 16, 1024, 1024, 4)] + [(3, 4, Tq, S, 4) for Tq in (1, 37, 130) for S in (1, 63, 65, 1031)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,T,D", [(8, 8, 256, 64), (8, 4, 384, 128), (2, 8, 40, 120)])
-def test_attention_kernel(dev, dtype, B, H, T, D):
+@pytest.mark.parametrize("B,H,Tq,S,D", [(8, 8, 256, 256, 64), (8, 4, 384, 384, 128), (2, 8, 40, 40, 120)] + SMALL)
+def test_attention_kernel(dev, dtype, B, H, Tq, S, D):
+    """One launch against attention_plain (TOL, as chip_smoke's
+    DISTILL_FWD_TOL); at head dim 4 also the gradients through `attention`
+    against autograd through attention_plain (GRAD_TOL, as chip_smoke's
+    TRAIN_GRAD_TOL), none to the fully masked row's q. With one key (S 1)
+    a row's softmax is constant, so dq and dk are rounding noise around 0:
+    only dv is held there."""
     g = gen(dev, D)
-    q, k, v = (randn((B, H, T, D), g, dev, dtype) for _ in range(3))
-    m = key_mask(B, T, g, dev)
+    q, k, v = randn((B, H, Tq, D), g, dev, dtype), randn((B, H, S, D), g, dev, dtype), randn((B, H, S, D), g, dev, dtype)
+    m = key_mask(B, S, g, dev)
+    if B == 3:
+        m[1] = gap(S, dev)
     n0 = kernels.LAUNCHES.get("attention", 0)
     got = A.fused_attention(q, k, v, m)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["attention"] == n0 + 1
     assert rel(got, A.attention_plain(q, k, v, m)) <= TOL[dtype]
+    if D != 4:
+        return
+    assert torch.allclose(got[-1].float(), v[-1].float().mean(1, keepdim=True).expand_as(got[-1]),
+                          rtol=TOL[dtype], atol=TOL[dtype])  # the fully masked row: a uniform average
+    dout = randn((B, H, Tq, D), g, dev, dtype)
+    grads = []
+    for fn in (A.attention, A.attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves, m), leaves, dout))
+    for name, got_g, want_g in zip(("dq", "dk", "dv"), *grads):
+        if S > 1 or name == "dv":
+            assert rel(got_g, want_g) <= GRAD_TOL[dtype], name
+    assert float(grads[0][0][-1].abs().max()) == 0.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_two_sources_gate(dev, dtype):
-    B, H, T, Sc, D = 8, 8, 40, 192, 120
+@pytest.mark.parametrize("H,D", [(8, 120), (16, 4)])
+def test_attention_two_sources_gate(dev, dtype, H, D):
+    """The DiT's joint attention: q/k/v/gate as views of one (B, T, 4 H D)
+    buffer, a second source with its own mask, the output into a strided
+    view; at head dim 4 the second source's mask of row 1 has dead tiles
+    between live ones. The last row is fully masked in both."""
+    B, T, Sc = 8, 40, 192
     g = gen(dev, 1)
     qkvg = randn((B, T, 4 * H * D), g, dev, dtype)
     view = lambda i: qkvg[..., i * H * D:(i + 1) * H * D].unflatten(-1, (H, D)).transpose(1, 2)  # noqa: E731
     k2, v2 = (randn((B, H, Sc, D), g, dev, dtype) for _ in range(2))
     m1, m2 = key_mask(B, T, g, dev), key_mask(B, Sc, g, dev)
+    if D == 4:
+        m2[1] = gap(Sc, dev)
     out = torch.empty((B, T, H * D), device=dev, dtype=dtype)
     A.fused_attention(view(0), view(1), view(2), m1, k2, v2, m2, gate=view(3),
                       out=out.unflatten(-1, (H, D)).transpose(1, 2))
