@@ -95,7 +95,19 @@
    rollout against its plain versions, and train_imf at full width,
    batch 2: plain in fp32 (with a save, served as IMF-2) and bf16,
    adversarial and DMD, with the exact attention launches of each
-   iteration.
+   iteration. Then the codec phases (see `codec_phases`), at the default
+   CodecConfig (77.6M params) in fp32, where no kernel of the port may
+   launch: train codec (train_codec at batch 8 x 25,600 samples, 7 steps
+   with a save, one step profiled, one step on the card against the same
+   step on the CPU with cuDNN's TF32 left at PyTorch's default), train
+   codec distill (a second codec exported by onnxtorch.export as the ONNX
+   teacher; the codec_distill command line with and without the encoder
+   graph, then train_codec_distill at batch 4 x 22,400 samples timed and
+   profiled in this process, with the teacher's share of the device time),
+   serve trained codec (SmallTTS(codec_checkpoint=the distilled npz), one
+   batch through its CUDA graph with its exact launches) and tools (the
+   profile entry point's trace, compiled_cost and utilization of a codec
+   decode, eval_quality --roundtrip on the distilled codec).
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -128,6 +140,10 @@ runs phase A, head dim 4, alone, with a sweep of S = Tq over 256-4096 and
 B x H over 8-128; with --attn-small-parent (here or in the whole run), the
 head-dim-4 kernel of DIR (built here) beside this checkout's, held against
 plain and timed in turns.
+
+    python3 chip_smoke.py --codec
+
+runs the codec phases alone, after the kernels' build.
 
     python3 chip_smoke.py --ctc [--ctc-parent DIR]
 
@@ -371,6 +387,8 @@ def main() -> int:
         return ctc_only(torch)
     if "--attn-small" in sys.argv:
         return attn_small_only(torch)
+    if "--codec" in sys.argv:
+        return codec_only(torch)
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -1074,6 +1092,7 @@ def main() -> int:
     corpus_phase(entries)
     distill_phase(torch, dev, entries)
     imf_phase(torch, dev, entries)
+    codec_phases(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -3546,16 +3565,482 @@ def imf_phase(torch, dev, entries):
     print(f"  phase train imf: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
-def profile_batch(fn):
-    """(device busy ms, [(kernel, ms, count)] by time) of one call of `fn`
-    under torch.profiler."""
+# ------------------------------------------------------------------ the codec trainers and the tools
+
+CODEC_LOSS_TOL = 1e-5  # card against CPU, fp32: the convolutions and FFTs sum in another order
+CODEC_STEP_TOL = 1e-4  # rel-L2 of the whole tree of updated params
+# each leaf's rel-L2: the snake log_alpha leaves are zero at init, so after one step they hold AdamW's first
+# updates alone, g / (|g| + eps), and an element whose gradient is near zero may take the other sign (up to
+# 7.6e-3 between the two packages on the CPU, tests/test_torch_codec_train.py); small biases share it
+CODEC_LEAF_TOL = 2e-2
+# whole-tree rel-L2 of the gradient, card against CPU: fp32 rounding magnified by the log of small STFT
+# magnitudes (the two packages differ by 1e-5-1e-4 a leaf on the CPU); TF32's 10-bit mantissa anywhere in
+# the convolutions' backward would move it by orders of magnitude more
+CODEC_GRAD_TOL = 1e-3
+CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")  # cuDNN's forward and backward
+
+
+class RecordGrads:
+    """An optimizer wrapper that keeps the gradients of its last update."""
+
+    def __init__(self, tx):
+        self.tx = tx
+
+    def init(self, params):
+        return self.tx.init(params)
+
+    def update(self, grads, state, params):
+        self.grads = grads
+        return self.tx.update(grads, state, params)
+
+
+def profile_step(fn):
+    """(device busy ms, [(kernel, ms, count)], [(op, device ms, count)]) of
+    one call of `fn` under torch.profiler: kernels by their own device time,
+    aten ops by the device time of everything they launch."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in prof.key_averages()
+    avgs = prof.key_averages()
+    kern = sorted(((e.key, _dev_us(e) / 1e3, e.count) for e in avgs
                    if str(getattr(e, "device_type", "")).endswith("CUDA") and _dev_us(e) > 0), key=lambda r: -r[1])
-    return sum(r[1] for r in kern), kern
+    total = lambda e: float(getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0) or 0)  # noqa: E731
+    ops = sorted(((e.key, total(e) / 1e3, e.count) for e in avgs if e.key.startswith("aten::") and total(e) > 0),
+                 key=lambda r: -r[1])
+    return sum(r[1] for r in kern), kern, ops
+
+
+def step_profile(torch, one, n_walls=3):
+    """Host dispatch, wall ms (median of `n_walls`), device busy, idle
+    share, kernels and the top kernels and aten ops of one call of `one`
+    (warmed up first)."""
+    import statistics
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    dispatch = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n_walls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    busy, kern, ops = profile_step(lambda: (one(), torch.cuda.synchronize()))
+    wall = statistics.median(walls)
+    conv_rank = {n: next((i for i, (k, _, _) in enumerate(ops) if k == n), None) for n in CONV_OPS}
+    return dict(dispatch_ms=dispatch, wall_ms=walls, device_busy_ms=busy, idle_share=1.0 - busy / wall,
+                kernels=sum(c for _, _, c in kern), conv_op_rank=conv_rank,
+                conv_ms={n: next((t for k, t, _ in ops if k == n), 0.0) for n in CONV_OPS},
+                top_kernels=[dict(kernel=k[:90], ms=t, count=c) for k, t, c in kern[:8]],
+                top_ops=[dict(op=k, ms=t, count=c) for k, t, c in ops[:12]])
+
+
+def check_conv_ops(row, label):
+    """cuDNN's convolution forward and backward among the step's 12 aten ops
+    with the most device time."""
+    ranks = row["conv_op_rank"]
+    check(all(r is not None and r < 12 for r in ranks.values()), f"{label}: cuDNN convolution ops ranked {ranks}")
+
+
+def timed_steps(stamps, first, n=5):
+    """The ms of steps first .. first + n - 1 from the stamps taken after each
+    step, and their median."""
+    import statistics
+
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])][first - 1:first - 1 + n]
+    return ms, statistics.median(ms)
+
+
+def codec_train_phase(torch, dev, entries):
+    """Phase train codec: train_codec at CodecConfig() (77.6M params) and
+    CodecTrainConfig()'s batch 8 x 25,600 samples, fp32, the dummy audio,
+    seed 0: 7 steps with a save at step 6 (save_every lowered; into a
+    temporary directory that is removed). No kernel of the port launches
+    (the codec reaches no pallas_call: cuDNN's convolutions with TF32 off,
+    torch.fft). The losses finite; the save reloads equal to the returned
+    params with codec_meta's config. Median ms of steps 1-5, peak
+    max_memory_allocated, one more step profiled (dispatch, wall, busy, idle
+    share, top kernels and aten ops: cuDNN's convolution forward and
+    backward among the top 12). Then one step from the same weights and
+    batch on the card and on the CPU, with PyTorch's default
+    cudnn.allow_tf32 = True left on: loss within CODEC_LOSS_TOL, gradient
+    within CODEC_GRAD_TOL, updated params within CODEC_STEP_TOL (each leaf
+    CODEC_LEAF_TOL); beside it, what the check guards against: the card's
+    gradient with _Conv1dF32 bypassed, so that cuDNN computes the training
+    convolutions in TF32 (PyTorch's default)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from smalltts_tpu_torch.models.codec import CodecConfig, init_codec
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.train import codec_train as CT
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.config_io import codec_config_from_meta
+    from smalltts_tpu_torch.utils.convert import params_from_jax
+
+    t_phase = time.perf_counter()
+    cfg, tc = CodecConfig(), CT.CodecTrainConfig(num_steps=7, save_every=6)
+    print(f"phase train codec: train_codec, CodecConfig(), batch {tc.batch_size} x {tc.segment_samples} samples, "
+          "fp32, dummy audio, seed 0: 7 steps with a save at step 6", flush=True)
+    stamps, losses = [], []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append(float(loss))
+
+    tmp = tempfile.mkdtemp(prefix="codec_smoke_")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        params = CT.train_codec(tc, cfg, seed=0, checkpoint_dir=tmp, log_every=10 ** 9, device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(not launches, f"train codec launched kernels of the port: {launches}")
+        check(all(np.isfinite(losses)), f"train codec: losses {losses}")
+        path = os.path.join(tmp, "checkpoint_latest.npz")
+        check(codec_config_from_meta(ckpt.load_meta(path)) == cfg, "train codec: the save's codec_meta")
+        back = ckpt.flatten_pytree(params_from_jax(ckpt.load_pytree(path), cfg))
+        fp = ckpt.flatten_pytree(params)
+        check(back.keys() == fp.keys() and all(torch.equal(back[k], fp[k].cpu()) for k in fp),
+              "train codec: the save does not reload equal")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_ms, med = timed_steps(stamps, 1)
+    n_params = sum(t.numel() for t in fp.values())
+    row = dict(config="CodecConfig()", params=n_params, batch=tc.batch_size, segment_samples=tc.segment_samples,
+               steps=7, losses=losses, step_ms=step_ms, step_ms_median=med,
+               save_step_ms=(stamps[6] - stamps[5]) * 1e3,
+               audio_seconds_per_s=tc.batch_size * tc.segment_samples / 24_000 / (med / 1e3), wall_s=wall_s,
+               peak_memory_bytes=peak)
+
+    tx = CT.codec_optimizer(params, tc)
+    opt = tx.init(params)
+    step = CT.make_codec_step(cfg, tc, tx)
+    audio = torch.from_numpy(next(CT.dummy_audio_iter(tc.batch_size, tc.segment_samples, seed=1))).to(dev)
+    row["profile"] = step_profile(torch, lambda: step(params, opt, audio))
+    check_conv_ops(row["profile"], "train codec")
+    del params, opt, tx, step
+    torch.cuda.empty_cache()
+
+    # the same step on the card and on the CPU, TF32 left at PyTorch's default for cuDNN
+    check(torch.backends.cudnn.allow_tf32, "cudnn.allow_tf32 is not at PyTorch's default (True)")
+    init = init_codec(torch.Generator().manual_seed(0), cfg)
+    batch = torch.from_numpy(next(CT.dummy_audio_iter(tc.batch_size, tc.segment_samples, seed=2)))
+    res = {}
+    for d in ("cpu", dev):
+        p = ckpt.map_pytree(lambda t: t.to(d), init)
+        rec = RecordGrads(CT.codec_optimizer(p, tc))
+        t0 = time.perf_counter()
+        new, _, loss, _ = CT.make_codec_step(cfg, tc, rec)(p, rec.init(p), batch.to(d))
+        res[str(d)] = (float(loss), ckpt.flatten_pytree(ckpt.map_pytree(lambda t: t.cpu(), new)),
+                       ckpt.flatten_pytree(ckpt.map_pytree(lambda t: t.cpu(), rec.grads)), time.perf_counter() - t0)
+    (l_cpu, p_cpu, g_cpu, s_cpu), (l_dev, p_dev, g_dev, _) = res["cpu"], res[str(dev)]
+    from smalltts_tpu_torch.ops import nn as pnn
+
+    pnn._Conv1dF32.apply = lambda h, w, dilation, groups: torch.nn.functional.conv1d(h, w, None, dilation=dilation,
+                                                                                   groups=groups)
+    try:  # the convolutions in TF32, forward and backward: what _Conv1dF32 keeps out
+        p = ckpt.map_pytree(lambda t: t.to(dev), init)
+        rec = RecordGrads(CT.codec_optimizer(p, tc))
+        CT.make_codec_step(cfg, tc, rec)(p, rec.init(p), batch.to(dev))
+        g_tf32 = ckpt.flatten_pytree(ckpt.map_pytree(lambda t: t.cpu(), rec.grads))
+    finally:
+        del pnn._Conv1dF32.apply
+
+    def rel_l2(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
+
+    cat = lambda flat: torch.cat([v.reshape(-1) for v in flat.values()])  # noqa: E731
+    zero = {k for k, v in ckpt.flatten_pytree(init).items() if not bool(v.any())}
+    loss_err = abs(l_dev - l_cpu) / abs(l_cpu)
+    grad_err = rel_l2(cat(g_dev), cat(g_cpu))
+    tf32_err = rel_l2(cat(g_tf32), cat(g_cpu))
+    whole = rel_l2(cat(p_dev), cat(p_cpu))
+    leaves = {k: rel_l2(p_dev[k], p_cpu[k]) for k in p_cpu}
+    worst = max(v for k, v in leaves.items() if k not in zero)
+    worst_zero = max(v for k, v in leaves.items() if k in zero)
+    print(f"  one step, card against CPU from the same weights and batch (cudnn.allow_tf32 True): loss rel err "
+          f"{loss_err:.3e} (tolerance {CODEC_LOSS_TOL}), gradient rel-L2 {grad_err:.3e} ({CODEC_GRAD_TOL}; with "
+          f"the convolutions in TF32 {tf32_err:.3e}), params rel-L2 {whole:.3e} whole ({CODEC_STEP_TOL}), worst "
+          f"leaf {worst:.3e} nonzero at init, {worst_zero:.3e} zero-init log_alpha ({CODEC_LEAF_TOL}); the CPU "
+          f"step took {s_cpu:.2f} s", flush=True)
+    check(loss_err <= CODEC_LOSS_TOL and grad_err <= CODEC_GRAD_TOL and whole <= CODEC_STEP_TOL
+          and max(worst, worst_zero) <= CODEC_LEAF_TOL and zero
+          and all("log_alpha" in k.split("/")[-1] for k in zero), "train codec: the card's step against the CPU's")
+    row["card_vs_cpu"] = dict(batch=tc.batch_size, loss=l_dev, loss_rel_err=loss_err, grad_rel_l2=grad_err,
+                              grad_rel_l2_convolutions_in_tf32=tf32_err, params_rel_l2=whole,
+                              params_rel_l2_worst_leaf=worst, params_rel_l2_worst_zero_init_leaf=worst_zero,
+                              cpu_step_s=s_cpu)
+    print(f"  train codec: {json.dumps(row)}", flush=True)
+    print(f"  phase train codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return row
+
+
+def parse_final(stdout):
+    """The metrics dict of a codec_distill CLI's last line, `final: {...}`."""
+    import ast
+
+    line = next((ln for ln in reversed(stdout.splitlines()) if ln.startswith("final: ")), None)
+    check(line is not None, "the codec_distill CLI printed no final metrics")
+    try:
+        return ast.literal_eval(line[len("final: "):])
+    except ValueError:  # nan or inf is no literal
+        raise AssertionError(f"codec_distill CLI: non-finite metrics: {line}") from None
+
+
+def codec_distill_phase(torch, dev, entries, tmp, timeout_s=600):
+    """Phase train codec distill. The teacher: a second CodecConfig() codec
+    (seed 2) exported by onnxtorch.export (fp32, dynamic batch and time axes)
+    into `tmp`/assets, and a copy of its decoder alone into
+    `tmp`/assets_decoder_only. The command line `python -m
+    smalltts_tpu_torch.train.codec_distill --assets DIR --steps 7
+    --save-every 6` runs on each directory, the two processes together: exit
+    0, finite final metrics (enc_mse with the encoder graph only), the
+    checkpoint saved. Then in this process, for each teacher: train_codec_distill
+    at CodecConfig() and CodecDistillConfig()'s batch 4 x 22,400 samples,
+    7 steps: median ms of steps 2-6, peak memory; one more step profiled
+    (cuDNN's convolutions among the top ops) and the teacher's share of its
+    device time (the teacher's encode and decode alone, profiled).
+    Returns (the rows, the distilled checkpoint of the run with the encoder)."""
+    import numpy as np
+
+    import smalltts_tpu_torch
+    from smalltts_tpu_torch.models.codec import CodecConfig, init_codec
+    from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, export
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.train import codec_distill as CD
+
+    t_phase = time.perf_counter()
+    cfg = CodecConfig()
+    print("phase train codec distill: the teacher a seed-2 CodecConfig() codec exported by onnxtorch.export; "
+          "the student CodecConfig(), batch 4 x 22,400 samples, fp32", flush=True)
+    dirs = {"encoder": os.path.join(tmp, "assets"), "decoder_only": os.path.join(tmp, "assets_decoder_only")}
+    for d in dirs.values():
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    tp = init_codec(torch.Generator(device=dev).manual_seed(2), cfg, device=dev)
+    with kernels.force_plain():
+        for name, module, example, axes in (
+                ("encoder", CodecEncoder(tp, cfg), torch.zeros((1, 1, 4 * cfg.hop), device=dev), {0: "b", 2: "t"}),
+                ("decoder", CodecDecoder(tp, cfg), torch.zeros((1, 4, 64), device=dev), {0: "b", 1: "t"})):
+            with open(os.path.join(dirs["encoder"], f"{name}.onnx"), "wb") as f:
+                f.write(export(module, (example,), dynamic_axes={"x": axes}, input_names=["x"]))
+    del tp
+    shutil.copyfile(os.path.join(dirs["encoder"], "decoder.onnx"), os.path.join(dirs["decoder_only"], "decoder.onnx"))
+    export_s = time.perf_counter() - t0
+    root = os.path.dirname(os.path.dirname(os.path.abspath(smalltts_tpu_torch.__file__)))
+    procs = {}
+    for kind, d in dirs.items():
+        cmd = [sys.executable, "-m", "smalltts_tpu_torch.train.codec_distill", "--assets", d, "--steps", "7",
+               "--save-every", "6", "--checkpoint-dir", os.path.join(tmp, f"ckpt_{kind}")]
+        print(f"  exported in {export_s:.2f} s; {' '.join(cmd[1:])}", flush=True)
+        procs[kind] = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rows = {}
+    t0 = time.perf_counter()
+    for kind, proc in procs.items():
+        out, errs = proc.communicate(timeout=timeout_s)
+        print("  " + (out + errs)[-800:].replace("\n", "\n  "), flush=True)
+        check(proc.returncode == 0, f"codec_distill CLI ({kind}): exit {proc.returncode}")
+        final = parse_final(out)
+        check(all(np.isfinite(v) for v in final.values()) and ("enc_mse" in final) == (kind == "encoder"),
+              f"codec_distill CLI ({kind}): final {final}")
+        saved = os.path.join(tmp, f"ckpt_{kind}", "codec_distilled.npz")
+        check(os.path.isfile(saved), f"codec_distill CLI ({kind}): no checkpoint")
+        rows[kind] = dict(cli_final=final, cli_rc=proc.returncode)
+    cli_s = time.perf_counter() - t0
+
+    for kind, d in dirs.items():
+        teacher = OnnxCodec(os.path.join(d, "encoder.onnx") if kind == "encoder" else None,
+                            os.path.join(d, "decoder.onnx"), device=dev)
+        stamps, metrics = [], []
+
+        def on_step(step, m):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            metrics.append({k: float(v) for k, v in m.items()})
+
+        dc = CD.CodecDistillConfig(num_steps=7, save_every=10 ** 9)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        params, last = CD.train_codec_distill(dc, cfg, teacher=teacher, seed=0, checkpoint_dir=tmp,
+                                              log_every=10 ** 9, device=dev, on_step=on_step)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(not launches, f"train codec distill launched kernels of the port: {launches}")
+        check(all(np.isfinite(v) for m in metrics for v in m.values()), f"train codec distill ({kind}): {metrics}")
+        step_ms, med = timed_steps(stamps, 2)
+        samples = int(dc.seconds_per_sample * 24_000) // cfg.hop * cfg.hop
+        tp_, dec, enc = CD._teacher_fns(teacher)
+        tx, _ = CD.distill_optimizer(params, dc)
+        opt = tx.init(params)
+        step = CD.make_codec_distill_step(cfg, dc, dec, enc, tx)
+        audio = torch.from_numpy(next(CD.synthetic_audio_iter(dc.batch_size, samples, seed=1))).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        prof = step_profile(torch, lambda: step(params, opt, tp_, audio, gen))
+        check_conv_ops(prof, f"train codec distill ({kind})")
+        lat = torch.randn((dc.batch_size, samples // cfg.hop, cfg.latent_dim), generator=gen, device=dev)
+
+        def teacher_only():
+            with torch.no_grad():
+                dec(tp_, enc(tp_, audio) if enc is not None else lat)
+            torch.cuda.synchronize()
+
+        teacher_only()
+        t_busy = profile_step(teacher_only)[0]
+        prof["teacher_busy_ms"] = t_busy
+        prof["teacher_share"] = t_busy / prof["device_busy_ms"]
+        rows[kind].update(batch=dc.batch_size, samples=samples, steps=7, losses=[m["loss"] for m in metrics],
+                          last_metrics=metrics[-1], step_ms=step_ms,
+                          step_ms_median=med, audio_seconds_per_s=dc.batch_size * samples / 24_000 / (med / 1e3),
+                          peak_memory_bytes=peak, profile=prof)
+        print(f"  train codec distill ({kind}): {json.dumps(rows[kind])}", flush=True)
+        del teacher, params, opt, tx, step, tp_, dec, enc, teacher_only
+        torch.cuda.empty_cache()
+    print(f"  phase train codec distill: {time.perf_counter() - t_phase:.2f} s (the two command lines together "
+          f"{cli_s:.2f} s)", flush=True)
+    return rows, os.path.join(tmp, "ckpt_encoder", "codec_distilled.npz")
+
+
+def codec_serve_and_tools_phases(torch, dev, entries, codec_ckpt, tmp):
+    """Phase serve trained codec: SmallTTS(codec_checkpoint=the distilled
+    .npz) on the seed-0 backbone, its codec config read from codec_meta, one
+    padded batch (8, r 64, p 384, t 40) through its CUDA graph (captured
+    first, the counters reset before the replay): int16 waveforms of t x
+    hop samples, not all zero, and one batch's exact launches (attention 68:
+    48 DiT, 12 style, 8 text; the scan's 384).
+
+    Phase tools: `python -m smalltts_tpu_torch.scripts.profile --runs 1`'s
+    main in this process (a default SmallTTS, one traced batch of 8 at 5 s):
+    its Chrome trace holds the attention kernel's name and the annotated
+    synthesize_padded range; compiled_cost and utilization of one codec
+    decode of the distilled codec at (8, 40, 64) against the card's peaks
+    (device_peaks: an unknown card raises); eval_quality --roundtrip
+    --synthetic 1 on the distilled codec, finite numbers."""
+    import numpy as np
+
+    from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.scripts import eval_quality
+    from smalltts_tpu_torch.scripts import profile as profile_script
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils import flops
+
+    t_phase = time.perf_counter()
+    print(f"phase serve trained codec: SmallTTS(codec_checkpoint={os.path.basename(codec_ckpt)}) on the seed-0 "
+          "backbone, bf16, one padded batch through its CUDA graph", flush=True)
+    tts = full_width_tts(torch, dev, codec_checkpoint=codec_ckpt)
+    check(tts.codec_cfg == CodecConfig() and tts.onnx_codec is None, f"codec config {tts.codec_cfg}")
+    saved = ckpt.load_pytree(codec_ckpt)["dec_out"]["b"]
+    check(torch.equal(tts.codec_params["dec_out"]["b"].cpu(), torch.from_numpy(saved)), "the distilled codec's weights")
+    args = padded_batch(tts)
+    tts.synthesize_padded(*args)  # captured
+    kernels.reset_launches()
+    out = tts.synthesize_padded(*args)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    per = tts.num_steps * tts.cfg.dit.n_blocks
+    want = {"attention": 68, "adaln_modulate": 2 * per, "qk_norm_rope": per, "gemm_bias": per, "gemm_swiglu": per,
+            "gemm_residual": 2 * per}
+    check(launches == want, f"serve trained codec: launches {launches}, want {want}")
+    check(out.dtype == np.int16 and out.shape == (8, 1, args[5] * CodecConfig().hop) and int(np.abs(out).max()) > 0,
+          f"serve trained codec: {out.dtype} {out.shape}")
+    timing = graph_timing(torch, tts, args)
+    row = dict(batch=list(bucket_key(args)), launches=launches, peak_abs=int(np.abs(out).max()),
+               **{k: timing[k] for k in ("dispatch_ms_median", "wall_ms_median", "graph_span_ms")})
+    print(f"  serve trained codec: {json.dumps(row)}", flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["serve_trained_codec"] = row
+    print(f"  phase serve trained codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    t_phase = time.perf_counter()
+    print("phase tools: scripts.profile --runs 1 (trace), compiled_cost / utilization of a codec decode, "
+          "scripts.eval_quality --roundtrip --synthetic 1", flush=True)
+    tr = os.path.join(tmp, "trace")
+    check(profile_script.main(["--out", tr, "--runs", "1", "--batch", "8", "--duration", "5"]) == 0, "profile")
+    files = os.listdir(tr)
+    check(len(files) == 1, f"profile wrote {files}")
+    with open(os.path.join(tr, files[0])) as f:
+        names = {ev.get("name", "") for ev in json.load(f)["traceEvents"]}
+    attn = sorted({n[:60] for n in names if any(m in n for m in ATTN_KERNELS)})
+    check(attn and "synthesize_padded" in names, f"the trace: attention kernels {attn}, annotation "
+          f"{'synthesize_padded' in names}")
+    lat = torch.randn((8, 40, 64), generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    with torch.inference_mode():
+        cost = flops.compiled_cost(codec_decode, tts.codec_params, lat, tts.codec_cfg)
+        ms, ev_ms, clock = timed(lambda: codec_decode(tts.codec_params, lat, tts.codec_cfg), 10)
+    util = flops.utilization(cost["flops"], cost["bytes"], ms / 1e3)
+    peaks = flops.device_peaks()
+    del tts
+    torch.cuda.empty_cache()
+    q_out = os.path.join(tmp, "quality.json")
+    check(eval_quality.main(["--roundtrip", "--synthetic", "1", "--codec", "native", "--codec-checkpoint", codec_ckpt,
+                             "--out", q_out]) == 0, "eval_quality")
+    with open(q_out) as f:
+        quality = json.load(f)
+    rt = quality["roundtrip"]
+    check(rt["n"] == 1 and np.isfinite(rt["mel_distance"]) and np.isfinite(rt["snr_db"]), f"eval_quality {rt}")
+    tools = dict(trace_file_bytes=os.path.getsize(os.path.join(tr, files[0])), trace_attention_kernels=attn,
+                 codec_decode=dict(latents=[8, 40, 64], ms=ms, clock=clock, events_ms=ev_ms, **cost, **util),
+                 device_peaks=peaks,
+                 eval_quality_roundtrip=rt)
+    print(f"  tools: {json.dumps(tools)}", flush=True)
+    torch.cuda.empty_cache()
+    print(f"  phase tools: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return row, tools
+
+
+def codec_only(torch):
+    """`--codec`: the kernels built, then the codec phases alone (train
+    codec, train codec distill, serve trained codec, tools). Prints every
+    row."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    codec_phases(torch, torch.device("cuda"), [dict(name="attention"), dict(name="fused_dit_scan")])
+    return 0
+
+
+def codec_phases(torch, dev, entries):
+    """Phases train codec, train codec distill, serve trained codec and
+    tools, in one temporary directory that is removed."""
+    t0 = time.perf_counter()
+    train = codec_train_phase(torch, dev, entries)
+    tmp = tempfile.mkdtemp(prefix="codec_distill_smoke_")
+    try:
+        distill, codec_ckpt = codec_distill_phase(torch, dev, entries, tmp)
+        serve, tools = codec_serve_and_tools_phases(torch, dev, entries, codec_ckpt, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for e in entries:
+        if e["name"] == "attention":
+            e["codec_phases"] = dict(seconds=time.perf_counter() - t0, port_kernel_launches_in_training=0,
+                                     train_codec_step_ms=train["step_ms_median"],
+                                     train_codec_distill_step_ms={k: v["step_ms_median"] for k, v in distill.items()})
+
+
+def profile_batch(fn):
+    """(device busy ms, [(kernel, ms, count)] by time) of one call of `fn`
+    under torch.profiler."""
+    busy, kern, _ = profile_step(fn)
+    return busy, kern
 
 
 def graph_pool_bytes(torch, tts):

@@ -3,12 +3,17 @@ copy of the JAX package's native/ library: the same audio.cc and Makefile).
 
 Builds `build/libsmalltts_audio.so` with make and g++ on the first call of
 `lib()` (cached); callers fall back to serving.audio_io (numpy) when
-`lib() is None`.
+`lib() is None`. Processes that call `lib()` at once (test workers on a
+fresh tree) build one at a time: make and the load run under an exclusive
+`flock` on `build/.build.lock`, and the Makefile writes the library to a
+temporary name and renames it, so no process can open a half-written file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -18,9 +23,28 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SO = os.path.join(_DIR, "build", "libsmalltts_audio.so")
+_LOCK = os.path.join(_DIR, "build", ".build.lock")
 _lib = None
 _tried = False
-_build_lock = threading.Lock()  # two threads racing make would both write the .so
+_build_lock = threading.Lock()  # the threads of this process; _process_lock() the other processes
+
+
+@contextlib.contextmanager
+def _process_lock():
+    """An exclusive flock on build/.build.lock, held until the block ends;
+    no lock where build/ cannot be written (a prebuilt, read-only tree)."""
+    try:
+        os.makedirs(os.path.dirname(_LOCK), exist_ok=True)
+        f = open(_LOCK, "a")
+    except OSError:
+        yield
+        return
+    with f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 def _build() -> bool:
@@ -40,12 +64,17 @@ def lib() -> Optional[ctypes.CDLL]:
     with _build_lock:
         if _lib is not None or _tried:  # double-checked under the lock
             return _lib
-        return _load()
+        with _process_lock():
+            # a failed build or load is tried once more before it is cached
+            for _ in range(2):
+                if _load() is not None:
+                    break
+            _tried = True
+        return _lib
 
 
 def _load() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    _tried = True
+    global _lib
     # always run make: it's incremental (~ms when fresh) and rebuilds a
     # stale .so after audio.cc edits — an existing .so alone proved nothing
     # about freshness. A failed build (no g++) still uses a prebuilt .so.

@@ -90,9 +90,10 @@ def highest_precision():
     prev = torch.get_float32_matmul_precision()
     if prev != "highest":
         torch.set_float32_matmul_precision("highest")
-    c = torch.backends.cudnn
+    from smalltts_tpu_torch.ops.nn import no_tf32
+
     try:
-        with c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic, allow_tf32=False):
+        with no_tf32():
             yield
     finally:
         if prev != "highest":

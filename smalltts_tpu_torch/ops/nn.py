@@ -8,7 +8,9 @@ as the JAX package does. Block stacks carry a leading layer dim L.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -226,12 +228,35 @@ def conv1d(p, x: torch.Tensor, groups: int = 1, padding="SAME", dilation: int = 
     return (y.float() + p["b"].float()[:, None]).to(x.dtype).transpose(1, 2)
 
 
+_TF32_LOCK = threading.Lock()
+_tf32_blocks = 0  # no_tf32 blocks open in any thread
+_tf32_saved = True  # the flag as the first of them found it
+
+
+@contextlib.contextmanager
 def no_tf32():
-    """cuDNN convolutions in full float32: PyTorch lets cuDNN use TF32 by
-    default (torch.backends.cudnn.allow_tf32), where the JAX package
-    computes float32."""
+    """cuDNN convolutions in full float32 while the block runs: PyTorch lets
+    cuDNN use TF32 by default (torch.backends.cudnn.allow_tf32), where the
+    JAX package computes float32. The flag is global to the process and the
+    blocks run in several threads (request threads, the batcher, autograd's
+    backward, a data loader), so they share one count: the first block to
+    open turns TF32 off and the last to close restores the flag it found. A
+    save and restore in each block (torch.backends.cudnn.flags) would let
+    one thread turn TF32 back on inside another's block, or leave it off."""
+    global _tf32_blocks, _tf32_saved
     c = torch.backends.cudnn
-    return c.flags(enabled=c.enabled, benchmark=c.benchmark, deterministic=c.deterministic, allow_tf32=False)
+    with _TF32_LOCK:
+        if _tf32_blocks == 0:
+            _tf32_saved = c.allow_tf32
+            c.allow_tf32 = False
+        _tf32_blocks += 1
+    try:
+        yield
+    finally:
+        with _TF32_LOCK:
+            _tf32_blocks -= 1
+            if _tf32_blocks == 0:
+                c.allow_tf32 = _tf32_saved
 
 
 class _Conv1dF32(torch.autograd.Function):

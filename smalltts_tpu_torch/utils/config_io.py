@@ -18,6 +18,11 @@ def backbone_meta(cfg) -> dict:
     return {"backbone_config": config_to_dict(cfg)}
 
 
+def codec_meta(cfg) -> dict:
+    """The metadata the codec trainers write into their checkpoints."""
+    return {"codec_config": config_to_dict(cfg)}
+
+
 def _filtered_kwargs(cls, d: dict) -> dict:
     out = {}
     for f in dataclasses.fields(cls):

@@ -10,6 +10,7 @@ scipy's polyphase filter, the JAX test's bound); WAV bytes equal.
 
 import ctypes
 import struct
+import time
 
 import numpy as np
 import pytest
@@ -19,9 +20,21 @@ from smalltts_tpu_torch import native
 from smalltts_tpu_torch.serving import audio_io
 
 
+def jax_library(seconds=60.0):
+    """The JAX package's library. Its build has no lock across processes, so
+    a test worker may load its .so while another is still writing it and
+    cache the failure; that module's cache (_lib, _tried) is reset and the
+    load tried again, for up to `seconds`."""
+    deadline = time.monotonic() + seconds
+    while jnative.lib() is None and time.monotonic() < deadline:
+        time.sleep(0.5)
+        jnative._lib, jnative._tried = None, False
+    return jnative.lib()
+
+
 @pytest.fixture(scope="module", autouse=True)
 def built():
-    if native.lib() is None or jnative.lib() is None:
+    if native.lib() is None or jax_library() is None:
         pytest.fail("the native audio library did not build (g++ and make are installed here)")
 
 
