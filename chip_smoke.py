@@ -108,6 +108,19 @@
    batch through its CUDA graph with its exact launches) and tools (the
    profile entry point's trace, compiled_cost and utilization of a codec
    decode, eval_quality --roundtrip on the distilled codec).
+   Last, phase parallel (see `parallel_phase`), the port's data and tensor
+   parallelism (smalltts_tpu_torch/parallel) in rank processes of this
+   script (`--parallel-worker`): NCCL at world size 1 (SmallTTS(mesh=) at
+   328M, bf16, batch (8, 64, 384, 40), its dp all-gather captured in the
+   bucket's CUDA graph, against SmallTTS() on the same noise, bit for bit,
+   with the serve phase's 68 attention and 384 scan launches); two gloo
+   ranks on the one card (which collectives gloo runs on CUDA tensors, a
+   256 MB all-reduce's time, a dp = 2 teacher step at 328M in fp32, global
+   batch 2, against the single-process step; tp = 2 SmallTTS, eager,
+   bf16 and int8, and fp32 latents on the split layout, against the
+   single process); each kernel those launched at its shard shapes
+   against its plain version, timed; and the four-rank dry run
+   (smalltts_tpu_torch.scripts.dryrun_multihost) on CPU ranks.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -144,6 +157,10 @@ plain and timed in turns.
     python3 chip_smoke.py --codec
 
 runs the codec phases alone, after the kernels' build.
+
+    python3 chip_smoke.py --parallel
+
+runs phase parallel alone, after the kernels' build.
 
     python3 chip_smoke.py --ctc [--ctc-parent DIR]
 
@@ -379,6 +396,10 @@ def main() -> int:
         return 2
     if other:
         return asr_worker(torch) if "--asr-worker" in sys.argv else worker(torch)
+    if "--parallel-worker" in sys.argv:
+        return parallel_worker(torch)
+    if "--parallel" in sys.argv:
+        return parallel_only(torch)
     if "--compare" in sys.argv:
         return compare(_arg("--compare"))
     if "--asr-compare" in sys.argv:
@@ -887,21 +908,7 @@ def main() -> int:
         return total, list(names) + ["attention (one per qk_norm_rope launch)"]
 
     def check_scan_counts(launches, n_b, tts, sfx):
-        """The exact launch counts of n_b batches, as their graph replays
-        make them (the counts taken at capture, times the replays): 4 scans
-        a batch of 12 layers, each two adaLNs, qkvg, the q/k norm, w13 and
-        two residuals (+ one attention): 384 a batch; none of the other
-        weight type's GEMMs."""
-        per = n_b * tts.num_steps * tts.cfg.dit.n_blocks
-        other = "_w8" if not sfx else ""
-        want = {"adaln_modulate": 2 * per, "qk_norm_rope": per, f"gemm_bias{sfx}": per, f"gemm_swiglu{sfx}": per,
-                f"gemm_residual{sfx}": 2 * per, **{n + other: 0 for n in GEMMS}}
-        got = {k: launches.get(k, 0) for k in want}
-        check(got == want, f"scan launch counts {json.dumps(got)}, want {json.dumps(want)}")
-        total = scan_launches(launches, tuple(n + sfx for n in GEMMS))[0]
-        check(total == 8 * per, f"scan launches {total} for {n_b} batches")
-        print(f"  scan launch counts as expected for {n_b} batches: {total} ({total // n_b} a batch), "
-              f"{json.dumps(want)}", flush=True)
+        scan_counts(launches, n_b, tts.num_steps, tts.cfg.dit.n_blocks, sfx, echo=True)
 
     def batch_checks(tts, group_args, noises):
         """One batch with the kernels vs the same batch with the plain
@@ -1093,6 +1100,8 @@ def main() -> int:
     distill_phase(torch, dev, entries)
     imf_phase(torch, dev, entries)
     codec_phases(torch, dev, entries)
+    torch.cuda.empty_cache()
+    parallel_phase(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -4501,6 +4510,544 @@ def _dev_us(evt) -> float:
             return float(v)
     return 0.0
 
+
+# ------------------------------------------------------------------ phase parallel
+
+PARALLEL_TIMEOUT_S = 600
+# tp = 2 latents against the single-process run on the same noise: fp32 (the split layout, the fp32 attention
+# kernel and cuBLAS's fp32 products) rounds its partial sums in another order only; bf16 and int8 (the fused
+# scan) round each rank's partial product to bf16 before the sum, one more rounding a row-parallel product, and
+# are held at the int8 gate's bound
+TP_FP32_TOL, TP_BF16_TOL = 1e-4, 5e-2
+# the dp = 2 teacher step against the single-process B2 step: the loss (its sums split over two ranks) and the
+# params after AdamW (each gradient the sum of the ranks' parts; the tests' 1e-5)
+DP_LOSS_TOL, DP_PARAMS_TOL = 2e-4, 1e-5
+
+
+def parallel_only(torch):
+    """`--parallel`: the kernels built, then phase parallel alone."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    parallel_phase(torch, torch.device("cuda"), [dict(name="attention"), dict(name="fused_dit_scan")])
+    return 0
+
+
+def run_ranks(mode, world, timeout_s=PARALLEL_TIMEOUT_S):
+    """`world` rank processes of this script (`--parallel-worker MODE OUT`),
+    joined through the SMALLTTS_* variables, all on card 0. Every rank is
+    reaped before a failure is reported; their output is printed, and each
+    rank's result (JSON) returned."""
+    s = __import__("socket").socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    tmp = tempfile.mkdtemp(prefix=f"smoke_{mode}_")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SMALLTTS_", "MASTER_", "WORLD_SIZE", "RANK", "LOCAL_RANK"))}
+    env.update(SMALLTTS_COORDINATOR=f"127.0.0.1:{port}", SMALLTTS_NUM_PROCESSES=str(world),
+               SMALLTTS_LOCAL_DEVICE_IDS="0")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-worker", mode,
+                               os.path.join(tmp, f"rank{r}.json")], env={**env, "SMALLTTS_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout_s)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                outs.append(p.communicate()[0] + f"\n(killed at {timeout_s} s)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if line.strip():
+                print(f"  [{mode} rank {r}] {line}", flush=True)
+        f = os.path.join(tmp, f"rank{r}.json")
+        results.append(json.load(open(f)) if os.path.exists(f) else None)
+    shutil.rmtree(tmp, ignore_errors=True)
+    for r, (p, res) in enumerate(zip(procs, results)):
+        check(p.returncode == 0 and res is not None and "error" not in res,
+              f"{mode} rank {r} failed (rc {p.returncode}): {res and res.get('error')}")
+    return results
+
+
+def parallel_worker(torch):
+    """One rank of phase parallel: joins the job the environment describes
+    and runs `mode`'s checks; writes its results as JSON to OUT."""
+    import traceback
+
+    import torch.distributed as dist
+
+    from smalltts_tpu_torch.parallel import multihost
+
+    i = sys.argv.index("--parallel-worker")
+    mode, out = sys.argv[i + 1], sys.argv[i + 2]
+    t0 = time.perf_counter()
+    res = {}
+    try:
+        res["info"] = multihost.initialize_from_env("nccl" if mode == "nccl1" else "gloo")
+        res.update(nccl_world1(torch) if mode == "nccl1" else gloo_two_ranks(torch))
+    except Exception:  # noqa: BLE001 -- reported to the parent, which fails the run
+        res["error"] = traceback.format_exc()
+        print(res["error"], flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    with open(out, "w") as f:
+        json.dump(res, f)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 1 if "error" in res else 0
+
+
+def scan_counts(launches, n_b, num_steps=4, n_blocks=12, sfx="", echo=False):
+    """Checks the exact launch counts of n_b batches of the scan (as their
+    graph replays make them, or counted eagerly): num_steps scans a batch of
+    n_blocks layers, each two adaLNs, qkvg, the q/k norm, w13 and two
+    residuals (+ one attention): 384 a batch at 4 x 12; none of the other
+    weight type's GEMMs. Returns the total."""
+    per = n_b * num_steps * n_blocks
+    other = "_w8" if not sfx else ""
+    want = {"adaln_modulate": 2 * per, "qk_norm_rope": per, f"gemm_bias{sfx}": per, f"gemm_swiglu{sfx}": per,
+            f"gemm_residual{sfx}": 2 * per, **{n + other: 0 for n in GEMMS}}
+    got = {k: launches.get(k, 0) for k in want}
+    check(got == want, f"scan launch counts {json.dumps(got)}, want {json.dumps(want)}")
+    total = sum(got.values()) + got["qk_norm_rope"]  # + the attention launch of each layer
+    check(total == 8 * per, f"scan launches {total} for {n_b} batches")
+    if echo:
+        print(f"  scan launch counts as expected for {n_b} batches: {total} ({total // n_b} a batch), "
+              f"{json.dumps(want)}", flush=True)
+    return total
+
+
+def nccl_world1(torch):
+    """NCCL at world size 1: SmallTTS(mesh=) at 328M, bf16, batch 8 (8, r 64,
+    p 384, t 40), its bucket a CUDA graph with the dp all-gather captured in
+    it, against SmallTTS() on the same noise; the launches of one batch."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.parallel import multihost
+
+    dev = torch.device("cuda")
+    mesh = multihost.auto_mesh()
+    check(mesh is not None and (mesh.backend, mesh.dp, mesh.tp) == ("nccl", 1, 1), f"auto_mesh gave {mesh}")
+    tts = full_width_tts(torch, dev)
+    tts_m = full_width_tts(torch, dev, mesh=mesh)
+    check(tts_m.graphs, "NCCL at world size 1: the pipeline must capture its CUDA graphs")
+    args = padded_batch(tts)
+    g = torch.Generator(device=dev).manual_seed(5)
+    diffs = []
+    for i in range(3):  # the first call captures; the next two replay with new noise
+        n = torch.randn((4, 8, args[5], 64), generator=g, device=dev).to(torch.bfloat16)
+        if i == 2:
+            kernels.reset_launches()
+        got = tts_m.synthesize_padded(*args, noises=n)
+        if i == 2:
+            launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = tts.synthesize_padded(*args, noises=n)
+        diffs.append(int((got != want).sum()))
+        check(int(np.abs(want).max()) > 0, "an all-zero waveform")
+    print(f"NCCL world 1, SmallTTS(mesh=make_mesh(1, 1)) vs SmallTTS(), batch (8, 64, 384, 40), same noise: "
+          f"{diffs} int16 samples differ (tolerance 0: the all-gather of one rank is a copy); graphs "
+          f"{tts_m.compile_cache_size()}", flush=True)
+    check(diffs == [0, 0, 0] and tts_m.compile_cache_size() == 1, f"NCCL world-1 audio differs: {diffs}")
+    check(launches.get("attention", 0) == 68, f"attention launches {launches.get('attention')}, want 68")
+    n_scan = scan_counts(launches, 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tts_m.synthesize_padded(*args, fetch=False)
+        torch.cuda.synchronize()
+    nccl = sorted({e.key[:60] for e in prof.key_averages() if "nccl" in e.key.lower() or "memcpy32" in e.key})
+    timing = {name: graph_timing(torch, t, args) for name, t in (("mesh", tts_m), ("no mesh", tts))}
+    spans = {k: v["graph_span_ms"] for k, v in timing.items()}
+    print(f"  launches of one batch (its graph's counts): attention {launches['attention']}, scan {n_scan}; "
+          f"collective kernels in the replay's trace: {nccl}; graph span ms {json.dumps(spans)}; "
+          f"card {card_line()}", flush=True)
+    return {"nccl_world1": dict(int16_diffs=diffs, launches=launches, scan_launches=n_scan, trace_collectives=nccl,
+                                graph_span_ms=spans, graphs=tts_m.compile_cache_size())}
+
+
+def attention_shapes(kernels):
+    """The eager attention launches counted by shape: [B, H, Tq, S, D, dtype, launches]."""
+    return [[*shape[:5], str(shape[5]).split(".")[-1], n] for (name, shape), n in sorted(
+        kernels.SHAPE_LAUNCHES.items(), key=str) if name == "attention"]
+
+
+def _bits_equal_across(torch, tensors, root=0, other=1):
+    """Whether rank `other`'s tensors equal rank `root`'s bit for bit: each
+    broadcast from `other` and compared as bytes on `root`; the answer
+    broadcast back."""
+    import torch.distributed as dist
+
+    same = True
+    for t in tensors:
+        mine = t.reshape(-1)
+        buf = mine.clone()
+        dist.broadcast(buf, src=other)
+        same = same and torch.equal(buf.view(torch.uint8), mine.view(torch.uint8))
+    flag = torch.tensor([float(same)], device=tensors[0].device)
+    dist.broadcast(flag, src=root)
+    return bool(flag.item())
+
+
+def gloo_collectives(torch, dist, dev):
+    """Which collectives gloo runs on CUDA tensors here (the port relies on
+    all_reduce, broadcast and all_gather), each checked on known values,
+    and a 256 MB fp32 all-reduce's wall ms (through host memory)."""
+    rank, out = dist.get_rank(), {}
+    full = lambda v, n=1000, dt=torch.float32: torch.full((n,), float(v), device=dev, dtype=dt)  # noqa: E731
+
+    def all_reduce(dt, n=1000):
+        t = full(rank + 1, n, dt)
+        dist.all_reduce(t)
+        return float(t.float().sum()), 3.0 * n
+
+    def broadcast():
+        t = full(rank, 10)
+        dist.broadcast(t, src=1)
+        return float(t.sum()), 10.0
+
+    def all_gather():
+        parts = [torch.empty(8, dtype=torch.uint8, device=dev) for _ in range(2)]
+        dist.all_gather(parts, torch.full((8,), rank + 1, dtype=torch.uint8, device=dev))
+        return float(torch.cat(parts).sum()), 24.0
+
+    def all_gather_into_tensor():
+        o = torch.empty(16, device=dev)
+        dist.all_gather_into_tensor(o, full(rank + 1, 8))
+        return float(o.sum()), 24.0
+
+    def reduce_scatter_tensor():
+        o = torch.empty(8, device=dev)
+        dist.reduce_scatter_tensor(o, torch.ones(16, device=dev))
+        return float(o.sum()), 16.0
+
+    for name, fn in (("all_reduce fp32", lambda: all_reduce(torch.float32)),
+                     ("all_reduce bf16", lambda: all_reduce(torch.bfloat16)), ("broadcast", broadcast),
+                     ("all_gather", all_gather), ("all_gather_into_tensor", all_gather_into_tensor),
+                     ("reduce_scatter_tensor", reduce_scatter_tensor)):
+        try:
+            got, want = fn()
+            out[name] = got == want
+        except RuntimeError as exc:  # a collective the backend lacks: reported, and the port must not use it
+            out[name] = f"unsupported: {exc}"[:200]
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(torch.float32, 1 << 26)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["all_reduce_256MB_ms"] = walls
+    return out
+
+
+def gloo_two_ranks(torch):
+    """Two ranks on the one card, gloo over CUDA tensors: gloo's collectives
+    on CUDA tensors; (a) a dp = 2 teacher step at 328M in fp32, global
+    batch 2; (b) SmallTTS and its latents at tp = 2, eager; the attention
+    launches of each by local shape."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from smalltts_tpu_torch.data.dummy import DummyDataConfig, dummy_batch
+    from smalltts_tpu_torch.infer.sampler import sample_latents
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.parallel import comm
+    from smalltts_tpu_torch.parallel.mesh import global_draws, make_mesh, shard_params, use
+    from smalltts_tpu_torch.train.ema import ema_init
+    from smalltts_tpu_torch.train.optim import adamw
+    from smalltts_tpu_torch.train.teacher import make_teacher_step, teacher_draws
+    from smalltts_tpu_torch.utils.checkpoint import flatten_pytree
+
+    dev = torch.device("cuda")
+    rank = dist.get_rank()
+    card = card_line()
+    coll = gloo_collectives(torch, dist, dev)
+    print(f"gloo on CUDA tensors, two ranks on the one card: {json.dumps(coll)}; card {card}", flush=True)
+    check(all(coll[k] is True for k in ("all_reduce fp32", "all_reduce bf16", "broadcast", "all_gather")),
+          f"gloo lacks a collective the port uses: {json.dumps(coll)}")
+    out = {"gloo_collectives": coll}
+
+    # (a) dp = 2: each rank one row of the global batch of 2
+    dp2 = make_mesh(dp=2, tp=1)
+    cfg = BackboneConfig()
+    gb = torch.Generator(device=dev).manual_seed(0)
+    params = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
+    glob = {k: torch.from_numpy(v).to(dev) for k, v in dummy_batch(np.random.default_rng(0), DummyDataConfig(2)).items()
+            if k != "texts"}
+    local = {k: dp2.rows(v) for k, v in glob.items()}
+    draws = global_draws(teacher_draws, torch.Generator(device=dev).manual_seed(1), local, dp2)
+    tx = adamw(params, 1e-4, clip_norm=1.0)
+    step = make_teacher_step(cfg, tx, mesh=dp2)
+    opt, ema = tx.init(params), ema_init(params)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    p1, o1, e1, loss = step(params, opt, ema, local, draws, np.float32(0.9))
+    torch.cuda.synchronize()
+    teacher_shapes = attention_shapes(kernels)
+    losses = [torch.zeros(1, device=dev) for _ in range(2)]
+    dist.all_gather(losses, loss.reshape(1))
+    same = _bits_equal_across(torch, list(flatten_pytree(p1).values()) + list(flatten_pytree(o1["mu"]).values())
+                              + list(flatten_pytree(e1).values()))
+    step_ms = []
+    p, o, e = p1, o1, e1
+    for _ in range(3):
+        t0 = time.perf_counter()
+        p, o, e, _ = step(p, o, e, local, draws, np.float32(0.9))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    del p, o, e
+    grads = [torch.zeros_like(t) for t in flatten_pytree(params).values()]
+    ar_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.all_reduce_grads(grads, dp2)
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t0) * 1e3)
+    del grads
+    single = None
+    if rank == 0:  # the single-process B2 step on the same draws
+        step1 = make_teacher_step(cfg, tx)
+        gdraws = teacher_draws(torch.Generator(device=dev).manual_seed(1), glob)
+        sp, _, _, sloss = step1(params, opt, ema, glob, gdraws, np.float32(0.9))
+        fa, fb = flatten_pytree(p1), flatten_pytree(sp)
+        rels = {k: float((fa[k].float() - fb[k].float()).norm() / fb[k].float().norm().clamp_min(1e-30)) for k in fb}
+        worst = max(rels, key=rels.get)
+        single = dict(loss=float(sloss), loss_rel=abs(float(loss) - float(sloss)) / abs(float(sloss)),
+                      params_rel_l2_worst=rels[worst], worst_leaf=worst)
+        del sp
+    dist.barrier()
+    out["teacher_dp2"] = dict(losses=[float(x) for x in losses], bit_identical_across_ranks=same, step_ms=step_ms,
+                              step_ms_median=_median(step_ms), allreduce_ms=ar_ms, allreduce_ms_median=_median(ar_ms),
+                              allreduce_share=_median(ar_ms) / _median(step_ms), grad_bytes=4 * sum(
+                                  t.numel() for t in flatten_pytree(params).values()),
+                              attention_shapes=teacher_shapes, single=single, card=card)
+    print(f"(a) dp=2 teacher step, 328M fp32, global batch 2 (one row a rank): losses {out['teacher_dp2']['losses']}, "
+          f"params/moments/EMA bit-identical across ranks: {same}; step {_median(step_ms):.1f} ms a rank, the "
+          f"gloo all-reduce of the gradients {_median(ar_ms):.1f} ms of it (through host memory: not a multi-card "
+          f"number); vs single process: {json.dumps(single)}; card {card}", flush=True)
+    check(losses[0].item() == losses[1].item() and same, "dp=2 ranks disagree")
+    if single is not None:
+        check(single["loss_rel"] <= DP_LOSS_TOL and single["params_rel_l2_worst"] <= DP_PARAMS_TOL,
+              f"dp=2 step vs single process: {json.dumps(single)}")
+    del p1, o1, e1, opt, ema, params
+    torch.cuda.empty_cache()
+
+    # (b) tp = 2: the same seed-0 weights served, each rank 4 of the DiT's 8 heads
+    tp2 = make_mesh(dp=1, tp=2)
+    tts = full_width_tts(torch, dev)
+    args = padded_batch(tts)
+    ref, ref_lens, ph, ph_lens, seq_lens, t_bucket = args
+    tt = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)  # noqa: E731
+    inputs = lambda dt: (tt(ref, dt), tt(ref_lens, torch.int32), tt(ph, torch.int64), tt(ph_lens, torch.int32),  # noqa: E731
+                         tt(seq_lens, torch.int32))
+    noises = torch.randn((4, 8, t_bucket, 64), generator=torch.Generator(device=dev).manual_seed(7), device=dev)
+    rows = {}
+
+    def latents(params, dtype, mesh):
+        with torch.inference_mode(), use(mesh):
+            return sample_latents(params, cfg, *inputs(dtype), num_steps=4, noises=noises.to(dtype))
+
+    for label, opts in (("bf16", {}), ("int8", dict(w8_modulation=True, w8_stream=True))):
+        one = full_width_tts(torch, dev, **opts) if opts else tts
+        two = full_width_tts(torch, dev, mesh=tp2, **opts)
+        check(not two.graphs, "gloo: the tp pipeline must run eagerly")
+        want = latents(one.params, torch.bfloat16, None)
+        kernels.reset_launches()
+        got = latents(two.params, torch.bfloat16, tp2)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        shapes = attention_shapes(kernels)
+        rel = float((got.float() - want.float()).norm() / want.float().norm())
+        t0 = time.perf_counter()
+        audio = two.synthesize_padded(*args, noises=noises.to(torch.bfloat16))
+        wall = (time.perf_counter() - t0) * 1e3
+        ref_audio = one.synthesize_padded(*args, noises=noises.to(torch.bfloat16))
+        n_diff = int((audio != ref_audio).sum())
+        heads = two.params["dit"]["blocks"]["attn"]["q_norm"]["scale"].shape[-2]
+        rows[label] = dict(latents_rel_l2=rel, launches=launches, attention_shapes=shapes, local_heads=heads,
+                           eager_batch_wall_ms=wall, int16_samples_differing=n_diff, card=card)
+        print(f"(b) tp=2 SmallTTS {label}, 328M, batch (8, 64, 384, {t_bucket}), eager under gloo: latents rel-L2 "
+              f"{rel:.3e} vs the single process (tolerance {TP_BF16_TOL}); {n_diff} of {audio.size} int16 samples "
+              f"differ; DiT heads a rank {heads}; launches {json.dumps(launches)}; attention by local shape "
+              f"{json.dumps(shapes)}; batch {wall:.1f} ms wall; card {card}", flush=True)
+        check(rel <= TP_BF16_TOL and bool(torch.isfinite(got).all()), f"tp=2 {label} latents rel-L2 {rel:.3e}")
+        check(launches.get("attention", 0) == 68, f"tp=2 {label}: attention launches {launches.get('attention')}")
+        scan_counts(launches, 1, sfx="_w8" if opts else "")
+        if opts:
+            check(launches.get("w8_matmul_all_layers", 0) == 1, f"tp=2 int8: {json.dumps(launches)}")
+        del two
+        if opts:
+            del one
+        torch.cuda.empty_cache()
+    # fp32 on the split layout: the fp32 attention kernel and cuBLAS's fp32 products, row-parallel in PyTorch ops
+    gs = torch.Generator(device=dev).manual_seed(0)
+    split = redraw_zero_init(init_backbone(gs, cfg, device=dev), gs)
+    want = latents(split, torch.float32, None)
+    kernels.reset_launches()
+    got = latents(shard_params(split, tp2), torch.float32, tp2)
+    torch.cuda.synchronize()
+    rel = float((got.float() - want.float()).norm() / want.float().norm())
+    shapes = attention_shapes(kernels)
+    rows["fp32_split"] = dict(latents_rel_l2=rel, attention_shapes=shapes, card=card,
+                              launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+    print(f"(b) tp=2 fp32 latents on the split layout: rel-L2 {rel:.3e} vs the single process (tolerance "
+          f"{TP_FP32_TOL}); attention by local shape {json.dumps(shapes)}; card {card}", flush=True)
+    check(rel <= TP_FP32_TOL and bool(torch.isfinite(got).all()), f"tp=2 fp32 latents rel-L2 {rel:.3e}")
+    out["tp2"] = rows
+    return out
+
+
+def shard_kernels(torch, dev, shapes):
+    """(c) each kernel that the tp = 2 and dp = 2 runs launched, at the
+    shapes they launched it, against its plain version at phase A/B's
+    tolerances, timed (device clock, plain, library, bound): the scan's
+    four products and qk_norm_rope at the tp = 2 shard of the served (8,
+    40) batch, bf16 and int8 weights, and attention at every (B, H, Tq, S,
+    D, dtype) the ranks counted."""
+    from smalltts_tpu_torch.models.dit import DiTConfig, fuse_serving_projections, init_dit, quantize_stream_weights
+    from smalltts_tpu_torch.models.dit import rope_cos_sin
+    from smalltts_tpu_torch.ops.kernels import attention as A
+    from smalltts_tpu_torch.ops.kernels import dit_block as K
+    from smalltts_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    randn = lambda shape, dtype=torch.bfloat16, s=1.0: (s * torch.randn(shape, generator=g, device=dev)).to(dtype)  # noqa: E731
+
+    def err(got, want):
+        got, want = got.float(), want.float()
+        return float((got - want).abs().max()), float((got - want).abs().max() / want.abs().max())
+
+    cfg = DiTConfig()
+    B, T, H, hd, F = 8, 40, cfg.hidden_dim, cfg.head_dim, cfg.ff_dim
+    M = B * T
+    layout = make_mesh(dp=1, tp=2, devices=range(2))  # rank 0's shard; no collective runs here
+    fused = fuse_serving_projections({"dit": init_dit(g, cfg, torch.bfloat16, dev)})
+    blocks = shard_params(fused, layout)["dit"]
+    qblocks = shard_params(quantize_stream_weights(fused), layout)["dit"]  # quantized whole, then sharded
+    heads = blocks["blocks"]["attn"]["q_norm"]["scale"].shape[-2]
+    inner, f_loc = heads * hd, F // 2
+    h_, x_, mid = randn((B, T, H)), randn((B, T, H), s=2.0), randn((B, T, f_loc))
+    att = randn((B, T, inner))
+    gate = randn((B, H), s=0.5)
+    mask = torch.arange(T, device=dev)[None] < torch.randint(T // 2, T + 1, (B,), generator=g, device=dev)[:, None]
+    cos, sin = rope_cos_sin(cfg, T, dev)
+    rows = []
+
+    def row(name, label, kfn, pfn, lfn, nbytes_, flops, tol, match, kind="bf16"):
+        got, want = kfn(), pfn()
+        abs_e, rel_e = err(got, want)
+        check(rel_e <= tol, f"tp=2 shard {name} {label}: rel err {rel_e:.3e}")
+        ms, wall, clock = timed(kfn, 10, match)
+        b_ms, b_by = bound(nbytes_, flops, kind)
+        r = dict(name=name, shape=label, max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock,
+                 plain_ms=timed(pfn, 10)[0], bound_ms=b_ms, bound_by=b_by,
+                 library_ms=timed(lfn, 10)[0] if lfn else None)
+        print(f"  (c) {json.dumps(r)}", flush=True)
+        rows.append(r)
+
+    for sfx, bl in (("", blocks["blocks"]), ("_w8", qblocks["blocks"])):
+        a_, f_ = bl["attn"], bl["ff"]
+        w = lambda lin: (lin["w_q"][0], lin["scale"][0]) if "w_q" in lin else (lin["w"][0], None)  # noqa: E731
+        lb = lambda lin: nbytes(*(lin[k][0] for k in ("w", "w_q", "scale", "b") if k in lin))  # noqa: E731
+        (wq, sq), (wo, so), (w13, s13), (w2, s2) = w(a_["qkvg"]), w(a_["to_out"]), w(f_["w13"]), w(f_["w2"])
+        lib_w = lambda name: blocks["blocks"][name[0]][name[1]]["w"][0]  # noqa: E731
+        row("gemm_bias" + sfx, f"qkvg M={M} K={H} N={4 * inner}", lambda: K.gemm_bias(h_, wq, a_["qkvg"]["b"][0], sq),
+            lambda: K.gemm_bias_plain(h_, wq, a_["qkvg"]["b"][0], sq),
+            lambda: torch.addmm(blocks["blocks"]["attn"]["qkvg"]["b"][0], h_.view(M, H), lib_w(("attn", "qkvg"))),
+            nbytes(h_) + lb(a_["qkvg"]) + M * 4 * inner * 2, 2.0 * M * H * 4 * inner, 2e-2,
+            KERNEL_NAMES["gemm_bias" + sfx])
+        row("gemm_swiglu" + sfx, f"w13 M={M} K={H} N={2 * f_loc} (out {f_loc})",
+            lambda: K.gemm_swiglu(h_, w13, f_["w13"]["b"][0], s13), lambda: K.gemm_swiglu_plain(h_, w13, f_["w13"]["b"][0], s13),
+            lambda: torch.addmm(blocks["blocks"]["ff"]["w13"]["b"][0], h_.view(M, H), lib_w(("ff", "w13"))),
+            nbytes(h_) + lb(f_["w13"]) + M * f_loc * 2, 2.0 * M * H * 2 * f_loc, 2e-2,
+            KERNEL_NAMES["gemm_swiglu" + sfx])
+        row("gemm_residual" + sfx, f"to_out M={M} K={inner} N={H}, row-masked",
+            lambda: K.gemm_residual(att, wo, None, x_.clone(), gate, mask, so),
+            lambda: K.gemm_residual_plain(att, wo, None, x_.clone(), gate, mask, so),
+            lambda: torch.mm(att.view(M, inner), lib_w(("attn", "to_out"))),
+            nbytes(att, gate, mask) + lb(a_["to_out"]) + 2 * M * H * 2, 2.0 * M * inner * H, 2e-2,
+            KERNEL_NAMES["gemm_residual" + sfx])
+        row("gemm_residual" + sfx, f"w2 M={M} K={f_loc} N={H}",
+            lambda: K.gemm_residual(mid, w2, f_["w2"]["b"][0], x_.clone(), gate, None, s2),
+            lambda: K.gemm_residual_plain(mid, w2, f_["w2"]["b"][0], x_.clone(), gate, None, s2),
+            lambda: torch.addmm(blocks["blocks"]["ff"]["w2"]["b"][0], mid.view(M, f_loc), lib_w(("ff", "w2"))),
+            nbytes(mid, gate) + lb(f_["w2"]) + 2 * M * H * 2, 2.0 * M * f_loc * H, 2e-2,
+            KERNEL_NAMES["gemm_residual" + sfx])
+    q0 = randn((B, T, 4 * inner))
+    qs, ks = blocks["blocks"]["attn"]["q_norm"]["scale"][0], blocks["blocks"]["attn"]["k_norm"]["scale"][0]
+    row("qk_norm_rope", f"M={M} heads={heads} D={hd} rot={cos.shape[1]}",
+        lambda: K.qk_norm_rope(q0.clone(), qs, ks, cos, sin), lambda: K.qk_norm_rope_plain(q0.clone(), qs, ks, cos, sin),
+        None, 2 * 2 * M * 2 * inner + nbytes(qs, ks, cos, sin), 0.0, 2e-2, KERNEL_NAMES["qk_norm_rope"])
+    for b_, h2, tq, s_, d_, dt in sorted(shapes):  # one key source of S keys (the two sources' sum)
+        dtype = getattr(torch, dt)
+        q, k, v = randn((b_, h2, tq, d_), dtype), randn((b_, h2, s_, d_), dtype), randn((b_, h2, s_, d_), dtype)
+        km = torch.arange(s_, device=dev)[None] < torch.randint(s_ // 2, s_ + 1, (b_,), generator=g, device=dev)[:, None]
+        row("attention", f"B={b_} H={h2} Tq={tq} S={s_} D={d_} {dt}",
+            lambda: A.fused_attention(q, k, v, km), lambda: A.attention_plain(q, k, v, km),
+            lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=km[:, None, None, :]),
+            nbytes(q, k, v, km, q), 4.0 * b_ * h2 * tq * s_ * d_, 1e-5 if dtype == torch.float32 else 2e-2,
+            ATTN_KERNELS, attn_kind(dtype, d_))
+    return rows
+
+
+def parallel_phase(torch, dev, entries):
+    """Phase parallel: NCCL at world size 1 (SmallTTS(mesh=) with its
+    collective in the CUDA graph), two gloo ranks on the one card (dp = 2
+    teacher step, tp = 2 SmallTTS), the kernels at the shard shapes those
+    launched, and the four-rank dry run on CPU ranks. The per-kernel rows
+    go into the `kernels` line (`tp2_shard_shapes` and `parallel` of the
+    attention and fused_dit_scan entries)."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    print(f"phase parallel: the port's data and tensor parallelism (smalltts_tpu_torch/parallel); card {card}",
+          flush=True)
+    nccl = run_ranks("nccl1", 1)[0]
+    t_nccl = time.perf_counter() - t_phase
+    gloo = run_ranks("gloo2", 2)
+    t_gloo = time.perf_counter() - t_phase - t_nccl
+    shapes = {tuple(s[:6]) for res in gloo for run in [res["teacher_dp2"], *res["tp2"].values()]
+              for s in run["attention_shapes"]}
+    print(f"(c) the kernels at the shard shapes the ranks launched ({len(shapes)} attention shapes), against plain; "
+          f"card {card}", flush=True)
+    rows = shard_kernels(torch, dev, shapes)
+    t0 = time.perf_counter()
+    dry = subprocess.run([sys.executable, "-m", "smalltts_tpu_torch.scripts.dryrun_multihost"], capture_output=True,
+                         text=True, timeout=PARALLEL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    dry_s = time.perf_counter() - t0
+    check(dry.returncode == 0, f"dryrun_multihost failed: {dry.stderr[-2000:]}")
+    dry_res = json.loads(dry.stdout.strip().splitlines()[-1])
+    check(dry_res["ok"] is True and dry_res["rel_diff_tp1"] < 2e-4 and dry_res["rel_diff_tp2"] < 2e-4,
+          f"dryrun_multihost: {dry.stdout[-1000:]}")
+    print(f"dry run, 4 gloo ranks on the CPU: {json.dumps({k: dry_res[k] for k in ('loss_dp', 'loss_dp_tp', 'single_process_loss', 'rel_diff_tp1', 'rel_diff_tp2', 'tp_ckpt_leaves')})}, "
+          f"{dry_s:.1f} s", flush=True)
+    wall = time.perf_counter() - t_phase
+    peak = max(r["peak_gb"] for r in [nccl] + gloo)
+    summary = dict(seconds=wall, nccl_world1_s=t_nccl, gloo_two_ranks_s=t_gloo, dryrun_s=dry_s, peak_gb_a_rank=peak,
+                   card=card, nccl_world1=nccl["nccl_world1"], gloo_collectives=gloo[0]["gloo_collectives"],
+                   teacher_dp2=gloo[0]["teacher_dp2"],
+                   tp2={k: {m: v[m] for m in ("latents_rel_l2", "launches", "attention_shapes") if m in v}
+                        for k, v in gloo[0]["tp2"].items()})
+    for e in entries:
+        if e["name"] in ("attention", "fused_dit_scan"):
+            e["tp2_shard_shapes"] = [r for r in rows if (r["name"] == "attention") == (e["name"] == "attention")]
+        if e["name"] == "attention":
+            e["parallel"] = summary
+    print(f"  phase parallel: {wall:.2f} s (NCCL world 1 {t_nccl:.1f} s, two gloo ranks {t_gloo:.1f} s, dry run "
+          f"{dry_s:.1f} s), peak {peak:.2f} GB a rank; card {card}", flush=True)
 
 def _leaves(tree):
     if isinstance(tree, dict):

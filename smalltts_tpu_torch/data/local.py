@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from smalltts_tpu_torch.data.dummy import DummyDataConfig
+from smalltts_tpu_torch.parallel.multihost import process_index
 
 
 @dataclass(frozen=True)
@@ -176,9 +177,9 @@ def get_local_dataloader(root: str, encode_fn, cfg: Optional[LocalDataConfig] = 
     data/dummy.get_dummy_dataloader."""
     cfg = cfg or LocalDataConfig()
     ds = LocalDataset(root, encode_fn, cfg)
-    # the JAX package adds 100_003 x the process index, so data-parallel processes sample apart;
-    # data parallelism is not ported, so this is process 0's stream
-    rng = np.random.default_rng(seed)
+    # the process's rank folded into the seed: every process of a data-parallel job samples its own slice
+    # of the stream (identical seeds would make the global batch dp copies of one)
+    rng = np.random.default_rng(seed + 100_003 * process_index())
     q: "queue.Queue" = queue.Queue(maxsize=cfg.prefetch)
 
     def producer():

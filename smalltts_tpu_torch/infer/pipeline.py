@@ -46,6 +46,8 @@ from smalltts_tpu_torch.models.dit import (
 )
 from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.masking import length_mask
+from smalltts_tpu_torch.parallel import comm
+from smalltts_tpu_torch.parallel.mesh import shard_params, use
 from smalltts_tpu_torch.utils.transfer import resolve_device, to_device
 
 CHARS_PER_SECOND = 11.5
@@ -91,6 +93,23 @@ def _cast_tree(tree, dtype, device):
     return t.to(device=device, dtype=dtype if t.is_floating_point() else t.dtype)
 
 
+def _spmd(fn, mesh):
+    """The synthesize fn under `mesh`, SPMD: with the mesh in use, on this
+    rank's dp rows of the inputs and noise when the batch divides by dp
+    (the audio then all-gathered over dp), else on the whole batch."""
+
+    def synthesize(params, codec_params, *args, t_bucket: int):
+        *inputs, noises = args
+        with use(mesh):
+            split = mesh.dp_group is not None and inputs[0].shape[0] % mesh.dp == 0
+            if split:
+                inputs, noises = [mesh.rows(x) for x in inputs], mesh.rows(noises, axis=1)
+            audio = fn(params, codec_params, *inputs, noises, t_bucket=t_bucket)
+            return comm.all_gather(audio, mesh.dp_group, mesh.dp) if split else audio
+
+    return synthesize
+
+
 class SmallTTS:
     """Few-step inference (no CFG) on one device.
 
@@ -122,7 +141,18 @@ class SmallTTS:
     an onnxtorch.codec.OnnxCodec (the imported VibeVoice codec of
     $SMALLTTS_ASSETS/codec/*.onnx, fp32 with TF32 off), or "auto": "onnx"
     when those assets are present and no native codec weights were passed,
-    else "native"."""
+    else "native".
+
+    `mesh` (parallel/mesh.py), as in the JAX package, runs the pipeline
+    SPMD over a process group: every rank calls with the same inputs. The
+    backbone params hold this rank's tensor-parallel shards (on the fused
+    and int8 layouts too; the codec stays whole), a batch that divides by
+    dp runs this rank's dp rows and the audio is all-gathered over dp, so
+    every rank returns the whole batch; a batch that does not divide runs
+    whole on every rank. Under NCCL the collectives are captured into each
+    bucket's CUDA graph; gloo's cannot be captured, so under gloo the
+    pipeline runs eagerly on the card (`graphs` is False, and warmup says
+    so)."""
 
     def __init__(
         self,
@@ -142,6 +172,7 @@ class SmallTTS:
         w8_modulation: bool = False,
         w8_stream: bool = False,
         device=None,
+        mesh=None,
     ) -> None:
         self.device = resolve_device(device)
         from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec, assets_present
@@ -195,6 +226,9 @@ class SmallTTS:
             params = quantize_modulations(params)
         if w8_stream:
             params = quantize_stream_weights(params)
+        self.mesh = mesh
+        if mesh is not None:  # after the int8 quantizers: a row shard keeps the whole column's scale
+            params = shard_params(params, mesh)
         self.params = params
         self.codec_params = _cast_tree(codec_params, torch.float32, self.device)
         if num_steps is None:
@@ -205,6 +239,10 @@ class SmallTTS:
         self._synthesize_fn = make_synthesize_fn(
             self.cfg, self.codec_cfg, self.num_steps, sampler=sampler, pcm16=pcm16_out,
             decode_fn=None if self.onnx_codec is None else self.onnx_codec.decode_fn)
+        if mesh is not None:
+            self._synthesize_fn = _spmd(self._synthesize_fn, mesh)
+        # one CUDA graph per bucket on the card, but not under gloo, whose collectives cannot be captured
+        self.graphs = self.device.type == "cuda" and (mesh is None or mesh.backend != "gloo")
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 2)
         self._gen_lock = threading.Lock()
         # (batch, r, p, t) -> _Graph on the card; the shapes run on the CPU
@@ -275,7 +313,7 @@ class SmallTTS:
                       self._tensor(phonemes, torch.int64), self._tensor(phoneme_lengths, torch.int32),
                       self._tensor(seq_lengths, torch.int32))
             key = (b, inputs[0].shape[1], inputs[2].shape[1], t_bucket)
-            if self.device.type == "cuda":
+            if self.graphs:
                 audio = self._replay(key, inputs, noises)
             else:
                 noises = (self._noises(b, t_bucket) if noises is None
@@ -357,6 +395,9 @@ class SmallTTS:
         one memory pool, and each smaller graph then reuses blocks that a
         larger one freed instead of growing the pool."""
         shapes = self.contract_shapes(batch_sizes, t_buckets, r_buckets, p_buckets)
+        if self.device.type == "cuda" and not self.graphs:
+            print(f"warmup: {len(shapes)} shapes run eagerly, no CUDA graph: the {self.mesh.backend} "
+                  "backend's collectives cannot be captured", flush=True)
         shapes.sort(key=lambda s: (s[0] * s[3], s[0] * s[2], s[0] * s[1]), reverse=True)
 
         def warm_encoder(rb):
@@ -380,10 +421,10 @@ class SmallTTS:
 
     def compile_cache_size(self) -> int:
         """CUDA graphs captured, one per bucket shape, on the card; the
-        bucket shapes that have run, on the CPU (tests assert this stays
-        flat across in-contract traffic)."""
+        bucket shapes that have run, on the CPU or without graphs (tests
+        assert this stays flat across in-contract traffic)."""
         with self._graph_lock:
-            return len(self._graphs) if self.device.type == "cuda" else len(self._shapes_run)
+            return len(self._graphs) if self.graphs else len(self._shapes_run)
 
     def _bucketize(self, ref_latents, phoneme_ids, duration_sec):
         seq_len = frames_for_duration(duration_sec)
@@ -423,7 +464,7 @@ class SmallTTS:
         timing.codec_enc_ms = (t1 - t0) * 1e3
         ref, ref_len, ph, ph_len, seq_len, t_bucket = self._bucketize(
             ref_latents, list(phoneme_ids), duration_sec)
-        with torch.inference_mode():
+        with torch.inference_mode(), use(self.mesh):
             ph_t = self._tensor(ph[None], torch.int64)
             ph_mask = length_mask(self._tensor([ph_len], torch.int32), ph_t.shape[1])
             cond = encode_conditions(self.params, self.cfg, self._tensor(ref[None], self.dtype),

@@ -26,6 +26,7 @@ from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.dit_block import fused_dit_scan
 from smalltts_tpu_torch.ops.kernels.w8 import quantize_w8, w8_matmul_all_layers
 from smalltts_tpu_torch.ops.rope import interleaved_cos_sin, rotate_interleaved
+from smalltts_tpu_torch.parallel import comm
 
 
 @dataclass(frozen=True)
@@ -231,9 +232,13 @@ def precompute_step_modulations(p_dit, t_embs):
 
 
 def _project_cross(p_attn, cfg: DiTConfig, seq, which: str):
-    """Cross K/V projection of one block; K is RMS-normed per head."""
+    """Cross K/V projection of one block; K is RMS-normed per head. Over the
+    heads the params hold (this rank's under tensor parallelism)."""
     b, t, _ = seq.shape
-    h, d = cfg.heads, cfg.head_dim
+    d = cfg.head_dim
+    h = nn.out_features(p_attn[f"kv_{which}"]) // (2 * d)
+    if h != cfg.heads:
+        seq = comm.tp_input(seq)
     k, v = torch.chunk(nn.linear(p_attn[f"kv_{which}"], seq), 2, dim=-1)
     k = nn.rmsnorm(p_attn["k_norm_cross"], k.reshape(b, t, h, d), 1e-6)
     return k.transpose(1, 2), v.reshape(b, t, h, d).transpose(1, 2)
@@ -283,8 +288,11 @@ def dit_forward_cached(p, cfg: DiTConfig, x, time_embedding, mask, cross_k, cros
         final = final_i[None, :].expand(b, final_i.shape[-1])
     cos, sin = rope_cos_sin(cfg, x.shape[1], x.device) if rope is None else rope
     if "qkvg" in p["blocks"]["attn"]:
-        x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, p["blocks"], cos, sin,
-                           heads=cfg.heads, head_dim=cfg.head_dim)
+        blocks = p["blocks"]
+        heads = blocks["attn"]["q_norm"]["scale"].shape[-2]  # this rank's under tensor parallelism
+        tp = (heads != cfg.heads, nn.out_features(blocks["ff"]["w13"]) != 2 * cfg.ff_dim)
+        x = fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin,
+                           heads=heads, head_dim=cfg.head_dim, tp=tp)
     else:  # the split layout: the blocks in PyTorch ops (dit.py:561-576), without remat as there
         used = {"attn": {k: v for k, v in p["blocks"]["attn"].items() if k in _SELF_ATTN}, "ff": p["blocks"]["ff"]}
         joint_key_mask = torch.cat([mask, cross_mask], dim=1)
@@ -304,9 +312,14 @@ def _apply_adaln_zero(mod, x, eps=1e-6):
 
 
 def _self_qkv_gate(p_attn, cfg: DiTConfig, x, cos, sin):
-    """q/k_self/v_self and the attention output gate, split layout (dit.py:252-273)."""
+    """q/k_self/v_self and the attention output gate, split layout
+    (dit.py:252-273), over the heads the params hold (this rank's under
+    tensor parallelism: column-parallel qkv_self and gate)."""
     b, t, _ = x.shape
-    h, d = cfg.heads, cfg.head_dim
+    d = cfg.head_dim
+    h = nn.out_features(p_attn["qkv_self"]) // (3 * d)
+    if h != cfg.heads:
+        x = comm.tp_input(x)
     q, k, v = torch.chunk(nn.linear(p_attn["qkv_self"], x), 3, dim=-1)
     gate = nn.linear(p_attn["gate"], x)
     q = nn.rmsnorm(p_attn["q_norm"], q.reshape(b, t, h, d), 1e-6)
@@ -315,17 +328,25 @@ def _self_qkv_gate(p_attn, cfg: DiTConfig, x, cos, sin):
     return rotate_interleaved(q.transpose(1, 2), cos, sin), rotate_interleaved(k.transpose(1, 2), cos, sin), v, gate
 
 
-def _attend(p_attn, gate, q, k, v, mask, joint_key_mask):
-    """One SDPA over [self | ref | text] keys, then the sigmoid gate (dit.py:277-284)."""
+def _attend(p_attn, cfg: DiTConfig, gate, q, k, v, mask, joint_key_mask):
+    """One SDPA over [self | ref | text] keys, then the sigmoid gate
+    (dit.py:277-284); to_out row-parallel over this rank's heads under
+    tensor parallelism."""
     out = nn.sdpa(q, k, v, key_mask=joint_key_mask)
     b, h, t, d = out.shape
     out = out.transpose(1, 2).reshape(b, t, h * d) * nn.sigmoid(gate)
-    out = nn.linear(p_attn["to_out"], out)
+    out = nn.linear(p_attn["to_out"], out, reduce=comm.tp_sum if h != cfg.heads else None)
     return torch.where(mask[..., None], out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
-def _ff(p, x):
-    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
+def _ff(p, cfg: DiTConfig, x):
+    """SwiGLU; under tensor parallelism over this rank's columns of w1/w3
+    and rows of w2, whose bias is added once, after the sum."""
+    tp = nn.out_features(p["w1"]) != cfg.ff_dim
+    if tp:
+        x = comm.tp_input(x)
+    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x),
+                     reduce=comm.tp_sum if tp else None)
 
 
 def _block_core(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, k_cross, v_cross):
@@ -335,9 +356,9 @@ def _block_core(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, k_c
     q, k_self, v_self, gate = _self_qkv_gate(blk["attn"], cfg, norm, cos, sin)
     k = torch.cat([k_self, k_cross], dim=2)
     v = torch.cat([v_self, v_cross], dim=2)
-    x = x + torch.tanh(gate_msa)[:, None] * _attend(blk["attn"], gate, q, k, v, mask, joint_key_mask)
+    x = x + torch.tanh(gate_msa)[:, None] * _attend(blk["attn"], cfg, gate, q, k, v, mask, joint_key_mask)
     norm2 = nn.layernorm_noaffine(x) * (1 + scale_mlp[:, None]) + shift_mlp[:, None]
-    return x + torch.tanh(gate_mlp)[:, None] * _ff(blk["ff"], norm2)
+    return x + torch.tanh(gate_mlp)[:, None] * _ff(blk["ff"], cfg, norm2)
 
 
 def _block(blk, cfg: DiTConfig, x, mod, mask, joint_key_mask, cos, sin, ref_seq, phoneme_mem):

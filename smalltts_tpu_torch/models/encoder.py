@@ -13,6 +13,7 @@ from dataclasses import dataclass
 import torch
 
 from smalltts_tpu_torch.ops import nn
+from smalltts_tpu_torch.parallel import comm
 from smalltts_tpu_torch.ops.rope import apply_rope_pairs
 
 
@@ -51,8 +52,14 @@ def init_encoder_blocks(gen, cfg: EncoderConfig, dtype=torch.float32, device="cp
 
 
 def _self_attention(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
+    """Over the heads the params hold: all of them, or this rank's under
+    tensor parallelism (column-parallel wq/wk/wv/gate, row-parallel wo)."""
     b, t, _ = x.shape
-    h, d = cfg.num_heads, cfg.head_dim
+    d = cfg.head_dim
+    h = nn.out_features(p["wq"]) // d
+    tp = h != cfg.num_heads
+    if tp:
+        x = comm.tp_input(x)
     q = nn.linear(p["wq"], x).reshape(b, t, h, d)
     k = nn.linear(p["wk"], x).reshape(b, t, h, d)
     v = nn.linear(p["wv"], x).reshape(b, t, h, d)
@@ -62,18 +69,24 @@ def _self_attention(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
     out = nn.sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), key_mask=mask)
     out = out.transpose(1, 2).reshape(b, t, h * d)
     out = out * nn.sigmoid(gate)
-    return nn.linear(p["wo"], out)
+    return nn.linear(p["wo"], out, reduce=comm.tp_sum if tp else None)
 
 
-def _mlp(p, x):
-    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x))
+def _mlp(p, cfg: EncoderConfig, x):
+    """SwiGLU; under tensor parallelism over this rank's columns of w1/w3
+    and rows of w2."""
+    tp = nn.out_features(p["w1"]) != cfg.intermediate_size
+    if tp:
+        x = comm.tp_input(x)
+    return nn.linear(p["w2"], nn.silu(nn.linear(p["w1"], x)) * nn.linear(p["w3"], x),
+                     reduce=comm.tp_sum if tp else None)
 
 
 def encoder_block(p, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):
     x = x + _self_attention(
         p["attn"], cfg, nn.rmsnorm(p["attention_norm"], x, cfg.norm_eps), mask, rope_cos, rope_sin
     )
-    return x + _mlp(p["mlp"], nn.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
+    return x + _mlp(p["mlp"], cfg, nn.rmsnorm(p["mlp_norm"], x, cfg.norm_eps))
 
 
 def encoder_stack(stacked, cfg: EncoderConfig, x, mask, rope_cos, rope_sin):

@@ -98,8 +98,19 @@ def force_plain():
 def checkpoint_contexts():
     """torch.utils.checkpoint's context_fn: the forward as it is, and the
     recompute in the backward, which autograd runs in a thread of its own
-    on the card, under this thread's force_plain() where it is on."""
-    return contextlib.nullcontext(), (force_plain() if getattr(_plain, "on", False) else contextlib.nullcontext())
+    on the card, under this thread's force_plain() where it is on and with
+    this thread's parallel mesh in use (a tensor-parallel block's
+    collectives run again in the recompute)."""
+    from smalltts_tpu_torch.parallel import mesh
+
+    plain, m = getattr(_plain, "on", False), mesh.current()
+
+    @contextlib.contextmanager
+    def recompute():
+        with (force_plain() if plain else contextlib.nullcontext()), mesh.use(m):
+            yield
+
+    return contextlib.nullcontext(), recompute()
 
 
 def use_plain(t) -> bool:

@@ -33,6 +33,7 @@ import torch
 
 from smalltts_tpu_torch.ops import kernels, nn
 from smalltts_tpu_torch.ops.kernels.attention import fused_attention
+from smalltts_tpu_torch.parallel import comm
 
 EPI_BIAS, EPI_SWIGLU, EPI_RESID = 0, 1, 2
 
@@ -249,12 +250,30 @@ def _weight(lin):
     return (lin["w_q"], lin["scale"]) if "w_q" in lin else (lin["w"], None)
 
 
-def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, heads, head_dim):
+def _row_residual(a, w, b, x, gate, row_mask, w_scale, tp: bool):
+    """gemm_residual; row-parallel under tensor parallelism. The gated
+    residual is linear in the product, so each rank adds tanh(gate) times
+    its partial product (with the bias on the first rank alone) to x on the
+    first rank and to zeros on the others, through the same kernel, and the
+    sum over tp is the new residual."""
+    if not tp:
+        return gemm_residual(a, w, b, x, gate, row_mask=row_mask, w_scale=w_scale)
+    first = comm.tp_rank() == 0
+    part = x if first else torch.zeros_like(x)
+    part = gemm_residual(a, w, b if first else None, part, gate, row_mask=row_mask, w_scale=w_scale)
+    return comm.tp_sum_(part)
+
+
+def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, heads, head_dim,
+                tp=(False, False)):
     """One cached DiT block (port of smalltts_tpu/models/dit.py::_block_core)
     on the fused serving layout, updating x (B, T, H) in place.
     mod (B, 6H) [shift|scale|gate]_msa, [shift|scale|gate]_mlp; cross_k/v
     (B, heads, Sc, D); masks (B, T) / (B, Sc). Each product's leaf holds
-    `w`, or int8 `w_q` with `scale` (quantize_stream_weights)."""
+    `w`, or int8 `w_q` with `scale` (quantize_stream_weights). `tp` says
+    whether the attention and the FF leaves are this rank's tensor-parallel
+    shards (`heads` then this rank's heads): qkvg and w13 are then
+    column-parallel, to_out and w2 row-parallel (_row_residual)."""
     B, T, H = x.shape
     inner = heads * head_dim
     shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
@@ -277,22 +296,23 @@ def block_layer(x, mod, mask, cross_k, cross_v, cross_mask, layer, cos, sin, hea
                           out=att.unflatten(-1, (heads, head_dim)).transpose(1, 2))
     att = att.transpose(1, 2).reshape(B, T, inner)  # a view of the (B, T, inner) buffer
     w, s = _weight(attn["to_out"])
-    x = gemm_residual(att, w, None, x, gate_msa, row_mask=mask, w_scale=s)
+    x = _row_residual(att, w, None, x, gate_msa, mask, s, tp[0])
     h = adaln_modulate(x, shift_mlp, scale_mlp)
     w, s = _weight(ff["w13"])
     mid = gemm_swiglu(h, w, ff["w13"]["b"], w_scale=s)
     w, s = _weight(ff["w2"])
-    return gemm_residual(mid, w, ff["w2"]["b"], x, gate_mlp, w_scale=s)
+    return _row_residual(mid, w, ff["w2"]["b"], x, gate_mlp, None, s, tp[1])
 
 
 def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin, *,
-                   heads, head_dim):
+                   heads, head_dim, tp=(False, False)):
     """The L-layer cached DiT scan. x (B, T, H); mods (L, B, 6H) (the batch
     stride may be 0); mask (B, T) bool; cross_k/v (L, B, heads, Sc, D) with
     cross_mask (B, Sc); blocks: stacked fused-serving block params (qkvg,
     to_out, q_norm, k_norm, w13, w2, each with a leading L; a product's leaf
     holds bf16 `w`, or int8 `w_q` with fp32 `scale` (L, 1, N)); cos/sin (T, rot)
-    fp32. Returns the new residual (x is not modified)."""
+    fp32. `tp`, as block_layer takes it, with a mesh in use. Returns the new
+    residual (x is not modified)."""
     if "qkvg" not in blocks["attn"] or "w13" not in blocks["ff"]:
         raise ValueError("fused_dit_scan needs the fused serving layout (fuse_serving_projections)")
     x = x.contiguous().clone()
@@ -300,5 +320,5 @@ def fused_dit_scan(x, mods, mask, cross_k, cross_v, cross_mask, blocks, cos, sin
     used = {"attn": {k: blocks["attn"][k] for k in ("qkvg", "to_out", "q_norm", "k_norm")},
             "ff": {k: blocks["ff"][k] for k in ("w13", "w2")}}
     for l, blk in enumerate(nn.layers(used, L)):
-        x = block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, blk, cos, sin, heads, head_dim)
+        x = block_layer(x, mods[l], mask, cross_k[l], cross_v[l], cross_mask, blk, cos, sin, heads, head_dim, tp)
     return x

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from smalltts_tpu_torch.parallel.comm import dp_stat, dp_ways
+
 # --------------------------------------------------------------------------- init
 
 
@@ -127,15 +129,24 @@ def dequantize(w_q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     return w_q.to(dtype) * scale.to(dtype)
 
 
-def linear(p, x: torch.Tensor) -> torch.Tensor:
+def linear(p, x: torch.Tensor, reduce=None) -> torch.Tensor:
     """x @ w (+ b) as the JAX package computes it: the product accumulates
     in float32, the bias adds in float32, and the sum rounds once to x's
-    dtype. An int8 leaf (`w_q`, `scale`) is dequantized first."""
+    dtype. An int8 leaf (`w_q`, `scale`) is dequantized first. `reduce`,
+    given, takes the float32 product before the bias: a row-parallel
+    product's sum over tensor-parallel ranks (parallel.comm.tp_sum)."""
     w = dequantize(p["w_q"], p["scale"], x.dtype) if "w_q" in p else p["w"].to(x.dtype)
     y = matmul_f32(x, w)
+    if reduce is not None:
+        y = reduce(y)
     if "b" in p:
         y = y + p["b"].float()
     return y.to(x.dtype)
+
+
+def out_features(p) -> int:
+    """A linear leaf's output width (its shard's, under tensor parallelism)."""
+    return (p["w_q"] if "w_q" in p else p["w"]).shape[-1]
 
 
 def embedding(p, ids: torch.Tensor) -> torch.Tensor:
@@ -149,17 +160,23 @@ def batchnorm(p, x: torch.Tensor, train: bool, mask: Optional[torch.Tensor] = No
     training the batch statistics normalize and the running ones move by
     `momentum`, the variance the BIASED one, as the JAX package tracks it
     (F.batch_norm tracks the unbiased one); the new running stats carry no
-    gradient."""
+    gradient. Under a data-parallel mesh in use the statistics are the
+    global batch's (summed over dp), as the JAX package's sharded batch gives."""
     xf = x.float()
     if train:
+        dp = dp_ways()
         if mask is not None:
             m = mask[..., None].float()
-            count = torch.clamp_min(m.sum(), 1.0)
-            mean = (xf * m).sum(dim=(0, 1)) / count
-            var = (((xf - mean) ** 2) * m).sum(dim=(0, 1)) / count
-        else:
+            count = torch.clamp_min(dp_stat(m.sum()), 1.0)
+            mean = dp_stat((xf * m).sum(dim=(0, 1))) / count
+            var = dp_stat((((xf - mean) ** 2) * m).sum(dim=(0, 1))) / count
+        elif dp == 1:
             mean = xf.mean(dim=(0, 1))
             var = ((xf - mean) ** 2).mean(dim=(0, 1))
+        else:
+            n = xf.shape[0] * xf.shape[1] * dp
+            mean = dp_stat(xf.sum(dim=(0, 1))) / n
+            var = dp_stat(((xf - mean) ** 2).sum(dim=(0, 1))) / n
         new_p = dict(p)
         new_p["mean"] = ((1 - momentum) * p["mean"] + momentum * mean).detach()
         new_p["var"] = ((1 - momentum) * p["var"] + momentum * var).detach()

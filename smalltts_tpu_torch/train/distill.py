@@ -32,7 +32,7 @@ draws in.
 
     python -m smalltts_tpu_torch.train.distill --teacher T.npz --asr A.npz --sv S.npz
         [--steps 40000] [--batch-size 2] [--checkpoint-dir assets/dmd_checkpoints]
-        [--data-dir DIR] [--data-codec-checkpoint C]
+        [--data-dir DIR] [--data-codec-checkpoint C] [--dp N]
 """
 
 from __future__ import annotations
@@ -54,6 +54,8 @@ from smalltts_tpu_torch.ops.losses import cosine_loss, ctc_loss
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.ops.precision import DTYPES, cast_floats
 from smalltts_tpu_torch.ops.schedule import apply_noise, x_pred_from_velocity
+from smalltts_tpu_torch.parallel import comm
+from smalltts_tpu_torch.parallel.mesh import use
 from smalltts_tpu_torch.train.optim import apply_updates, value_and_grad
 from smalltts_tpu_torch.utils.checkpoint import map_pytree
 
@@ -127,11 +129,15 @@ def scorer_draws(gen: torch.Generator, batch, n_updates: int):
 
 
 def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cfg: ASRConfig, sv_cfg: SVConfig, tx,
-                      train_cfg: DistillConfig = DistillConfig()):
+                      train_cfg: DistillConfig = DistillConfig(), mesh=None):
     """student_step(student, student_opt, teacher, scorer, disc, asr, sv,
     batch, step, draws) -> (student, student_opt, carry, metrics): new
     trees; `step` is the host's step count, which opens the ASR and SV
-    gates; the metrics stay on the device."""
+    gates; the metrics stay on the device. With a data-parallel `mesh`
+    (parallel/mesh.py), `batch` and `draws` are this rank's rows of the
+    global batch's, every mean and the discriminator's batch statistics are
+    the global batch's, and the gradients are summed over dp: the step on
+    the global batch."""
     cdt = DTYPES[train_cfg.compute_dtype]
     mp = cdt != torch.float32
 
@@ -166,7 +172,7 @@ def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cf
         grad = torch.nan_to_num((p_real - p_fake) / denom)
         return {"z": z, "t_cur": t_cur, "ts": ts, "noise_t": noise_t, "target": x0 - grad,
                 "feats_fake": feats_fake.float(), "x0_prev": x0_prev, "ref_seq": ref_seq, "ref_mask": ref_mask,
-                "dmd_grad_mag": torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1).mean()}
+                "dmd_grad_mag": comm.dp_mean(torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1))}
 
     def update(student, student_opt, disc, asr, sv, batch, tgt, step: int):
         latents, lat_len, mask, ph, ph_len, ph_mask, ref, ref_len = _unpack(batch)
@@ -178,36 +184,38 @@ def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cf
                 student_p = cast_floats(student_p, cdt)
             x0 = _x_pred(student_p, cfg, tgt["z"].to(cdt), ref.to(cdt), ref_len, mask, ph, ph_mask,
                          tgt["t_cur"]).float()
-            n_valid = torch.clamp_min(valid.sum() * x0.shape[-1], 1.0)  # valid elements: frames x channels
-            pseudo = 0.5 * (((x0 - tgt["target"]) ** 2) * valid).sum() / n_valid
+            # valid elements: frames x channels, over the global batch
+            n_valid = torch.clamp_min(comm.dp_sum(valid.sum()) * x0.shape[-1], 1.0)
+            pseudo = 0.5 * comm.dp_sum((((x0 - tgt["target"]) ** 2) * valid).sum()) / n_valid
             # LSGAN generator loss: the gradient goes through x_t into the frozen discriminator
             x_t, _ = apply_noise(x0, tgt["ts"], tgt["noise_t"])
             logits, _ = discriminator_forward(disc, disc_cfg, tgt["feats_fake"], x_t, tgt["ref_seq"], tgt["ref_mask"],
                                               mask, ph, tgt["ts"], train=True)
-            gan = ((logits - 1.0) ** 2).mean()
+            gan = comm.dp_mean((logits - 1.0) ** 2)
             ctc = sv_loss = zero
             if step > train_cfg.asr_start_step:  # the frozen ASR's CTC, per sample over its label count
                 log_probs, out_lens, _ = asr_forward(asr, asr_cfg, x0, lat_len)
                 logit_pad = 1.0 - length_mask(out_lens, log_probs.shape[1]).float()
                 ctc_per = ctc_loss(log_probs, logit_pad, ph, 1.0 - ph_mask.float())
-                ctc = (ctc_per / torch.clamp_min(ph_len.float(), 1.0)).mean()
+                ctc = comm.dp_mean(ctc_per / torch.clamp_min(ph_len.float(), 1.0))
             if step > train_cfg.sv_start_step:  # the frozen SV's cosine loss against the real latents' embedding
                 with torch.no_grad():
                     true_emb, _ = sv_forward(sv, sv_cfg, latents, lat_len)
                 stu_emb, _ = sv_forward(sv, sv_cfg, x0, lat_len)
-                sv_loss = cosine_loss(stu_emb, true_emb).mean()
+                sv_loss = comm.dp_mean(cosine_loss(stu_emb, true_emb))
             total = pseudo + train_cfg.gan_weight * gan + ctc + sv_loss
             return total, {"st_pseudo": pseudo.detach(), "st_gan": gan.detach(), "st_asr": ctc.detach(),
                            "st_sv": sv_loss.detach(), "x_t": x_t.detach()}
 
-        _, aux, grads = value_and_grad(student, student_loss)
+        _, aux, grads = value_and_grad(student, student_loss, mesh)
         with torch.no_grad():
             updates, student_opt = tx.update(grads, student_opt, student)
             student = apply_updates(student, updates)
         return student, student_opt, aux
 
     def student_step(student, student_opt, teacher, scorer, disc, asr, sv, batch, step: int, draws):
-        tgt = targets(student, teacher, scorer, batch, draws)
+        with use(mesh):
+            tgt = targets(student, teacher, scorer, batch, draws)
         student, student_opt, aux = update(student, student_opt, disc, asr, sv, batch, tgt, step)
         carry = {"x0_prev": tgt["x0_prev"], "x_t": aux["x_t"], "feats_fake": tgt["feats_fake"],
                  "ref_seq": tgt["ref_seq"], "ref_mask": tgt["ref_mask"], "ts": tgt["ts"], "t_cur": tgt["t_cur"]}
@@ -218,10 +226,12 @@ def make_student_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, asr_cf
     return student_step
 
 
-def make_disc_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, compute_dtype: str = "float32"):
+def make_disc_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, compute_dtype: str = "float32",
+                   mesh=None):
     """disc_step(disc, disc_opt, scorer, batch, carry, draws) -> (disc,
     disc_opt, loss): the LSGAN update on [real | fake], the BatchNorm stats
-    (if any) of the forward kept through the update."""
+    (if any) of the forward kept through the update. With a data-parallel
+    `mesh`, on this rank's rows, as make_student_step's."""
     cdt = DTYPES[compute_dtype]
 
     def disc_step(disc, disc_opt, scorer, batch, carry, draws):
@@ -239,9 +249,9 @@ def make_disc_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, compu
             logits, new_p = discriminator_forward(disc_p, disc_cfg, feats, xs, two(carry["ref_seq"]),
                                                   two(carry["ref_mask"]), two(mask), two(ph), two(ts), train=True)
             real, fake = torch.chunk(logits, 2)
-            return (fake ** 2 + (real - 1.0) ** 2).mean(), new_p
+            return comm.dp_mean(fake ** 2 + (real - 1.0) ** 2), new_p
 
-        loss, new_p, grads = value_and_grad(disc, disc_loss)
+        loss, new_p, grads = value_and_grad(disc, disc_loss, mesh)
         with torch.no_grad():
             updates, disc_opt = tx.update(grads, disc_opt, disc)
             disc = apply_updates(map_pytree(torch.Tensor.detach, new_p), updates)
@@ -250,9 +260,11 @@ def make_disc_step(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, compu
     return disc_step
 
 
-def make_scorer_step(cfg: BackboneConfig, tx, n_updates: int = SCORER_UPDATES, compute_dtype: str = "float32"):
+def make_scorer_step(cfg: BackboneConfig, tx, n_updates: int = SCORER_UPDATES, compute_dtype: str = "float32",
+                     mesh=None):
     """scorer_step(scorer, scorer_opt, student, batch, carry, draws) ->
-    (scorer, scorer_opt, the last update's loss)."""
+    (scorer, scorer_opt, the last update's loss). With a data-parallel
+    `mesh`, on this rank's rows, as make_student_step's."""
     cdt = DTYPES[compute_dtype]
     mp = cdt != torch.float32
 
@@ -274,9 +286,10 @@ def make_scorer_step(cfg: BackboneConfig, tx, n_updates: int = SCORER_UPDATES, c
                     sp = cast_floats(sp, cdt)
                 v_pred = backbone_forward(sp, cfg, noised.to(cdt), ref_c, ref_len, mask, ph, ph_mask, ts).float()
                 diff = ((v_pred - v_target) * valid) ** 2
-                return diff.sum() / torch.clamp_min(valid.sum() * v_pred.shape[-1], 1.0), None
+                n_valid = torch.clamp_min(comm.dp_sum(valid.sum()) * v_pred.shape[-1], 1.0)
+                return comm.dp_sum(diff.sum()) / n_valid, None
 
-            loss, _, grads = value_and_grad(scorer, fm_loss)
+            loss, _, grads = value_and_grad(scorer, fm_loss, mesh)
             with torch.no_grad():
                 updates, scorer_opt = tx.update(grads, scorer_opt, scorer)
                 scorer = apply_updates(scorer, updates)
@@ -300,10 +313,15 @@ def train_distill(
     params_override: Optional[dict] = None,
     device=None,
     on_step=None,
+    mesh=None,
 ):
     """The distillation loop, on the dummy data unless `data_iter` yields
     batches (dicts of numpy arrays); on the card unless `device` says
-    otherwise. Student and scorer start as copies of the teacher; the
+    otherwise. A `mesh` (parallel.multihost.auto_mesh) makes the whole
+    iteration data parallel, as train_teacher's does: each process's
+    batches its slice of the global batch, every model replicated from rank
+    0, global draws with this rank's rows kept, checkpoints and metrics
+    rank 0's. Student and scorer start as copies of the teacher; the
     teacher, ASR and SV are frozen; three AdamW 1e-5 optimizers.
     `params_override` (a dict with teacher, asr, sv, disc and optionally
     student and scorer, JAX-layout trees converted by params_from_jax or
@@ -315,6 +333,8 @@ def train_distill(
     (student, scorer, disc, the last metrics as floats)."""
     from smalltts_tpu_torch.data.dummy import get_dummy_dataloader
     from smalltts_tpu_torch.models.discriminator import init_discriminator
+    from smalltts_tpu_torch.parallel.mesh import global_draws, replicated
+    from smalltts_tpu_torch.parallel.multihost import is_coordinator, local_batch_to_global
     from smalltts_tpu_torch.train.optim import distill_optimizer
     from smalltts_tpu_torch.utils import checkpoint as ckpt
     from smalltts_tpu_torch.utils.config_io import backbone_meta
@@ -344,35 +364,44 @@ def train_distill(
         sv = on_dev(params_from_jax(ckpt.load_pytree(sv_checkpoint), sv_cfg))
         student, scorer = copy(teacher), copy(teacher)
         disc = init_discriminator(gen, disc_cfg, device=dev)
+    if mesh is not None:
+        for tree in (teacher, asr, sv, student, scorer, disc):
+            replicated(tree, mesh)
     cdt = DTYPES[train_cfg.compute_dtype]
     if cdt != torch.float32:  # the frozen teacher never trains: stored in the compute dtype
         teacher = cast_floats(teacher, cdt)
 
     tx_student, tx_scorer, tx_disc = distill_optimizer(student), distill_optimizer(scorer), distill_optimizer(disc)
     opt_student, opt_scorer, opt_disc = tx_student.init(student), tx_scorer.init(scorer), tx_disc.init(disc)
-    student_step = make_student_step(model_cfg, disc_cfg, asr_cfg, sv_cfg, tx_student, train_cfg)
-    disc_step = make_disc_step(model_cfg, disc_cfg, tx_disc, train_cfg.compute_dtype)
-    scorer_step = make_scorer_step(model_cfg, tx_scorer, train_cfg.scorer_updates, train_cfg.compute_dtype)
+    student_step = make_student_step(model_cfg, disc_cfg, asr_cfg, sv_cfg, tx_student, train_cfg, mesh=mesh)
+    disc_step = make_disc_step(model_cfg, disc_cfg, tx_disc, train_cfg.compute_dtype, mesh=mesh)
+    scorer_step = make_scorer_step(model_cfg, tx_scorer, train_cfg.scorer_updates, train_cfg.compute_dtype, mesh=mesh)
 
     data_iter = data_iter or get_dummy_dataloader(train_cfg.batch_size, seed)
     saver = ckpt.AsyncCheckpointer()
-    logger = MetricsLogger(os.path.join(checkpoint_dir, "metrics.jsonl"))
+    writer = is_coordinator()  # single-writer checkpoints and coordinator-only logs
+    logger = MetricsLogger(os.path.join(checkpoint_dir, "metrics.jsonl") if writer else None, echo=writer)
     metrics = {}
     try:
         for step in range(train_cfg.num_steps):
             batch = {k: to_device(v, dev) for k, v in next(data_iter).items() if k != "texts"}
-            student, opt_student, carry, metrics = student_step(student, opt_student, teacher, scorer, disc, asr, sv,
-                                                                batch, step, student_draws(gen, batch))
-            disc, opt_disc, disc_loss = disc_step(disc, opt_disc, scorer, batch, carry, disc_draws(gen, batch))
-            scorer, opt_scorer, scorer_loss = scorer_step(scorer, opt_scorer, student, batch, carry,
-                                                          scorer_draws(gen, batch, train_cfg.scorer_updates))
+            if mesh is not None:
+                batch = local_batch_to_global(batch, mesh)
+            student, opt_student, carry, metrics = student_step(
+                student, opt_student, teacher, scorer, disc, asr, sv, batch, step,
+                global_draws(student_draws, gen, batch, mesh))
+            disc, opt_disc, disc_loss = disc_step(disc, opt_disc, scorer, batch, carry,
+                                                  global_draws(disc_draws, gen, batch, mesh))
+            scorer, opt_scorer, scorer_loss = scorer_step(
+                scorer, opt_scorer, student, batch, carry,
+                global_draws(scorer_draws, gen, batch, mesh, train_cfg.scorer_updates, axis=1))
             # the metrics stay on the device between logs: float() would wait for the card every step
             metrics = {**metrics, "disc_loss": disc_loss, "scorer_loss": scorer_loss}
             if on_step is not None:
                 on_step(step, metrics)
-            if step % 50 == 0:
+            if step % 50 == 0 and writer:
                 logger.log({k: float(v) for k, v in metrics.items()}, step)
-            if step % train_cfg.save_every == 0 and step > 1:
+            if step % train_cfg.save_every == 0 and step > 1 and writer:
                 saver.wait()  # the previous save is on disk before the next snapshot
                 meta = backbone_meta(model_cfg)
                 saver.save_pytree(f"{checkpoint_dir}/student_latest.npz", params_to_jax(student), meta)
@@ -397,6 +426,9 @@ def main(argv=None) -> None:
     ap.add_argument("--data-dir", default=None,
                     help="local corpus (metadata.csv or paired .wav/.txt); default: dummy random tensors")
     ap.add_argument("--data-codec-checkpoint", default=None, help="native codec weights for corpus encoding")
+    ap.add_argument("--dp", type=int, default=0,
+                    help="data-parallel ways (0 = single device); several processes via the SMALLTTS_COORDINATOR "
+                         "env or torchrun (parallel/multihost.py)")
     args = ap.parse_args(argv)
     missing = [f"--{name} {path}" for name, path in (("teacher", args.teacher), ("asr", args.asr), ("sv", args.sv))
                if not os.path.isfile(path)]
@@ -404,9 +436,13 @@ def main(argv=None) -> None:
         print("distill needs the trained teacher, ASR and SV checkpoints; not found: " + ", ".join(missing),
               file=sys.stderr)
         raise SystemExit(2)
+    from smalltts_tpu_torch.parallel.multihost import auto_mesh
+
+    # under a job of several processes --batch-size is per process
     train_distill(DistillConfig(num_steps=args.steps, batch_size=args.batch_size), teacher_checkpoint=args.teacher,
                   asr_checkpoint=args.asr, sv_checkpoint=args.sv, checkpoint_dir=args.checkpoint_dir,
-                  data_iter=cli_data_iter(args.data_dir, args.data_codec_checkpoint, args.batch_size))
+                  data_iter=cli_data_iter(args.data_dir, args.data_codec_checkpoint, args.batch_size),
+                  mesh=auto_mesh(dp=args.dp, tp=1))
 
 
 if __name__ == "__main__":

@@ -54,6 +54,7 @@ from smalltts_tpu_torch.models.dit import precompute_step_modulations
 from smalltts_tpu_torch.models.style_encoder import style_encoder
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.ops.schedule import apply_noise, get_alpha_sigma, x_pred_from_velocity
+from smalltts_tpu_torch.parallel import comm
 from smalltts_tpu_torch.train.distill import CFG_SCALE_SPEAKER, CFG_SCALE_TEXT, _unpack, disc_draws
 from smalltts_tpu_torch.train.optim import adamw, apply_updates, value_and_grad
 from smalltts_tpu_torch.utils.checkpoint import map_pytree
@@ -217,7 +218,7 @@ def _imf_base_loss(p, cfg: BackboneConfig, tgt):
     u = imf_velocity(p, cfg, tgt["x_t"], tgt["mask"], tgt["t"], tgt["r_eff"], tgt["cond"])
     per = ((u - tgt["u_target"]) ** 2).float()
     per = torch.where(tgt["mask"][..., None], per, 0.0)
-    return per.sum() / torch.clamp_min(tgt["mask"].sum() * per.shape[-1], 1)
+    return comm.dp_sum(per.sum()) / torch.clamp_min(comm.dp_sum(tgt["mask"].sum()) * per.shape[-1], 1)
 
 
 def _update(tx, grads, opt_state, params):
@@ -226,20 +227,25 @@ def _update(tx, grads, opt_state, params):
         return apply_updates(params, updates), opt_state
 
 
-def make_imf_step(cfg: BackboneConfig, tx, train_cfg: ImfConfig = ImfConfig()):
+def make_imf_step(cfg: BackboneConfig, tx, train_cfg: ImfConfig = ImfConfig(), mesh=None):
     """step(student, opt_state, teacher, batch, draws) -> (student,
-    opt_state, loss): new trees, the loss on the device."""
+    opt_state, loss): new trees, the loss on the device. With a
+    data-parallel `mesh` (parallel/mesh.py), `batch` and `draws` are this
+    rank's rows of the global batch's, the loss is the global batch's and
+    the gradients are summed over dp: the step on the global batch. So for
+    the adversarial and DMD factories' steps."""
 
     def step(student, opt_state, teacher, batch, draws):
         tgt = _interval_targets(cfg, train_cfg, student, teacher, batch, draws)
-        loss, _, grads = value_and_grad(student, lambda p: (_imf_base_loss(p, cfg, tgt), None))
+        loss, _, grads = value_and_grad(student, lambda p: (_imf_base_loss(p, cfg, tgt), None), mesh)
         student, opt_state = _update(tx, grads, opt_state, student)
         return student, opt_state, loss
 
     return step
 
 
-def make_imf_adv_steps(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, tx_disc, train_cfg: ImfConfig):
+def make_imf_adv_steps(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, tx_disc, train_cfg: ImfConfig,
+                       mesh=None):
     """The base loss plus gan_weight x an LSGAN generator loss on the
     full-interval x0 = x_t - (t - t_floor) u(x_t, t, t_floor), re-noised at
     ts and judged by the discriminator over the frozen teacher's features
@@ -270,12 +276,12 @@ def make_imf_adv_steps(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, t
                                                  return_features=True)
             logits, _ = discriminator_forward(disc, disc_cfg, feats_fake, x_t_g, ref_seq, ref_mask, mask, ph, ts,
                                               train=True)
-            gan = ((logits - 1.0) ** 2).mean()
+            gan = comm.dp_mean((logits - 1.0) ** 2)
             aux = {"imf_loss": base.detach(), "gan_loss": gan.detach(), "x_t_g": x_t_g.detach(),
                    "feats_fake": feats_fake}
             return base + train_cfg.gan_weight * gan, aux
 
-        _, aux, grads = value_and_grad(student, loss_fn)
+        _, aux, grads = value_and_grad(student, loss_fn, mesh)
         student, opt_state = _update(tx, grads, opt_state, student)
         carry = {"x_t_g": aux["x_t_g"], "feats_fake": aux["feats_fake"], "ref_seq": ref_seq, "ref_mask": ref_mask,
                  "ts": ts}
@@ -296,9 +302,9 @@ def make_imf_adv_steps(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, t
             logits, new_p = discriminator_forward(dp, disc_cfg, feats, xs, two(carry["ref_seq"]),
                                                   two(carry["ref_mask"]), two(mask), two(ph), two(ts), train=True)
             real, fake = torch.chunk(logits, 2)
-            return (fake ** 2 + (real - 1.0) ** 2).mean(), new_p
+            return comm.dp_mean(fake ** 2 + (real - 1.0) ** 2), new_p
 
-        loss, new_p, grads = value_and_grad(disc, disc_loss)
+        loss, new_p, grads = value_and_grad(disc, disc_loss, mesh)
         with torch.no_grad():
             updates, disc_opt = tx_disc.update(grads, disc_opt, disc)
             disc = apply_updates(map_pytree(torch.Tensor.detach, new_p), updates)
@@ -307,7 +313,7 @@ def make_imf_adv_steps(cfg: BackboneConfig, disc_cfg: DiscriminatorConfig, tx, t
     return student_step, disc_step
 
 
-def make_imf_dmd_steps(cfg: BackboneConfig, tx, tx_scorer, train_cfg: ImfConfig):
+def make_imf_dmd_steps(cfg: BackboneConfig, tx, tx_scorer, train_cfg: ImfConfig, mesh=None):
     """The base loss plus dmd_weight x the DMD pseudo-loss on the served
     composition x0: the student rolled over linspace(1, 0, focus_num_steps
     + 1) from the noise x1, every interval without grad but the last,
@@ -359,13 +365,13 @@ def make_imf_dmd_steps(cfg: BackboneConfig, tx, tx_scorer, train_cfg: ImfConfig)
                 denom = p_real.abs().mean(dim=(1, 2), keepdim=True)
                 grad = torch.nan_to_num((p_real - p_fake) / denom)
                 target = x0_d - grad
-            n_valid = torch.clamp_min(valid.sum() * x0.shape[-1], 1.0)
-            dmd = 0.5 * (((x0 - target) ** 2) * valid).sum() / n_valid
+            n_valid = torch.clamp_min(comm.dp_sum(valid.sum()) * x0.shape[-1], 1.0)
+            dmd = 0.5 * comm.dp_sum((((x0 - target) ** 2) * valid).sum()) / n_valid
             aux = {"imf_loss": base.detach(), "dmd_loss": dmd.detach(), "x0": x0_d,
-                   "grad_mag": torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1).mean()}
+                   "grad_mag": comm.dp_mean(torch.linalg.vector_norm(grad.reshape(b, -1), dim=-1))}
             return base + train_cfg.dmd_weight * dmd, aux
 
-        _, aux, grads = value_and_grad(student, loss_fn)
+        _, aux, grads = value_and_grad(student, loss_fn, mesh)
         student, opt_state = _update(tx, grads, opt_state, student)
         return student, opt_state, {"x0": aux.pop("x0")}, aux
 
@@ -380,9 +386,9 @@ def make_imf_dmd_steps(cfg: BackboneConfig, tx, tx_scorer, train_cfg: ImfConfig)
             def fm_loss(sp):
                 v = backbone_forward(sp, cfg, noised, ref, ref_len, mask, ph, ph_mask, ts)
                 diff = ((v - v_target) * valid) ** 2
-                return diff.sum() / torch.clamp_min(valid.sum() * v.shape[-1], 1.0), None
+                return comm.dp_sum(diff.sum()) / torch.clamp_min(comm.dp_sum(valid.sum()) * v.shape[-1], 1.0), None
 
-            loss, _, grads = value_and_grad(scorer, fm_loss)
+            loss, _, grads = value_and_grad(scorer, fm_loss, mesh)
             scorer, scorer_opt = _update(tx_scorer, grads, scorer_opt, scorer)
         return scorer, scorer_opt, loss
 

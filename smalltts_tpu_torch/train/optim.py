@@ -31,6 +31,8 @@ from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 
+from smalltts_tpu_torch.parallel import comm
+from smalltts_tpu_torch.parallel.mesh import use
 from smalltts_tpu_torch.utils.checkpoint import flatten_pytree, map_pytree, unflatten_pytree
 
 _STATE_LEAVES = ("mean", "var")
@@ -76,8 +78,12 @@ def _constant(lr: float) -> Schedule:
     return lambda count: torch.full((), lr, dtype=torch.float32, device=_count(count).device)
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squared entries (optax.global_norm)."""
+def global_norm(leaves, names=None, mesh=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squared entries (optax.global_norm).
+    With a tensor-parallel `mesh` and the leaves' flat `names`, the norm of
+    the whole tree: the shards' squares summed over tp."""
+    if mesh is not None and mesh.tp > 1 and mesh.layout:
+        return torch.sqrt(comm.sharded_sq_norm(dict(zip(names, leaves)), mesh))
     norms = torch._foreach_norm([g.float() for g in leaves])
     return torch.sqrt(sum(n * n for n in norms))
 
@@ -103,13 +109,15 @@ class AdamW(NamedTuple):
         return {"mu": map_pytree(zeros, params), "nu": map_pytree(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(self, grads, state, params):
+    def update(self, grads, state, params, mesh=None):
+        """(updates, new_state); `mesh`, a tensor-parallel mesh whose
+        shards `params` holds, makes the clip's norm the whole tree's."""
         flat_g, flat_p = flatten_pytree(grads), flatten_pytree(params)
         flat_mu, flat_nu = flatten_pytree(state["mu"]), flatten_pytree(state["nu"])
         names = [n for n in flat_p if self.trainable[n]]
         g = [flat_g[n] for n in names]
         if self.clip_norm is not None:
-            norm = global_norm(g)
+            norm = global_norm(g, names, mesh)
             clipped = torch._foreach_mul(torch._foreach_div(g, norm), self.clip_norm)
             keep = norm < self.clip_norm
             g = [torch.where(keep, a, b) for a, b in zip(g, clipped)]
@@ -132,17 +140,19 @@ class AdamW(NamedTuple):
                                            "count": count_inc.to(torch.int32)}
 
 
-def value_and_grad(params, loss_fn):
+def value_and_grad(params, loss_fn, mesh=None):
     """(loss, aux, grads) of loss_fn(params) -> (loss, aux), the gradient of
     every leaf of `params` (zero where the loss does not reach it), as
-    JAX's value_and_grad(has_aux=True) gives them."""
+    JAX's value_and_grad(has_aux=True) gives them. With a `mesh` the loss
+    runs with it in use (its batch sums over dp) and the gradients are
+    summed over dp: the global batch's."""
     flat = flatten_pytree(params)
     leaves = [p.detach().requires_grad_(True) for p in flat.values()]
-    with torch.enable_grad():
+    with torch.enable_grad(), use(mesh):
         loss, aux = loss_fn(unflatten_pytree(dict(zip(flat, leaves))))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g for (k, p), g in zip(flat.items(), grads)}
-    return loss.detach(), aux, unflatten_pytree(grads)
+    grads = comm.all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], mesh)
+    return loss.detach(), aux, unflatten_pytree(dict(zip(flat, grads)))
 
 
 def apply_updates(params, updates):

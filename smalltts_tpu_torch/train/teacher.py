@@ -13,7 +13,7 @@ optimizer count stay as they were, and the EMA still updates; nothing in
 the step waits for the card.
 
     python -m smalltts_tpu_torch.train.teacher --steps N [--batch-size 16]
-        [--compute-dtype bfloat16] [--resume DIR/train_state.npz]
+        [--compute-dtype bfloat16] [--resume DIR/train_state.npz] [--dp N]
         [--checkpoint-dir assets/teacher_checkpoints] [--data-dir DIR] [--codec-checkpoint C]
 """
 
@@ -31,6 +31,8 @@ from smalltts_tpu_torch.models.backbone import BackboneConfig, backbone_forward,
 from smalltts_tpu_torch.ops.masking import length_mask, masked_mse
 from smalltts_tpu_torch.ops.precision import DTYPES, cast_floats
 from smalltts_tpu_torch.ops.schedule import apply_noise
+from smalltts_tpu_torch.parallel import comm
+from smalltts_tpu_torch.parallel.mesh import use
 from smalltts_tpu_torch.train.ema import ema_decay, ema_init, ema_update
 from smalltts_tpu_torch.train.optim import apply_updates, global_norm, teacher_optimizer
 from smalltts_tpu_torch.utils.checkpoint import flatten_pytree, unflatten_pytree
@@ -94,24 +96,32 @@ def _where(cond, new, old):
     return unflatten_pytree({k: torch.where(cond, v, flat_old[k]) for k, v in flatten_pytree(new).items()})
 
 
-def make_teacher_step(cfg: BackboneConfig, tx, train_cfg: TeacherTrainConfig = TeacherTrainConfig()):
+def make_teacher_step(cfg: BackboneConfig, tx, train_cfg: TeacherTrainConfig = TeacherTrainConfig(), mesh=None):
     """step(params, opt_state, ema_params, batch, draws, ema_decay=None) ->
     (params, opt_state, ema_params, loss): new trees; `ema_decay` is the
-    scheduled decay (train/ema.ema_decay), train_cfg.ema_beta without it."""
+    scheduled decay (train/ema.ema_decay), train_cfg.ema_beta without it.
+
+    With a `mesh` (parallel/mesh.py) the step is the JAX package's step on
+    the global batch: `batch` and `draws` hold this rank's dp rows of it,
+    the loss is the global batch's on every rank, the gradients are summed
+    over dp before the guard, the clip and AdamW, and `params` may hold
+    this rank's tensor-parallel shards (shard_params with this mesh), the
+    guard's and the clip's norm then the whole tree's."""
 
     def step(params, opt_state, ema_params, batch, draws, ema_decay=None):
         flat = flatten_pytree(params)
         leaves = [p.detach().requires_grad_(True) for p in flat.values()]
-        with torch.enable_grad():
+        with torch.enable_grad(), use(mesh):
             loss = teacher_loss(unflatten_pytree(dict(zip(flat, leaves))), cfg, batch, draws, train_cfg)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         with torch.no_grad():
-            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+            grads = comm.all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)],
+                                          mesh)
             params = unflatten_pytree(dict(zip(flat, (p.detach() for p in leaves))))
-            finite = torch.isfinite(loss) & torch.isfinite(global_norm(grads))
+            finite = torch.isfinite(loss) & torch.isfinite(global_norm(grads, list(flat), mesh))
             zero = torch.zeros((), device=loss.device)
             grads = unflatten_pytree({k: torch.where(finite, g, zero) for k, g in zip(flat, grads)})
-            updates, new_state = tx.update(grads, opt_state, params)
+            updates, new_state = tx.update(grads, opt_state, params, mesh)
             params = _where(finite, apply_updates(params, updates), params)
             opt_state = _where(finite, new_state, opt_state)
             ema_params = ema_update(ema_params, params, train_cfg.ema_beta if ema_decay is None else ema_decay)
@@ -137,10 +147,15 @@ def train_teacher(
     log_every: int = 100,
     device=None,
     on_step=None,
+    mesh=None,
 ):
     """The training loop, on the dummy data unless `data_iter` yields
     batches (dicts of numpy arrays). Runs on the card unless `device` says
-    otherwise. Every save_every steps (past step 1) it writes
+    otherwise. With a `mesh` (parallel.multihost.auto_mesh) it is data
+    parallel: each process's batches are its slice of the global batch
+    (train_cfg.batch_size per process), the params are replicated from
+    rank 0, every rank draws the global batch's draws and keeps its rows,
+    and only rank 0 writes checkpoints and metrics. Every save_every steps (past step 1) it writes
     checkpoint_latest.npz and checkpoint_ema.npz (the JAX package's format
     and layout, with the config as metadata) and train_state.npz (the
     port's own) into checkpoint_dir, off the training thread. `on_step(step,
@@ -150,6 +165,8 @@ def train_teacher(
     Returns (params, ema_params)."""
     from smalltts_tpu_torch.data.dummy import get_dummy_dataloader
     from smalltts_tpu_torch.models.dit import DiTConfig
+    from smalltts_tpu_torch.parallel.mesh import global_draws, replicated
+    from smalltts_tpu_torch.parallel.multihost import is_coordinator, local_batch_to_global
     from smalltts_tpu_torch.utils import checkpoint as ckpt
     from smalltts_tpu_torch.utils.config_io import backbone_meta
     from smalltts_tpu_torch.utils.convert import params_from_jax, params_to_jax
@@ -164,6 +181,8 @@ def train_teacher(
                             params_from_jax(ckpt.load_reference_backbone_checkpoint(pretrained), model_cfg))
     else:
         params = init_backbone(gen, model_cfg, device=dev)
+    if mesh is not None:
+        params = replicated(params, mesh)
     tx, sched = teacher_optimizer(params, train_cfg.num_steps)
     opt_state = tx.init(params)
     ema_params = ema_init(params)
@@ -176,21 +195,25 @@ def train_teacher(
         print(f"resumed from {resume_from} at step {start_step}")
     draw_gen = torch.Generator(device=dev).manual_seed(_draw_seed(seed, start_step))
 
-    step_fn = make_teacher_step(model_cfg, tx, train_cfg)
+    step_fn = make_teacher_step(model_cfg, tx, train_cfg, mesh=mesh)
     data_iter = data_iter or get_dummy_dataloader(train_cfg.batch_size, seed + start_step)
     saver = ckpt.AsyncCheckpointer()
-    logger = MetricsLogger(os.path.join(checkpoint_dir, "metrics.jsonl"))
+    writer = is_coordinator()  # single-writer checkpoints and coordinator-only logs
+    logger = MetricsLogger(os.path.join(checkpoint_dir, "metrics.jsonl") if writer else None, echo=writer)
     try:
         for step in range(start_step, train_cfg.num_steps):
             batch = {k: to_device(v, dev) for k, v in next(data_iter).items() if k != "texts"}
+            if mesh is not None:
+                batch = local_batch_to_global(batch, mesh)
             decay = ema_decay(step, train_cfg.ema_beta)
             params, opt_state, ema_params, loss = step_fn(
-                params, opt_state, ema_params, batch, teacher_draws(draw_gen, batch), np.float32(decay))
+                params, opt_state, ema_params, batch, global_draws(teacher_draws, draw_gen, batch, mesh),
+                np.float32(decay))
             if on_step is not None:
                 on_step(step, loss)
-            if step % log_every == 0:
+            if step % log_every == 0 and writer:
                 logger.log({"teacher_loss": float(loss), "lr": float(sched(step)), "ema_decay": decay}, step)
-            if step % train_cfg.save_every == 0 and step > 1:
+            if step % train_cfg.save_every == 0 and step > 1 and writer:
                 saver.wait()  # the previous save is on disk before the next snapshot
                 meta = backbone_meta(model_cfg)
                 saver.save_pytree(f"{checkpoint_dir}/checkpoint_latest.npz", params_to_jax(params), meta)
@@ -215,6 +238,7 @@ def main(argv=None) -> None:
     ap.add_argument("--pretrained", default=None,
                     help="a reference torch checkpoint (.pt/.pth/.bin) to fine-tune from")
     ap.add_argument("--resume", default=None, help="a train_state.npz written by this trainer")
+    ap.add_argument("--dp", type=int, default=0, help="data-parallel ways (0 = single device)")
     ap.add_argument("--checkpoint-dir", default="assets/teacher_checkpoints")
     ap.add_argument("--data-dir", default=None,
                     help="local corpus: metadata.csv ('wav|text') or paired .wav/.txt files "
@@ -223,10 +247,16 @@ def main(argv=None) -> None:
                     help="native codec weights for corpus encoding (with assets/codec/*.onnx present the "
                          "imported encoder is used instead)")
     args = ap.parse_args(argv)
+    from smalltts_tpu_torch.parallel.multihost import auto_mesh
+
+    # single device, or a job of several processes (SMALLTTS_COORDINATOR/NUM_PROCESSES/PROCESS_ID, or
+    # torchrun's variables; parallel/multihost.py): then --batch-size is per process and checkpoints
+    # and logs are rank 0's
+    mesh = auto_mesh(dp=args.dp, tp=1)
     train_teacher(TeacherTrainConfig(num_steps=args.steps, batch_size=args.batch_size,
                                      compute_dtype=args.compute_dtype),
                   pretrained=args.pretrained, resume_from=args.resume, checkpoint_dir=args.checkpoint_dir,
-                  data_iter=cli_data_iter(args.data_dir, args.codec_checkpoint, args.batch_size))
+                  data_iter=cli_data_iter(args.data_dir, args.codec_checkpoint, args.batch_size), mesh=mesh)
 
 
 if __name__ == "__main__":
