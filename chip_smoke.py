@@ -20,7 +20,9 @@
    products, each shape on the kernel its
    route names (tensor cores wherever TMA can read the operands), timed on
    the device clock or the run fails. Then the GEMM and attention wrappers'
-   host time per call (median of 1000). Phase A, head dim 4 (see
+   host time per call (median of 1000). Phase A, head dim 16 (see
+   `attn_d16_phase`): attn_tf32_kernel<16> and attn_mma_kernel<16> against
+   plain at the demo loop's shapes. Phase A, head dim 4 (see
    `attn_small_phase`): the ASR's attention kernel against plain at its
    (2, 16, 1024) in fp32 and bf16, timed against its bound (exponentials,
    multiply-adds over the live keys, or bytes: `small_bound`), at ragged
@@ -121,6 +123,14 @@
    single process); each kernel those launched at its shard shapes
    against its plain version, timed; and the four-rank dry run
    (smalltts_tpu_torch.scripts.dryrun_multihost) on CPU ranks.
+   Last, phase scripts (see `scripts_phase`): the port's entry points
+   (smalltts_tpu_torch/scripts) in this process at full width on the
+   seed-0 weights: test_checkpoint (and --convert), clone with the served
+   launch counts, interactive, batch, tryme without assets, phonemize,
+   import_codec, test_x402 against a local-payments server, bench_serving
+   (32 requests from process clients, and a streamed run) and
+   demo_quality_loop on the card with its head-dim-16 attention and CTC
+   launches.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -161,6 +171,11 @@ runs the codec phases alone, after the kernels' build.
     python3 chip_smoke.py --parallel
 
 runs phase parallel alone, after the kernels' build.
+
+    python3 chip_smoke.py --scripts
+
+runs phase A at head dim 16 and phase scripts alone, after the kernels'
+build.
 
     python3 chip_smoke.py --ctc [--ctc-parent DIR]
 
@@ -410,6 +425,8 @@ def main() -> int:
         return attn_small_only(torch)
     if "--codec" in sys.argv:
         return codec_only(torch)
+    if "--scripts" in sys.argv:
+        return scripts_only(torch)
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -511,8 +528,11 @@ def main() -> int:
     ptxas = ptxas_report(os.path.join(kernels.BUILD_DIR, "attention.log"))
     print(f"  ptxas (attention.cu): {json.dumps(ptxas)}", flush=True)
     tf32 = {n: r for n, r in ptxas.items() if n.startswith("attn_tf32_kernel")}
-    check(len(tf32) == 3 and not any(r["spill_stores"] or r["spill_loads"] for r in tf32.values()),
+    check(len(tf32) == 4 and not any(r["spill_stores"] or r["spill_loads"] for r in tf32.values()),
           f"the 3xTF32 kernels spill, or are missing from the build log: {tf32}")
+    mma16 = {n: r for n, r in ptxas.items() if n.startswith("attn_mma_kernel<16")}
+    check(len(mma16) == 1 and not any(r["spill_stores"] or r["spill_loads"] for r in mma16.values()),
+          f"attn_mma_kernel<16> spills, or is missing from the build log: {mma16}")
     small = {n: r for n, r in ptxas.items() if n.startswith("attn_small_kernel")}
     check(len(small) == 2 and not any(r["spill_stores"] or r["spill_loads"] for r in small.values()),
           f"the head-dim-4 kernels spill, or are missing from the build log: {small}")
@@ -525,6 +545,7 @@ def main() -> int:
                         fp32_kernel=dict(kernel="attn_tf32_kernel", **{k: fp32[k] for k in (
                             "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
                         fp32_train_shapes=train_rows, ptxas=ptxas))
+    attn_d16_phase(torch, dev, entries)
     attn_small_phase(torch, dev, entries, parent=_arg("--attn-small-parent"))
 
     ctc_phase(torch, dev, entries, parent=_arg("--ctc-parent"))
@@ -1102,6 +1123,8 @@ def main() -> int:
     codec_phases(torch, dev, entries)
     torch.cuda.empty_cache()
     parallel_phase(torch, dev, entries)
+    torch.cuda.empty_cache()
+    scripts_phase(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -5048,6 +5071,424 @@ def parallel_phase(torch, dev, entries):
             e["parallel"] = summary
     print(f"  phase parallel: {wall:.2f} s (NCCL world 1 {t_nccl:.1f} s, two gloo ranks {t_gloo:.1f} s, dry run "
           f"{dry_s:.1f} s), peak {peak:.2f} GB a rank; card {card}", flush=True)
+
+
+# ------------------------------------------------------------------ head dim 16
+
+# the tiny configurations' attention (head dim 16) at the demo loop's shapes, batch 2: the DiT's joint
+# self + ref + text keys as one source (4 heads), the ASR conformer's 4x-upsampled frames (4 heads), the
+# text encoder's tokens (2 heads)
+D16_SHAPES = (("demo dit T=40 + ref 8 + text 16", 2, 4, 40, 64), ("demo asr T=36", 2, 4, 36, 36),
+              ("demo text P=16", 2, 2, 16, 16))
+
+
+def attn_d16_phase(torch, dev, entries):
+    """Phase A, head dim 16: attn_tf32_kernel<16> (fp32) and
+    attn_mma_kernel<16> (bf16) against attention_plain at the demo loop's
+    shapes (D16_SHAPES; one row of each batch fully masked), at the phase's
+    tolerances (1e-5 fp32, 2e-2 bf16), timed on the device clock beside the
+    plain version, scaled_dot_product_attention and the bound (bytes, or
+    4 B H Tq S D flops at the dtype's peak, as row 1's). The rows go into
+    the attention entry as `head_dim_16`."""
+    from smalltts_tpu_torch.ops.kernels import attention as A
+
+    t_phase = time.perf_counter()
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    g = torch.Generator(device=dev).manual_seed(16)
+    print("phase A, head dim 16: attention kernel vs plain at the demo loop's shapes (tolerance: max|diff|/max|plain| "
+          "<= 1e-5 fp32, 2e-2 bf16)", flush=True)
+    rows = []
+    for label, B, H, T, S in D16_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, H, T, 16), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, H, S, 16), generator=g, device=dev).to(dtype) for _ in range(2))
+            m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
+            m[-1] = False  # a fully-masked row: a uniform average
+            got = A.fused_attention(q, k, v, m)
+            want = A.attention_plain(q, k, v, m)
+            abs_e = float((got.float() - want.float()).abs().max())
+            rel_e = abs_e / float(want.float().abs().max())
+            check(rel_e <= tol[dtype], f"attention D=16 {label} {dtype}: rel err {rel_e:.3e}")
+            ms, wall, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)
+            check(clock in DEVICE_CLOCKS, f"attention D=16 {label} {dtype}: no device-clock time")
+            plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 20)[0]
+            lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=m[:, None, None, :]), 20)[0]
+            b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * T * S * 16, attn_kind(dtype, 16))
+            row = dict(shape=f"{label} B={B} H={H} Tq={T} S={S} D=16", dtype=str(dtype).split(".")[-1],
+                       kernel="attn_mma_kernel<16>" if dtype == torch.bfloat16 else "attn_tf32_kernel<16>",
+                       max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+            rows.append(row)
+            print("  " + json.dumps(row), flush=True)
+    for e in entries:
+        if e["name"] == "attention":
+            e["head_dim_16"] = rows
+    print(f"  phase A, head dim 16: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return rows
+
+
+# ------------------------------------------------------------------ scripts
+
+DEMO_ARGV = ["--codec-steps", "30", "--teacher-steps", "60", "--asr-steps", "40", "--sv-steps", "20",
+             "--sample-steps", "8"]
+X402_TEST_KEY = "d15c0"  # a fixed test wallet key, as the x402 tests use
+
+
+def run_script(name, main, argv, stdin=None):
+    """main(argv) of a script in this process, its standard output captured
+    (and echoed, shortened): (exit code, output, seconds)."""
+    import contextlib
+    import io
+
+    buf, old_stdin = io.StringIO(), sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        sys.stdin = old_stdin
+    secs = time.perf_counter() - t0
+    out = buf.getvalue()
+    shown = out.strip() if len(out) < 1500 else out.strip()[:400] + " ... " + out.strip()[-1000:]
+    print(f"  {name}: exit {rc} in {secs:.2f} s\n    " + shown.replace("\n", "\n    "), flush=True)
+    return rc, out, secs
+
+
+def int16_wav(path):
+    """(samples int16, sample rate) of a mono 16-bit wav written by the scripts."""
+    import numpy as np
+
+    body = open(path, "rb").read()
+    channels, rate, bits = wav_format(body)
+    check(body[:4] == b"RIFF" and (channels, bits) == (1, 16), f"{path}: {channels} channels, {bits} bits")
+    return np.frombuffer(body[44:], np.int16), rate
+
+
+def scripts_phase(torch, dev, entries):
+    """Phase scripts: the port's entry points (smalltts_tpu_torch/scripts),
+    each main() in this process on the card, at full width (the default
+    BackboneConfig and CodecConfig) on the seed-0 weights with the zero-init
+    leaves re-drawn (the velocity head among them):
+    - test_checkpoint on the weights saved as an npz: exit 0 and the cached
+      split within 1e-4 of the full forward; on a copy with one key removed,
+      exit 1; then --convert (the npz with backbone_meta);
+    - clone with --checkpoint the converted npz and --transcription: an int16
+      wav of estimate_duration's frames, not silent, and one batch's served
+      launches from its CUDA graph's replay (68 attention, 384 scan); its
+      wall time, and a second synthesize's (graph replayed) real-time factor;
+    - interactive on two stdin lines, batch on a two-wav manifest (8 files,
+      a batch of more than one request), tryme in a directory without assets
+      (random weights, its warning), phonemize as a process of its own;
+    - import_codec on a seed-3 CodecConfig() codec exported by
+      onnxtorch.export: a finite SNR and the initializers saved;
+    - test_x402 against the port's TTSServer (--payments local) on the clone
+      pipeline, with a fixed test key: a signed payment, 200 and a RIFF body;
+    - bench_serving twice: 8 process clients x 4 requests (32: p50, p95),
+      and --stream --sentences 2 with 4 x 2;
+    - demo_quality_loop with small budgets (DEMO_ARGV): every summary value
+      finite, attention launches at head dim 16 and CTC launches. Prints
+      each stage's seconds."""
+    import numpy as np
+
+    from smalltts_tpu_torch.data.bucketing import HOP_SIZE, frames_for_duration
+    from smalltts_tpu_torch.data.synthetic import synth_speech
+    from smalltts_tpu_torch.infer import pipeline
+    from smalltts_tpu_torch.infer.pipeline import estimate_duration
+    from smalltts_tpu_torch.models.backbone import init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.codec import CodecConfig, init_codec
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, export
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.scripts import (
+        batch,
+        bench_serving,
+        clone,
+        demo_quality_loop,
+        import_codec,
+        interactive,
+        test_checkpoint,
+        test_x402,
+        tryme,
+    )
+    from smalltts_tpu_torch.serving.audio_io import encode_wav
+    from smalltts_tpu_torch.serving.server import TTSServer
+    from smalltts_tpu_torch.serving.x402 import X402Config
+    from smalltts_tpu_torch.text import get_token_ids
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.convert import params_to_jax
+
+    t_phase = time.perf_counter()
+    print("phase scripts: the port's entry points in this process on the card, default BackboneConfig/CodecConfig, "
+          "seed-0 weights (zero-init leaves re-drawn)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_scripts_")
+    made = []  # every SmallTTS a script builds, to read its graphs' launch counts
+    base = pipeline.SmallTTS
+
+    class Tracked(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    pipeline.SmallTTS = Tracked
+    cwd, env = os.getcwd(), dict(os.environ)
+    result = dict(card=card_line())
+    try:
+        cfg = test_checkpoint.default_config("backbone")  # BackboneConfig(), the one the validator holds
+        gb = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        npz = os.path.join(tmp, "seed0.npz")
+        ckpt.save_pytree(npz, params_to_jax(redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)))
+        print(f"  seed-0 weights saved as an npz in {time.perf_counter() - t0:.2f} s", flush=True)
+
+        # ---- test_checkpoint, its full forward timed (the first call, fp32, (2, 24) frames) by a wrapper
+        from smalltts_tpu_torch.models import backbone as backbone_module
+
+        forward, forward_ms = backbone_module.backbone_forward, []
+
+        def timed_forward(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = forward(*a, **k)
+            torch.cuda.synchronize()
+            forward_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        backbone_module.backbone_forward = timed_forward
+        try:
+            rc, out, secs = run_script("test_checkpoint", test_checkpoint.main, [npz])
+        finally:
+            backbone_module.backbone_forward = forward
+        check(rc == 0 and "cached-inference path OK" in out and out.rstrip().endswith("checkpoint valid"),
+              f"test_checkpoint: exit {rc}")
+        result["test_checkpoint_s"] = secs
+        result["test_checkpoint_forward_ms"] = forward_ms[0]
+        result["cached_split_max_abs_diff"] = float(out.split("max |diff| = ")[1].split(")")[0])
+        flat = ckpt.flatten_pytree(ckpt.load_pytree(npz))
+        dropped = sorted(flat)[len(flat) // 2]
+        missing = os.path.join(tmp, "missing.npz")
+        ckpt.save_pytree(missing, ckpt.unflatten_pytree({k: v for k, v in flat.items() if k != dropped}))
+        del flat
+        rc, out, _ = run_script("test_checkpoint (a key removed)", test_checkpoint.main, [missing])
+        check(rc == 1 and "missing keys: 1" in out and f"  - {dropped}" in out, f"test_checkpoint missing: exit {rc}")
+        os.unlink(missing)
+        conv = os.path.join(tmp, "converted.npz")
+        rc, out, _ = run_script("test_checkpoint --convert", test_checkpoint.main, [npz, "--convert", conv])
+        check(rc == 0 and ckpt.load_meta(conv) is not None, f"test_checkpoint --convert: exit {rc}")
+        os.unlink(npz)
+
+        # ---- clone
+        ref = os.path.join(tmp, "ref.wav")
+        with open(ref, "wb") as f:
+            f.write(encode_wav(synth_speech("a reference voice for the smoke run", speaker=1, seed=3), 24_000))
+        text = "The quick brown fox jumps over the lazy dog."
+        out_wav = os.path.join(tmp, "clone.wav")
+        made.clear()
+        rc, out, secs = run_script("clone", clone.main, ["--wav", ref, "--text", text, "--transcription",
+                                                          "A reference voice for the smoke run.", "--checkpoint",
+                                                          conv, "--out", out_wav])
+        check(rc == 0 and len(made) == 1, f"clone: exit {rc}")
+        tts = made[0]
+        check(tts.cfg == cfg, "clone: the converted checkpoint's config is not the default")
+        launches, n_replays = graph_launches(tts, {})
+        check(n_replays == 1 and launches.get("attention") == 68, f"clone: {n_replays} replays, {launches}")
+        scan_counts(launches, 1, tts.num_steps, tts.cfg.dit.n_blocks, echo=True)
+        samples, rate = int16_wav(out_wav)
+        duration = estimate_duration(text)
+        check(rate == 24_000 and samples.size == frames_for_duration(duration) * HOP_SIZE
+              and int(np.abs(samples).max()) > 0, f"clone: {samples.size} samples at {rate} Hz")
+        tokens = get_token_ids("A reference voice for the smoke run.") + get_token_ids(text)
+        ref_lat = tts.encode_reference(synth_speech("a reference voice for the smoke run", speaker=1, seed=3))
+        t0 = time.perf_counter()
+        tts.synthesize(ref_lat, tokens, duration)
+        warm_s = time.perf_counter() - t0
+        result["clone"] = dict(wall_s=secs, audio_s=duration, rtf_wall=secs / duration, synthesize_warm_s=warm_s,
+                               rtf_warm=warm_s / duration, launches_a_batch=launches)
+        print(f"  clone: {json.dumps(result['clone'])}", flush=True)
+
+        # ---- test_x402, against the clone's pipeline behind the port's server (local payments)
+        import asyncio
+
+        srv = TTSServer(tts=tts, x402_cfg=X402Config(mode="local"), max_batch=8)
+        loop = asyncio.new_event_loop()
+        server = loop.run_until_complete(asyncio.start_server(srv._serve_conn, "127.0.0.1", 0))
+        thread = threading.Thread(target=loop.run_forever, daemon=True)
+        thread.start()
+        try:
+            os.makedirs(os.path.join(tmp, "x402"))
+            os.chdir(os.path.join(tmp, "x402"))
+            os.environ.update(SERVER_URL=f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}", DURATION="2.0",
+                              PRIVATE_KEY=X402_TEST_KEY)
+            rc, out, secs = run_script("test_x402", test_x402.main, [])
+            check(rc == 0 and out.startswith("402: ") and "signed EIP-3009 payment" in out, f"test_x402: exit {rc}")
+            x402_samples, rate = int16_wav("output.wav")
+            check(rate == 24_000 and x402_samples.size > 0, "test_x402: output.wav")
+            result["test_x402_s"] = secs
+        finally:
+            os.chdir(cwd)
+            os.environ.clear()
+            os.environ.update(env)
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(10)
+            server.close()
+            if srv._batcher is not None:
+                srv._batcher.close()
+        del tts, srv
+        made.clear()
+        torch.cuda.empty_cache()
+
+        # ---- interactive
+        rc, out, secs = run_script("interactive", interactive.main,
+                                   ["--checkpoint", conv, "--out-dir", os.path.join(tmp, "interactive")],
+                                   stdin="Good morning, how are you?\nThe weather is lovely today.\n")
+        rtfs = [float(line.split("(rtf ")[1].rstrip(")")) for line in out.splitlines() if "(rtf " in line]
+        check(rc == 0 and len(rtfs) == 2 and all(np.isfinite(rtfs)), f"interactive: exit {rc}, rtf {rtfs}")
+        for i in range(2):
+            s, _ = int16_wav(os.path.join(tmp, "interactive", f"interactive_{i}.wav"))
+            check(int(np.abs(s).max()) > 0, "interactive: a silent wav")
+        result["interactive"] = dict(wall_s=secs, rtf=rtfs)
+        made.clear()
+        torch.cuda.empty_cache()
+
+        # ---- batch
+        mdir = os.path.join(tmp, "manifest")
+        os.makedirs(mdir)
+        for name, spk in (("a.wav", 0), ("b.wav", 2)):
+            with open(os.path.join(mdir, name), "wb") as f:
+                f.write(encode_wav(synth_speech(f"speaker {spk} says hello", speaker=spk, seed=spk), 24_000))
+        with open(os.path.join(mdir, "transcriptions.json"), "w") as f:
+            json.dump({"a.wav": "speaker zero says hello", "b.wav": "speaker two says hello"}, f)
+        rc, out, secs = run_script("batch", batch.main, ["--manifest", os.path.join(mdir, "transcriptions.json"),
+                                                          "--out", os.path.join(tmp, "batch"), "--checkpoint", conv])
+        names = sorted(os.listdir(os.path.join(tmp, "batch")))
+        check(rc == 0 and names == sorted(f"{w}_{i}_gen.wav" for w in "ab" for i in range(4)), f"batch: {names}")
+        for n in names:
+            s, _ = int16_wav(os.path.join(tmp, "batch", n))
+            check(int(np.abs(s).max()) > 0, f"batch: {n} is silent")
+        classes = {key[0]: g.replays for key, g in made[0]._graphs.items()}
+        check(max(classes) > 1, f"batch: no batch of more than one request ({classes})")
+        result["batch"] = dict(wall_s=secs, files=len(names), graph_replays_by_batch_class=classes)
+        made.clear()
+        torch.cuda.empty_cache()
+
+        # ---- tryme, without assets
+        os.makedirs(os.path.join(tmp, "tryme"))
+        os.chdir(os.path.join(tmp, "tryme"))
+        os.environ["SMALLTTS_ASSETS"] = os.path.join(tmp, "no_assets")
+        try:
+            rc, out, secs = run_script("tryme", tryme.main, ["Hello from the smoke run."])
+            s, _ = int16_wav(os.path.join("out", "tryme.wav"))
+            check(rc == 0 and s.size > 0, f"tryme: exit {rc}")
+        finally:
+            os.chdir(cwd)
+            os.environ.clear()
+            os.environ.update(env)
+        result["tryme_s"] = secs
+        made.clear()
+        torch.cuda.empty_cache()
+
+        # ---- phonemize, a process of its own
+        import smalltts_tpu_torch
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(smalltts_tpu_torch.__file__)))
+        res = subprocess.run([sys.executable, "-m", "smalltts_tpu_torch.scripts.phonemize", "Hello", "world."],
+                             cwd=root, capture_output=True, text=True, timeout=120)
+        check(res.returncode == 0 and json.loads(res.stdout) == get_token_ids("Hello world."),
+              f"phonemize: {res.returncode} {res.stdout[:200]!r} {res.stderr[-500:]}")
+        print(f"  phonemize: {res.stdout.strip()[:120]}", flush=True)
+
+        # ---- import_codec, on a codec exported by onnxtorch.export
+        cdir = os.path.join(tmp, "codec")
+        os.makedirs(cdir)
+        ccfg = CodecConfig()
+        cp = init_codec(torch.Generator(device=dev).manual_seed(3), ccfg, device=dev)
+        with kernels.force_plain():
+            for name, module, example, axes in (
+                    ("encoder", CodecEncoder(cp, ccfg), torch.zeros((1, 1, 4 * ccfg.hop), device=dev), {0: "b", 2: "t"}),
+                    ("decoder", CodecDecoder(cp, ccfg), torch.zeros((1, 4, 64), device=dev), {0: "b", 1: "t"})):
+                with open(os.path.join(cdir, f"{name}.onnx"), "wb") as f:
+                    f.write(export(module, (example,), dynamic_axes={"x": axes}, input_names=["x"]))
+        del cp
+        # 0.8 s: a whole number of hops (6), which the exported native encoder needs (the published one pads)
+        rc, out, secs = run_script("import_codec", import_codec.main,
+                                   ["--assets", cdir, "--save", os.path.join(tmp, "codec_import", "c"),
+                                    "--roundtrip-seconds", "0.8"])
+        snr = float(out.split("round-trip SNR vs input: ")[1].split(" dB")[0])
+        check(rc == 0 and np.isfinite(snr) and all(os.path.isfile(os.path.join(tmp, "codec_import", f"c_{s}.npz"))
+                                                    for s in ("enc", "dec")), f"import_codec: exit {rc}, SNR {snr}")
+        result["import_codec"] = dict(wall_s=secs, snr_db=snr)
+        torch.cuda.empty_cache()
+
+        # ---- bench_serving
+        lines = {}
+        for label, argv, n_req in (("32 requests", ["--clients", "8", "--requests", "4", "--duration", "5",
+                                                    "--max-batch", "8", "--proc-clients"], 32),
+                                   ("stream", ["--stream", "--sentences", "2", "--clients", "4", "--requests", "2"], 8)):
+            rc, out, secs = run_script(f"bench_serving {label}", bench_serving.main, argv)
+            line = json.loads(out.strip().splitlines()[-1])
+            check(rc == 0 and line["requests"] == n_req and 0 < line["latency_p50_ms"] <= line["latency_p95_ms"],
+                  f"bench_serving {label}: {line}")
+            if label == "stream":
+                check(0 < line["ttfb_p50_ms"] <= line["ttfb_p95_ms"], f"bench_serving stream: {line}")
+            lines[label] = dict(line, wall_s=secs)
+            made.clear()
+            torch.cuda.empty_cache()
+        result["bench_serving"] = lines
+
+        # ---- demo_quality_loop
+        kernels.reset_launches()
+        rc, out, secs = run_script("demo_quality_loop", demo_quality_loop.main, DEMO_ARGV)
+        summary = json.loads(out.strip().splitlines()[-1])
+
+        def finite(x):
+            return all(finite(v) for v in x.values()) if isinstance(x, dict) else (
+                isinstance(x, bool) or bool(np.isfinite(x)))
+
+        d16 = {str(shape[:4]) + " " + str(shape[5]).split(".")[-1]: n for (name, shape), n
+               in kernels.SHAPE_LAUNCHES.items() if name == "attention" and shape[4] == 16}
+        ctc = {n: kernels.LAUNCHES.get(n, 0) for n in ("ctc_forward", "ctc_backward")}
+        check(rc == 0 and finite(summary) and set(summary) == {"codec", "tts", "asr", "sv", "total_seconds"},
+              f"demo_quality_loop: exit {rc}, {summary}")
+        check(sum(d16.values()) > 0 and all(ctc.values()), f"demo_quality_loop: head dim 16 {d16}, CTC {ctc}")
+        marks = [(float(line[1:].split("s]")[0]), line.split("] ")[1].split(":")[0]) for line in out.splitlines()
+                 if line.startswith("[")]
+        stages = {name: round(t - t_prev, 3) for (t_prev, _), (t, name) in zip(marks, marks[1:])}
+        result["demo_quality_loop"] = dict(argv=DEMO_ARGV, wall_s=secs, stage_s=stages, summary=summary,
+                                           attention_launches_d16=d16, ctc_launches=ctc)
+        print(f"  demo_quality_loop stage seconds: {json.dumps(stages)}; attention launches at head dim 16 "
+              f"(B, H, Tq, S dtype): {json.dumps(d16)}; CTC launches {json.dumps(ctc)}", flush=True)
+    finally:
+        pipeline.SmallTTS = base
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase scripts: {json.dumps(result)}", flush=True)
+    for e in entries:
+        if e["name"] == "attention":
+            e["scripts"] = dict(clone_launches_a_batch=result["clone"]["launches_a_batch"]["attention"],
+                                demo_launches_d16=sum(d16.values()), seconds=result["seconds"])
+        elif e["name"] in ctc:
+            e["launches_scripts_demo"] = ctc[e["name"]]
+    return result
+
+
+def scripts_only(torch):
+    """`--scripts`: the kernels built, phase A at head dim 16, then phase
+    scripts alone. Prints every row."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    dev = torch.device("cuda")
+    entries = [dict(name="attention"), dict(name="ctc_forward"), dict(name="ctc_backward")]
+    attn_d16_phase(torch, dev, entries)
+    scripts_phase(torch, dev, entries)
+    print(json.dumps({"kernels": entries}))
+    return 0
+
 
 def _leaves(tree):
     if isinstance(tree, dict):

@@ -58,6 +58,13 @@
 //    fragments with no shuffle. The keys are split over a cluster and
 //    merged as bf16 does where the (b, h, q tile) blocks cannot fill the
 //    SMs (the teacher's DiT: 64 blocks, 6 splits).
+//  * D = 16 (the tiny configurations' 2 heads of 32 and 4 of 64): one more
+//    instance of each of the two kernels above. fp32 is attn_tf32_kernel<16>
+//    (its K/Q row stride rounded up to 40 floats, so a half-warp's reads
+//    still hit 32 banks); bf16 is attn_mma_kernel<16>, whose rows are 32
+//    bytes, two 16-byte chunks, swizzled over groups of 4 rows (swz). D = 16
+//    zero-padded into attn_mma_kernel<64>, as D = 120 is into 128, does four
+//    times the products and was slower on the card (see PERF.md).
 //  * D = 4, fp32 and bf16 (the ASR conformer's 16 heads of 4, which the
 //    distiller's CTC loss runs over 1024 frames): attn_small_kernel, fp32 on
 //    the CUDA cores. It replaces an earlier kernel (one query row a thread: 8
@@ -162,7 +169,7 @@ constexpr int FNT = 32 * FNW;
 constexpr int FMAXSPLIT = 8;       // key splits of one (b, h, q tile): the cluster's size
 
 template <int DP>
-struct MmaLayout {  // shared memory; DP is the head dim padded to 64 or 128
+struct MmaLayout {  // shared memory; DP is the head dim padded to 16, 64 or 128
   static constexpr int TILE = FBK * DP * 2;    // one bf16 K or V tile (Q's 64 rows have the same size)
   static constexpr int MASK = 4 * TILE;        // after [2 stages][K, V]: u8 key masks [2][FBK]
   static constexpr int ROW = MASK + 2 * FBK;   // then fp32 m[FBQ], l[FBQ], merge weights [FBQ][FMAXSPLIT]
@@ -172,10 +179,14 @@ struct MmaLayout {  // shared memory; DP is the head dim padded to 64 or 128
 };
 
 // element offset of 16-byte chunk `c` of row `r` in a tile of DP-wide bf16
-// rows: chunk c sits at c ^ (r % 8), so ldmatrix's 8 rows hit 8 bank groups
+// rows: chunk c sits at c ^ (r % 8), so ldmatrix's 8 rows hit 8 bank groups.
+// Rows of fewer than 8 chunks (DP = 16: 2) share a 128-byte line RPL to a
+// line, and the chunk is XORed with the line's index instead, over its CH
+// chunks: the 8 rows again hit 8 bank groups.
 template <int DP>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * DP + ((c ^ (r & 7)) << 3);
+  constexpr int CH = DP / 8, RPL = CH >= 8 ? 1 : 8 / CH;
+  return r * DP + ((c ^ ((r / RPL) & (CH >= 8 ? 7 : CH - 1))) << 3);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src, bool ok) {
@@ -588,7 +599,7 @@ constexpr int TBK = 32;  // keys per tile of the fp32 kernel
 template <int D>
 struct Tf32Layout {  // shared memory of attn_tf32_kernel<D>
   static constexpr int DP = (D + 15) / 16 * 16;        // Q's, K's, V's and O's columns (D = 120 zero-padded to 128)
-  static constexpr int KST = DP + 8;                   // K's and Q's row stride in floats
+  static constexpr int KST = (DP + 31) / 32 * 32 + 8;  // K's and Q's row stride in floats (40 at D = 16)
   static constexpr int VST = DP + 4;                   // V's
   static constexpr int KT = TBK * KST * 4;             // bytes of one K tile
   static constexpr int VT = TBK * VST * 4;             // and of one V tile
@@ -1170,10 +1181,12 @@ extern "C" int st_attention(int dtype, int D, void** ptrs, const long long* stri
   // loads otherwise: no alignment needed)
   switch (dtype * 1000 + D) {
     case 4: return launch_small<float>(a, s);
+    case 16: return launch_tf32<16>(a, s);
     case 64: return launch_tf32<64>(a, s);
     case 120: return launch_tf32<120>(a, s);
     case 128: return launch_tf32<128>(a, s);
     case 1004: return launch_small<__nv_bfloat16>(a, s);
+    case 1016: return launch_mma<16>(a, D, s);
     case 1064: return launch_mma<64>(a, D, s);
     case 1120: return launch_mma<128>(a, D, s);
     case 1128: return launch_mma<128>(a, D, s);

@@ -14,6 +14,11 @@ Noise is an argument, (num_steps, B, T, latent_dim). The running estimate,
 the noise, x_t and the CFG combination are float32, as in the JAX sampler;
 x_t is rounded to the params' dtype where it enters the denoiser, whose
 activations are in that dtype (the JAX sampler's take float32 from x_t).
+
+The scan's kernels are bf16 only, so a bf16 tree is fused into the serving
+layout and runs them, while a float32 tree in the split layout (a teacher
+as it trains) runs the blocks layer by layer in PyTorch ops, as the JAX
+sampler does, with the attention kernel in fp32 on the card.
 """
 
 from __future__ import annotations
@@ -37,15 +42,18 @@ def make_teacher_sampler(cfg: BackboneConfig, num_steps: int = 128, cfg_scale_te
                          cfg_scale_speaker: float = 1.5):
     """-> sample(params, ref, ref_len, ph, ph_len, seq_lens, noises, t_bucket)
     -> float32 latents (B, t_bucket, latent_dim), zero past each sequence length.
-    `params` is a backbone tree in the split or the fused serving layout."""
+    `params` is a backbone tree in the split or the fused serving layout;
+    a float32 tree keeps its layout (a fused float32 tree cannot run on the
+    card), any other is fused."""
 
     @torch.no_grad()
     def sample(params, ref, ref_len, ph, ph_len, seq_lens, noises, t_bucket: int):
         if noises.shape[0] != num_steps or noises.shape[2] != t_bucket:
             raise ValueError(f"noises {tuple(noises.shape)}: want ({num_steps}, B, {t_bucket}, {cfg.latent_dim})")
-        params = fuse_serving_projections(params)
-        b, dev = ref.shape[0], ref.device
         dtype = params["velocity"]["w"].dtype
+        if dtype != torch.float32:
+            params = fuse_serving_projections(params)
+        b, dev = ref.shape[0], ref.device
         mask = length_mask(seq_lens, t_bucket)
         ts = torch.linspace(1.0, 0.0, num_steps, dtype=torch.float32, device=dev)
         cond3 = _cfg_conditions(params, cfg, ref, ref_len, ph, length_mask(ph_len, ph.shape[1]))

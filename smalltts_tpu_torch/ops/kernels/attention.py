@@ -14,7 +14,8 @@ for the tests. fp32 runs the same design on the tensor cores with fp32
 accuracy (3xTF32: each operand split into tf32 hi + lo, three products).
 A head dim of 4 (the ASR conformer's), fp32 or bf16, runs a CUDA-core
 kernel of its own: four lanes a query row, each over every fourth key, with
-the tiles the key mask leaves dead skipped.
+the tiles the key mask leaves dead skipped. A head dim of 16 (the tiny
+configurations') runs an instance of each tensor-core kernel at that width.
 
 `attention` is the kernel behind a torch.autograd.Function, for training:
 its forward is `fused_attention` over one key source, ungated; its backward
@@ -33,7 +34,7 @@ import torch
 from smalltts_tpu_torch.ops import kernels, nn
 
 NAME = "attention"
-HEAD_DIMS = (4, 64, 120, 128)
+HEAD_DIMS = (4, 16, 64, 120, 128)
 KEY_TILE = 64  # keys per tile of the bf16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -161,3 +161,38 @@ def test_training_modules_and_a_cpu_teacher_run_load_no_jax():
     code += TRAIN + _loaded("after three CPU teacher steps and a save")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
+
+
+SCRIPTS = ["phonemize", "clone", "interactive", "batch", "tryme", "test_checkpoint", "import_codec", "test_x402",
+           "bench_serving", "demo_quality_loop", "eval_quality", "profile", "dryrun_multihost"]
+
+RUN_SCRIPTS = """
+import contextlib, importlib, io, os, tempfile
+for name in SCRIPTS:
+    main = importlib.import_module("smalltts_tpu_torch.scripts." + name).main
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        try:
+            rc = main(["--help"])
+        except SystemExit as e:
+            rc = e.code
+    assert rc in (0, None) and "usage" in out.getvalue(), (name, rc)
+from smalltts_tpu_torch.scripts import demo_quality_loop, phonemize
+assert phonemize.main(["hello", "world"]) == 0
+with tempfile.TemporaryDirectory() as d:
+    assert demo_quality_loop.main(["--device", "cpu", "--codec-steps", "1", "--teacher-steps", "1", "--asr-steps", "1",
+                                   "--sv-steps", "1", "--sample-steps", "1", "--samples-out", d]) == 0
+"""
+
+
+def test_script_entry_points_run_without_jax():
+    """Every module of smalltts_tpu_torch/scripts answers --help, phonemize
+    prints ids and the demo loop runs one step a stage on the CPU, with JAX
+    and the JAX package blocked."""
+    code = BLOCKED + f"SCRIPTS = {SCRIPTS!r}\n" + RUN_SCRIPTS
+    code += ("assert not {k.split('.')[0] for k, v in sys.modules.items() if v is not None} "
+             "& {'jax', 'jaxlib', 'smalltts_tpu'}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"})  # tiny ops: one intra-op thread
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert sorted(SCRIPTS) == sorted(f[:-3] for f in os.listdir(os.path.join(PKG, "scripts"))
+                                     if f.endswith(".py") and f != "__init__.py")
