@@ -91,7 +91,7 @@
    attention kernel at the distiller's shapes (the ASR's head dim 4, the
    discriminator's 1030 keys), one student, disc and scorer step against
    the plain versions, and train_distill at full width, 3 iterations at
-   batch 2 in fp32 with a save and 3 in bf16, with the exact attention
+   batch 2 in fp32 with a save and 2 in bf16, with the exact attention
    and CTC launches of each step. Last, phase train imf (see `imf_phase`):
    one fp32 IMF step against the plain versions, the bf16 teacher's
    rollout against its plain versions, and train_imf at full width,
@@ -131,6 +131,19 @@
    (32 requests from process clients, and a streamed run) and
    demo_quality_loop on the card with its head-dim-16 attention and CTC
    launches.
+   Then phase certify (see `certify_phase`): smalltts_tpu_torch.scripts.
+   certify at full width on a fixture tree around the imported phase's
+   four graphs (the CodecConfig() codec, the seed-0 328M backbone with the
+   published graph contracts), with the backbone's npz and reference .pt
+   and the graphs' reference latents as tryme latents: every stage passes
+   but espeak_goldens (skips: no espeak), quality passes or fails on its
+   mel threshold alone, its attention and scan launches counted; SmallTTS
+   against the imported graphs on the imported stage's noise; the runs
+   without assets and with a corrupt decoder. Phase ab (see `ab_phase`):
+   both A/B scripts at their default cells, the split layout against the
+   scan kernels, every line timing both arms. Last, phase imf (see
+   `imf_exp_phase`): exp_imf_boundary and exp_imf_source on the synthetic
+   corpus at cut step counts, with head-dim-16 attention launches.
 4. Prints the card's name and power limit, one JSON line of per-kernel
    numbers, and last {"ok": true, "device": {...}}.
 
@@ -176,6 +189,17 @@ runs phase parallel alone, after the kernels' build.
 
 runs phase A at head dim 16 and phase scripts alone, after the kernels'
 build.
+
+    python3 chip_smoke.py --certify | --ab | --imf
+
+runs phase certify, ab or imf alone, after the kernels' build.
+
+    python3 chip_smoke.py --imf-quality
+
+runs, after the kernels' build, tests/test_torch_imf_quality.py (the
+corpus test's assertions at the harness's step counts, 300 / 800 / 150 /
+400) on the card in a process of its own, and exits with pytest's code. The
+default run does not.
 
     python3 chip_smoke.py --ctc [--ctc-parent DIR]
 
@@ -427,6 +451,11 @@ def main() -> int:
         return codec_only(torch)
     if "--scripts" in sys.argv:
         return scripts_only(torch)
+    if "--imf-quality" in sys.argv:
+        return imf_quality_only(torch)
+    for flag, phase in (("--certify", certify_only), ("--ab", ab_phase), ("--imf", imf_exp_phase)):
+        if flag in sys.argv:
+            return phase_only(torch, phase, [dict(name="attention"), dict(name="fused_dit_scan")])
 
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.kernels import attention as A
@@ -1111,20 +1140,30 @@ def main() -> int:
         serve_main(entries, checkpoint=pt)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    onnx_phases(torch, dev, entries)
+    graphs = tempfile.mkdtemp(prefix="smoke_graphs_")  # the imported phase's graphs, phase certify's fixture
+    try:
+        inputs = onnx_phases(torch, dev, entries, graphs)
+        torch.cuda.empty_cache()
+        train_phases(torch, dev, entries)
+        torch.cuda.empty_cache()
+        for which in ("asr", "sv"):
+            aux_trainer_phase(torch, dev, entries, which)
+        corpus_phase(entries)
+        distill_phase(torch, dev, entries)
+        imf_phase(torch, dev, entries)
+        codec_phases(torch, dev, entries)
+        torch.cuda.empty_cache()
+        parallel_phase(torch, dev, entries)
+        torch.cuda.empty_cache()
+        scripts_phase(torch, dev, entries)
+        torch.cuda.empty_cache()
+        certify_phase(torch, dev, entries, graphs, inputs)
+    finally:
+        shutil.rmtree(graphs, ignore_errors=True)
     torch.cuda.empty_cache()
-    train_phases(torch, dev, entries)
+    ab_phase(torch, dev, entries)
     torch.cuda.empty_cache()
-    for which in ("asr", "sv"):
-        aux_trainer_phase(torch, dev, entries, which)
-    corpus_phase(entries)
-    distill_phase(torch, dev, entries)
-    imf_phase(torch, dev, entries)
-    codec_phases(torch, dev, entries)
-    torch.cuda.empty_cache()
-    parallel_phase(torch, dev, entries)
-    torch.cuda.empty_cache()
-    scripts_phase(torch, dev, entries)
+    imf_exp_phase(torch, dev, entries)
 
     print(f"card: {card}")
     print(json.dumps({"kernels": entries}))
@@ -1442,8 +1481,12 @@ ONNX_CODEC_TOL = 1e-5  # fp32, TF32 off in both: the same convolutions, some sum
 IMPORTED_TOL = 1e-4  # fp32 through 4 denoiser steps and the codec: op chains the exporter split differently
 
 
-def onnx_phases(torch, dev, entries):
-    """Phases onnx codec and imported, each printing its seconds.
+def onnx_phases(torch, dev, entries, root):
+    """Phases onnx codec and imported, each printing its seconds. The four
+    graphs are written into the caller's directory `root` in the layout
+    certify reads (codec/{encoder,decoder}.onnx, dmd/{condition_encoder,
+    denoiser}.onnx); returns the imported phase's inputs (imported_inputs:
+    ref, tokens, duration), on which phase certify builds its fixture.
 
     onnx codec: the port's full-width native codec (default CodecConfig, fp32,
     seed weights) wrapped with the VibeVoice contract (onnxtorch.export) and
@@ -1460,16 +1503,14 @@ def onnx_phases(torch, dev, entries):
     the `rope` input) and the decoder above; ImportedSmallTTS on the card
     with injected noise against the same recurrence over the torch modules
     the graphs came from (max |diff| / max |want| <= IMPORTED_TOL)."""
-    import tempfile
-
     import numpy as np
 
     from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
     from smalltts_tpu_torch.models.codec import CodecConfig, codec_decode, codec_encode, init_codec
     from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec
-    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, ConditionEncoder, Denoiser, export
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, ConditionEncoder, Denoiser
     from smalltts_tpu_torch.onnxtorch.interp import highest_precision
-    from smalltts_tpu_torch.onnxtorch.pipeline import ImportedSmallTTS, _rope_freqs
+    from smalltts_tpu_torch.onnxtorch.pipeline import ImportedSmallTTS
     from smalltts_tpu_torch.ops import kernels
     from smalltts_tpu_torch.ops.schedule import get_alpha_sigma
 
@@ -1479,117 +1520,157 @@ def onnx_phases(torch, dev, entries):
     t_phase = time.perf_counter()
     print("phase onnx codec: the native codec (default CodecConfig, fp32, seed 1 weights, as SmallTTS(seed=0) "
           "draws them) exported by torch.onnx.export, then OnnxCodec on the card", flush=True)
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = {n: os.path.join(tmp, n + ".onnx") for n in ("encoder", "decoder", "condition_encoder", "denoiser")}
-        ccfg = CodecConfig()
-        g = torch.Generator(device=dev).manual_seed(1)
-        cp = init_codec(g, ccfg, device=dev)
-        hop = ccfg.hop
-        t0 = time.perf_counter()
-        with kernels.force_plain():
-            for name, module, example, axes in (
-                    ("encoder", CodecEncoder(cp, ccfg), torch.zeros((1, 1, 4 * hop), device=dev), {0: "b", 2: "t"}),
-                    ("decoder", CodecDecoder(cp, ccfg), torch.zeros((1, 4, 64), device=dev), {0: "b", 1: "t"})):
-                blob = export(module, (example,), dynamic_axes={"x": axes}, input_names=["x"])
-                with open(paths[name], "wb") as f:
-                    f.write(blob)
-        export_s = time.perf_counter() - t0
-        codec = OnnxCodec(paths["encoder"], paths["decoder"], device=dev)
-        print(f"  exported in {export_s:.2f} s with dynamic batch and time axes (example: 4 frames; run below at "
-              f"40 and 64): {os.path.getsize(paths['encoder'])} and {os.path.getsize(paths['decoder'])} bytes; "
-              f"{codec.describe()}", flush=True)
-        lat = torch.randn((8, 40, 64), generator=g, device=dev)
-        wav = 0.1 * torch.randn((1, 1, 64 * hop), generator=g, device=dev)
-        with torch.inference_mode():
-            dec_err = rel(codec.decode_fn(codec.params, lat), codec_decode(cp, lat, ccfg))
-            enc_err = rel(codec.encode_fn(codec.params, wav), codec_encode(cp, wav, ccfg))
-        print(f"  OnnxCodec vs the native codec: decode (8, 40, 64) {dec_err:.3e}, encode (1, 1, 64 x hop) "
-              f"{enc_err:.3e} (max |diff| / max |native|, tolerance {ONNX_CODEC_TOL})", flush=True)
-        check(dec_err <= ONNX_CODEC_TOL and enc_err <= ONNX_CODEC_TOL, f"OnnxCodec: {dec_err:.3e}, {enc_err:.3e}")
-        tts = full_width_tts(torch, dev, codec=codec)
-        check(tts.onnx_codec is codec, "SmallTTS did not take the OnnxCodec")
-        args = padded_batch(tts)
-        noises = torch.randn((tts.num_steps, 8, 40, 64), generator=g, device=dev).to(tts.dtype)
-        got, want = tts.synthesize_padded(*args, fetch=False, noises=noises), eager_batch(tts, args, noises)
-        torch.cuda.synchronize()
-        n_diff = int((got != want).sum())
-        print(f"  SmallTTS(codec=OnnxCodec) replay vs eager, batch (8, r 64, p 384, t 40), same noise: {n_diff} of "
-              f"{got.numel()} int16 samples differ", flush=True)
-        check(n_diff == 0 and int(want.abs().max()) > 0, f"ONNX-codec replay differs from eager on {n_diff} samples")
-        rows = {"onnx codec": graph_timing(torch, tts, args)}
-        del tts
-        native_tts = full_width_tts(torch, dev, codec="native")
-        native_out = native_tts.synthesize_padded(*args, fetch=False, noises=noises)
-        rows["native codec"] = graph_timing(torch, native_tts, args)
-        lsb = int((native_out.int() - got.int()).abs().max())
-        del native_tts
-        torch.cuda.empty_cache()
-        print(f"  the same batch through the ONNX and the native codec: max |diff| {lsb} LSB; "
-              f"{json.dumps(rows)}", flush=True)
-        print(f"  phase onnx codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    paths = {n: os.path.join(root, sub, n + ".onnx") for sub, n in GRAPHS}
+    ccfg = CodecConfig()
+    g = torch.Generator(device=dev).manual_seed(1)
+    cp = init_codec(g, ccfg, device=dev)
+    hop = ccfg.hop
+    t0 = time.perf_counter()
+    export_codec_graphs(torch, dev, root, cp, ccfg)
+    export_s = time.perf_counter() - t0
+    codec = OnnxCodec(paths["encoder"], paths["decoder"], device=dev)
+    print(f"  exported in {export_s:.2f} s with dynamic batch and time axes (example: 4 frames; run below at "
+          f"40 and 64): {os.path.getsize(paths['encoder'])} and {os.path.getsize(paths['decoder'])} bytes; "
+          f"{codec.describe()}", flush=True)
+    lat = torch.randn((8, 40, 64), generator=g, device=dev)
+    wav = 0.1 * torch.randn((1, 1, 64 * hop), generator=g, device=dev)
+    with torch.inference_mode():
+        dec_err = rel(codec.decode_fn(codec.params, lat), codec_decode(cp, lat, ccfg))
+        enc_err = rel(codec.encode_fn(codec.params, wav), codec_encode(cp, wav, ccfg))
+    print(f"  OnnxCodec vs the native codec: decode (8, 40, 64) {dec_err:.3e}, encode (1, 1, 64 x hop) "
+          f"{enc_err:.3e} (max |diff| / max |native|, tolerance {ONNX_CODEC_TOL})", flush=True)
+    check(dec_err <= ONNX_CODEC_TOL and enc_err <= ONNX_CODEC_TOL, f"OnnxCodec: {dec_err:.3e}, {enc_err:.3e}")
+    tts = full_width_tts(torch, dev, codec=codec)
+    check(tts.onnx_codec is codec, "SmallTTS did not take the OnnxCodec")
+    args = padded_batch(tts)
+    noises = torch.randn((tts.num_steps, 8, 40, 64), generator=g, device=dev).to(tts.dtype)
+    got, want = tts.synthesize_padded(*args, fetch=False, noises=noises), eager_batch(tts, args, noises)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    print(f"  SmallTTS(codec=OnnxCodec) replay vs eager, batch (8, r 64, p 384, t 40), same noise: {n_diff} of "
+          f"{got.numel()} int16 samples differ", flush=True)
+    check(n_diff == 0 and int(want.abs().max()) > 0, f"ONNX-codec replay differs from eager on {n_diff} samples")
+    rows = {"onnx codec": graph_timing(torch, tts, args)}
+    del tts
+    native_tts = full_width_tts(torch, dev, codec="native")
+    native_out = native_tts.synthesize_padded(*args, fetch=False, noises=noises)
+    rows["native codec"] = graph_timing(torch, native_tts, args)
+    lsb = int((native_out.int() - got.int()).abs().max())
+    del native_tts
+    torch.cuda.empty_cache()
+    print(f"  the same batch through the ONNX and the native codec: max |diff| {lsb} LSB; "
+          f"{json.dumps(rows)}", flush=True)
+    print(f"  phase onnx codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
-        t_phase = time.perf_counter()
-        print("phase imported: ImportedSmallTTS on the seed-0 backbone's condition encoder and cached DiT step "
-              "(fp32, exported with the published positional contract) and the decoder above", flush=True)
-        cfg = BackboneConfig()
-        gb = torch.Generator(device=dev).manual_seed(0)
-        bp = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
-        cond, den, dec = ConditionEncoder(bp, cfg), Denoiser(bp, cfg), CodecDecoder(cp, ccfg)
-        del bp
-        rs = np.random.RandomState(0)
-        R, P, dur = 64, 200, 5.0
-        S = int(dur * 24_000 / 3_200)
-        ref = rs.randn(R, 64).astype(np.float32)
-        tokens = rs.randint(1, 198, P).tolist()
-        mask_p = torch.ones((1, P), dtype=torch.bool, device=dev)
-        cargs = (torch.from_numpy(ref[None]).to(dev), torch.tensor([R], device=dev),
-                 torch.tensor([tokens], device=dev), mask_p)
-        rope = torch.from_numpy(_rope_freqs(S)).to(dev)
-        t0 = time.perf_counter()
-        with kernels.force_plain(), highest_precision():
-            with torch.no_grad():
-                kv = cond(*cargs)
-            for name, module, example in (("condition_encoder", cond, cargs), (
-                    "denoiser", den, (torch.zeros((1, S, 64), device=dev), torch.ones((1, S), dtype=torch.bool,
-                                      device=dev), torch.tensor([0.5], device=dev), *kv, mask_p, rope))):
-                with open(paths[name], "wb") as f:
-                    f.write(export(module, example))
-        export_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        imported = ImportedSmallTTS(paths["condition_encoder"], paths["denoiser"], paths["decoder"], device=dev)
-        load_s = time.perf_counter() - t0
-        n_in = len(imported.denoiser.input_names)
-        print(f"  exported in {export_s:.2f} s ({os.path.getsize(paths['condition_encoder'])} and "
-              f"{os.path.getsize(paths['denoiser'])} bytes; R {R}, P {P}, S {S} fixed by the tracer), loaded in "
-              f"{load_s:.2f} s; denoiser graph: {len(imported.denoiser.model.graph.nodes)} nodes, {n_in} inputs",
-              flush=True)
-        check(n_in == 10, f"the denoiser graph has {n_in} inputs, want the contract's 10")
-        noises = rs.randn(4, 1, S, 64).astype(np.float32)
-        t0 = time.perf_counter()
-        got = imported.synthesize(ref, tokens, dur, noises=noises)
-        synth_s = time.perf_counter() - t0
-        with kernels.force_plain(), highest_precision(), torch.inference_mode():
-            ts = torch.linspace(1.0, 0.0, 4, device=dev)
-            alphas, sigmas = get_alpha_sigma(ts)
-            x = torch.zeros((1, S, 64), device=dev)
-            mask = torch.ones((1, S), dtype=torch.bool, device=dev)
-            for i in range(4):
-                x_t = alphas[i] * x + sigmas[i] * torch.from_numpy(noises[i]).to(dev)
-                x = alphas[i] * x_t - sigmas[i] * den(x_t, mask, ts[i:i + 1], *kv, mask_p, rope)
-            want = dec(x)[0].cpu().numpy()
-        err = float(np.abs(got - want).max() / np.abs(want).max())
-        print(f"  ImportedSmallTTS vs the torch modules, same noise: waveform {got.shape}, max |diff| / max |want| "
-              f"{err:.3e} (tolerance {IMPORTED_TOL}); synthesize {synth_s:.2f} s", flush=True)
-        check(got.shape == (1, S * hop) and bool(np.isfinite(got).all()) and err <= IMPORTED_TOL,
-              f"imported: {got.shape}, {err:.3e}")
-        del cond, den, dec, imported
-        torch.cuda.empty_cache()
-        print(f"  phase imported: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    t_phase = time.perf_counter()
+    print("phase imported: ImportedSmallTTS on the seed-0 backbone's condition encoder and cached DiT step "
+          "(fp32, exported with the published positional contract) and the decoder above", flush=True)
+    cfg = BackboneConfig()
+    gb = torch.Generator(device=dev).manual_seed(0)
+    bp = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
+    cond, den, dec = ConditionEncoder(bp, cfg), Denoiser(bp, cfg), CodecDecoder(cp, ccfg)
+    del bp
+    rs, inputs = imported_inputs()
+    ref, tokens, dur = inputs["ref"], inputs["tokens"], inputs["duration"]
+    R, P, S = ref.shape[0], len(tokens), int(dur * 24_000 / 3_200)
+    t0 = time.perf_counter()
+    kv, mask_p, rope = export_backbone_graphs(torch, dev, root, cond, den, ref, tokens, S)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imported = ImportedSmallTTS(paths["condition_encoder"], paths["denoiser"], paths["decoder"], device=dev)
+    load_s = time.perf_counter() - t0
+    n_in = len(imported.denoiser.input_names)
+    print(f"  exported in {export_s:.2f} s ({os.path.getsize(paths['condition_encoder'])} and "
+          f"{os.path.getsize(paths['denoiser'])} bytes; R {R}, P {P}, S {S} fixed by the tracer), loaded in "
+          f"{load_s:.2f} s; denoiser graph: {len(imported.denoiser.model.graph.nodes)} nodes, {n_in} inputs",
+          flush=True)
+    check(n_in == 10, f"the denoiser graph has {n_in} inputs, want the contract's 10")
+    noises = rs.randn(4, 1, S, 64).astype(np.float32)
+    t0 = time.perf_counter()
+    got = imported.synthesize(ref, tokens, dur, noises=noises)
+    synth_s = time.perf_counter() - t0
+    with kernels.force_plain(), highest_precision(), torch.inference_mode():
+        ts = torch.linspace(1.0, 0.0, 4, device=dev)
+        alphas, sigmas = get_alpha_sigma(ts)
+        x = torch.zeros((1, S, 64), device=dev)
+        mask = torch.ones((1, S), dtype=torch.bool, device=dev)
+        for i in range(4):
+            x_t = alphas[i] * x + sigmas[i] * torch.from_numpy(noises[i]).to(dev)
+            x = alphas[i] * x_t - sigmas[i] * den(x_t, mask, ts[i:i + 1], *kv, mask_p, rope)
+        want = dec(x)[0].cpu().numpy()
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"  ImportedSmallTTS vs the torch modules, same noise: waveform {got.shape}, max |diff| / max |want| "
+          f"{err:.3e} (tolerance {IMPORTED_TOL}); synthesize {synth_s:.2f} s", flush=True)
+    check(got.shape == (1, S * hop) and bool(np.isfinite(got).all()) and err <= IMPORTED_TOL,
+          f"imported: {got.shape}, {err:.3e}")
+    del cond, den, dec, imported
+    torch.cuda.empty_cache()
+    print(f"  phase imported: {time.perf_counter() - t_phase:.2f} s", flush=True)
     for e in entries:
         if e["name"] == "fused_dit_scan":
             e["onnx"] = dict(codec_decode_rel=dec_err, codec_encode_rel=enc_err, imported_rel=err,
                              **{k: {m: v[m] for m in ("dispatch_ms_median", "wall_ms_median", "graph_span_ms")}
                                 for k, v in rows.items()})
+    return inputs
+
+
+# the four graphs certify reads, (directory, name) under the assets root
+GRAPHS = (("codec", "encoder"), ("codec", "decoder"), ("dmd", "condition_encoder"), ("dmd", "denoiser"))
+
+
+def imported_inputs():
+    """The imported phase's inputs, which phase certify's fixture shares:
+    R 64 reference frames and P 200 tokens from RandomState(0), 5 s.
+    Returns the RandomState (the imported phase draws its noises next) and
+    dict(ref, tokens, duration)."""
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    ref = rs.randn(64, 64).astype(np.float32)
+    return rs, dict(ref=ref, tokens=rs.randint(1, 198, 200).tolist(), duration=5.0)
+
+
+def export_codec_graphs(torch, dev, root, cp, ccfg):
+    """The codec's encoder and decoder (onnxtorch.export, the kernels' plain
+    versions, dynamic batch and time axes) as root/codec/{encoder,decoder}.onnx."""
+    from smalltts_tpu_torch.onnxtorch.export import CodecDecoder, CodecEncoder, export
+    from smalltts_tpu_torch.ops import kernels
+
+    os.makedirs(os.path.join(root, "codec"), exist_ok=True)
+    with kernels.force_plain():
+        for name, module, example, axes in (
+                ("encoder", CodecEncoder(cp, ccfg), torch.zeros((1, 1, 4 * ccfg.hop), device=dev), {0: "b", 2: "t"}),
+                ("decoder", CodecDecoder(cp, ccfg), torch.zeros((1, 4, 64), device=dev), {0: "b", 1: "t"})):
+            blob = export(module, (example,), dynamic_axes={"x": axes}, input_names=["x"])
+            with open(os.path.join(root, "codec", f"{name}.onnx"), "wb") as f:
+                f.write(blob)
+
+
+def export_backbone_graphs(torch, dev, root, cond, den, ref, tokens, S):
+    """The backbone's condition encoder and cached DiT step with the published
+    positional contract, traced in fp32 at (R, P, S) on the kernels' plain
+    versions, as root/dmd/{condition_encoder,denoiser}.onnx. Returns the
+    denoiser's fixed inputs: the condition K/V, the phoneme mask, the RoPE."""
+    from smalltts_tpu_torch.onnxtorch.export import export
+    from smalltts_tpu_torch.onnxtorch.interp import highest_precision
+    from smalltts_tpu_torch.onnxtorch.pipeline import _rope_freqs
+    from smalltts_tpu_torch.ops import kernels
+
+    os.makedirs(os.path.join(root, "dmd"), exist_ok=True)
+    R, P = ref.shape[0], len(tokens)
+    mask_p = torch.ones((1, P), dtype=torch.bool, device=dev)
+    cargs = (torch.from_numpy(ref[None]).to(dev), torch.tensor([R], device=dev), torch.tensor([tokens], device=dev),
+             mask_p)
+    rope = torch.from_numpy(_rope_freqs(S)).to(dev)
+    with kernels.force_plain(), highest_precision():
+        with torch.no_grad():
+            kv = cond(*cargs)
+        for name, module, example in (("condition_encoder", cond, cargs), (
+                "denoiser", den, (torch.zeros((1, S, 64), device=dev), torch.ones((1, S), dtype=torch.bool, device=dev),
+                                  torch.tensor([0.5], device=dev), *kv, mask_p, rope))):
+            with open(os.path.join(root, "dmd", f"{name}.onnx"), "wb") as f:
+                f.write(export(module, example))
+    return kv, mask_p, rope
 
 
 # the attention Function's dq/dk/dv against autograd through attention_plain, max|diff|/max|plain|:
@@ -2899,7 +2980,7 @@ def distill_phase(torch, dev, entries):
       losses within DISTILL_LOSS_TOL, each module's gradient within
       DISTILL_GRAD_TOL rel-L2.
     - train_distill, 3 iterations at batch 2 in fp32 (a save at the last,
-      into a temporary directory that is removed) and 3 in bf16: the
+      into a temporary directory that is removed) and 2 in bf16: the
       attention launches of each iteration, counted, equal to what
       distill_attention_launches derives (step 0's gates are shut: `step >
       0`), one launch of each CTC kernel an iteration with the ASR's gate
@@ -2907,9 +2988,9 @@ def distill_phase(torch, dev, entries):
       against plain above; the metrics finite; student, scorer and disc
       changed; the teacher bit-equal to its start; the saved npz files
       reload equal. Peak max_memory_allocated. Then, on the trained state,
-      4 more iterations step by step, the first with the gates shut: each
+      3 more iterations step by step, the first with the gates shut: each
       step's launches, in all and by shape (the conformers' against the
-      derived counts), and the median ms of the last 3; in fp32 one
+      derived counts), and the median ms of the last 2; in fp32 one
       iteration's host dispatch and wall, and one profiled iteration's
       device busy time and idle share. Each held shape's launches an
       iteration, as counted, go into its row of the kernels line."""
@@ -3027,8 +3108,9 @@ def distill_phase(torch, dev, entries):
         print("  attention at the distiller's shapes: " + json.dumps(row), flush=True)
         del q, k, v, dout, got, want
     attn["head_dims"] = list(A.HEAD_DIMS)
+    attn["padded_head_dims"] = dict(A.PADDED_HEAD_DIMS)
     attn["distill_shapes"] = rows
-    for D_bad in (8, 32):  # any other head dim still raises
+    for D_bad in (12, 32):  # any other head dim still raises
         z = torch.zeros((1, 1, 4, D_bad), device=dev)
         try:
             A.fused_attention(z, z, z, torch.ones((1, 4), dtype=torch.bool, device=dev))
@@ -3123,10 +3205,10 @@ def distill_phase(torch, dev, entries):
         return {k: n for k, n in counts.items() if k == asr_key or k in disc_keys.values()}
 
     def breakdown(tcfg, student, scorer, disc_p, teacher_p, profile):
-        """Four more iterations on the trained state, step by step (each
+        """Three more iterations on the trained state, step by step (each
         step synchronized and timed, its attention launches counted, in all
-        and by shape): the first at step 0 (the gates shut), three at step
-        10 (open; the step ms medians are theirs). With `profile` one more
+        and by shape): the first at step 0 (the gates shut), two at step 10
+        (open; the step ms medians are theirs). With `profile` one more
         iteration's host dispatch (queued, unsynchronized) and wall, and
         one profiled."""
         txs = (distill_optimizer(student), distill_optimizer(disc_p), distill_optimizer(scorer))
@@ -3160,7 +3242,7 @@ def distill_phase(torch, dev, entries):
         per_step = {"student": [], "disc": [], "scorer": [], "iteration": []}
         launches = {"gates shut": {}, "gates open": []}
         by_shape = {}
-        for i, step in enumerate((0, 10, 10, 10)):
+        for i, step in enumerate((0, 10, 10)):
             gates = "gates open" if step > tcfg.asr_start_step else "gates shut"
             timer, counts = [], {}
             iteration(b, step, timer)
@@ -3207,7 +3289,7 @@ def distill_phase(torch, dev, entries):
     runs = {}
     try:
         for dtype, save in (("float32", True), ("bfloat16", False)):
-            steps = 3
+            steps = 3 if save else 2  # train_distill saves at a step past 1
             stamps, counts, shapes_seen, metrics_seen = [], [], [], []
 
             def on_step(step, metrics):
@@ -3315,7 +3397,7 @@ IMF_GRAD_TOL = 1e-4
 # fp32 sums in another order through 4 substeps of 12 layers
 IMF_ROLLOUT_TOL = 1e-4
 # unprofiled iterations timed a variant, after its first
-IMF_TIMED = 5
+IMF_TIMED = 3
 
 
 def imf_launches(cfg, disc_cfg, tc, data):
@@ -5046,17 +5128,7 @@ def parallel_phase(torch, dev, entries):
     print(f"(c) the kernels at the shard shapes the ranks launched ({len(shapes)} attention shapes), against plain; "
           f"card {card}", flush=True)
     rows = shard_kernels(torch, dev, shapes)
-    t0 = time.perf_counter()
-    dry = subprocess.run([sys.executable, "-m", "smalltts_tpu_torch.scripts.dryrun_multihost"], capture_output=True,
-                         text=True, timeout=PARALLEL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)),
-                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
-    dry_s = time.perf_counter() - t0
-    check(dry.returncode == 0, f"dryrun_multihost failed: {dry.stderr[-2000:]}")
-    dry_res = json.loads(dry.stdout.strip().splitlines()[-1])
-    check(dry_res["ok"] is True and dry_res["rel_diff_tp1"] < 2e-4 and dry_res["rel_diff_tp2"] < 2e-4,
-          f"dryrun_multihost: {dry.stdout[-1000:]}")
-    print(f"dry run, 4 gloo ranks on the CPU: {json.dumps({k: dry_res[k] for k in ('loss_dp', 'loss_dp_tp', 'single_process_loss', 'rel_diff_tp1', 'rel_diff_tp2', 'tp_ckpt_leaves')})}, "
-          f"{dry_s:.1f} s", flush=True)
+    dry_s = dry_run_phase()
     wall = time.perf_counter() - t_phase
     peak = max(r["peak_gb"] for r in [nccl] + gloo)
     summary = dict(seconds=wall, nccl_world1_s=t_nccl, gloo_two_ranks_s=t_gloo, dryrun_s=dry_s, peak_gb_a_rank=peak,
@@ -5073,19 +5145,43 @@ def parallel_phase(torch, dev, entries):
           f"{dry_s:.1f} s), peak {peak:.2f} GB a rank; card {card}", flush=True)
 
 
+def dry_run_phase():
+    """The four-rank dry run (smalltts_tpu_torch.scripts.dryrun_multihost)
+    on CPU ranks: the dp and dp x tp losses within 2e-4 of one process's.
+    Returns its seconds."""
+    t0 = time.perf_counter()
+    dry = subprocess.run([sys.executable, "-m", "smalltts_tpu_torch.scripts.dryrun_multihost"], capture_output=True,
+                         text=True, timeout=PARALLEL_TIMEOUT_S, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    dry_s = time.perf_counter() - t0
+    check(dry.returncode == 0, f"dryrun_multihost failed: {dry.stderr[-2000:]}")
+    dry_res = json.loads(dry.stdout.strip().splitlines()[-1])
+    check(dry_res["ok"] is True and dry_res["rel_diff_tp1"] < 2e-4 and dry_res["rel_diff_tp2"] < 2e-4,
+          f"dryrun_multihost: {dry.stdout[-1000:]}")
+    print(f"dry run, 4 gloo ranks on the CPU: {json.dumps({k: dry_res[k] for k in ('loss_dp', 'loss_dp_tp', 'single_process_loss', 'rel_diff_tp1', 'rel_diff_tp2', 'tp_ckpt_leaves')})}, "
+          f"{dry_s:.1f} s", flush=True)
+    return dry_s
+
+
 # ------------------------------------------------------------------ head dim 16
 
 # the tiny configurations' attention (head dim 16) at the demo loop's shapes, batch 2: the DiT's joint
 # self + ref + text keys as one source (4 heads), the ASR conformer's 4x-upsampled frames (4 heads), the
 # text encoder's tokens (2 heads)
-D16_SHAPES = (("demo dit T=40 + ref 8 + text 16", 2, 4, 40, 64), ("demo asr T=36", 2, 4, 36, 36),
-              ("demo text P=16", 2, 2, 16, 16))
+D16_SHAPES = (("demo dit T=40 + ref 8 + text 16", 2, 4, 40, 64, 16), ("demo asr T=36", 2, 4, 36, 36, 16),
+              ("demo text P=16", 2, 2, 16, 16, 16),
+              # head dim 8, zero-padded into the head-dim-16 instance: the tiny discriminator's conformer (4 heads
+              # of 8) at the corpus harness's real and fake halves (B 12)
+              ("corpus disc conformer", 12, 4, 52, 52, 8))
 
 
 def attn_d16_phase(torch, dev, entries):
     """Phase A, head dim 16: attn_tf32_kernel<16> (fp32) and
     attn_mma_kernel<16> (bf16) against attention_plain at the demo loop's
-    shapes (D16_SHAPES; one row of each batch fully masked), at the phase's
+    shapes, and head dim 8 zero-padded into them at the corpus harness's
+    discriminator shape (D16_SHAPES; one row of each batch fully masked;
+    the wall time of the head-dim-8 rows holds the padding copies, their
+    device time the kernel alone), at the phase's
     tolerances (1e-5 fp32, 2e-2 bf16), timed on the device clock beside the
     plain version, scaled_dot_product_attention and the bound (bytes, or
     4 B H Tq S D flops at the dtype's peak, as row 1's). The rows go into
@@ -5098,24 +5194,24 @@ def attn_d16_phase(torch, dev, entries):
     print("phase A, head dim 16: attention kernel vs plain at the demo loop's shapes (tolerance: max|diff|/max|plain| "
           "<= 1e-5 fp32, 2e-2 bf16)", flush=True)
     rows = []
-    for label, B, H, T, S in D16_SHAPES:
+    for label, B, H, T, S, D in D16_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q = torch.randn((B, H, T, 16), generator=g, device=dev).to(dtype)
-            k, v = (torch.randn((B, H, S, 16), generator=g, device=dev).to(dtype) for _ in range(2))
+            q = torch.randn((B, H, T, D), generator=g, device=dev).to(dtype)
+            k, v = (torch.randn((B, H, S, D), generator=g, device=dev).to(dtype) for _ in range(2))
             m = torch.arange(S, device=dev)[None] < torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)[:, None]
             m[-1] = False  # a fully-masked row: a uniform average
             got = A.fused_attention(q, k, v, m)
             want = A.attention_plain(q, k, v, m)
             abs_e = float((got.float() - want.float()).abs().max())
             rel_e = abs_e / float(want.float().abs().max())
-            check(rel_e <= tol[dtype], f"attention D=16 {label} {dtype}: rel err {rel_e:.3e}")
+            check(rel_e <= tol[dtype], f"attention D={D} {label} {dtype}: rel err {rel_e:.3e}")
             ms, wall, clock = timed(lambda: A.fused_attention(q, k, v, m), 20, ATTN_KERNELS)
-            check(clock in DEVICE_CLOCKS, f"attention D=16 {label} {dtype}: no device-clock time")
+            check(clock in DEVICE_CLOCKS, f"attention D={D} {label} {dtype}: no device-clock time")
             plain_ms = timed(lambda: A.attention_plain(q, k, v, m), 20)[0]
             lib_ms = timed(lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=m[:, None, None, :]), 20)[0]
-            b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * T * S * 16, attn_kind(dtype, 16))
-            row = dict(shape=f"{label} B={B} H={H} Tq={T} S={S} D=16", dtype=str(dtype).split(".")[-1],
+            b_ms, b_by = bound(nbytes(q, k, v, m, got), 4.0 * B * H * T * S * D, attn_kind(dtype, D))
+            row = dict(shape=f"{label} B={B} H={H} Tq={T} S={S} D={D}", dtype=str(dtype).split(".")[-1],
                        kernel="attn_mma_kernel<16>" if dtype == torch.bfloat16 else "attn_tf32_kernel<16>",
                        max_abs_err=abs_e, rel_err=rel_e, ms=ms, wall_ms=wall, clock=clock, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -5486,6 +5582,361 @@ def scripts_only(torch):
     entries = [dict(name="attention"), dict(name="ctc_forward"), dict(name="ctc_backward")]
     attn_d16_phase(torch, dev, entries)
     scripts_phase(torch, dev, entries)
+    print(json.dumps({"kernels": entries}))
+    return 0
+
+
+# ------------------------------------------------------------------ certify, A/B, IMF corpus
+
+# SmallTTS's sampler against the imported graphs (fp32) on the same noise, rel-L2 of the waveform: in fp32 on
+# the split layout, sums in another order and the 3xTF32 attention (IMPORTED_TOL, as the imported phase holds
+# the graphs to the torch modules); in bf16 through the scan kernels, the bf16 weights and activations through
+# 4 steps, held as the int8 path is held to bf16 (W8_VS_BF16_TOL). A wiring fault (a wrong noise slot, frame or
+# mask) gives O(1)
+CERTIFY_VS_IMPORTED_TOL = {"fp32 split": IMPORTED_TOL, "bf16 scan": W8_VS_BF16_TOL}
+# the IMF phase's cut step counts: codec, teacher, DMD2, IMF (the harness's defaults: 300, 800, 150, 400)
+IMF_CUT = dict(codec_steps=20, teacher_steps=40, dmd_steps=10, imf_steps=20)
+
+
+def certify_fixture(torch, dev, root, inputs):
+    """The rest of the assets tree certify reads, beside the four graphs
+    that the imported phase (or certify_graphs) wrote into `root`: the
+    seed-0 backbone (zero-init leaves re-drawn, the graphs' weights) as
+    dmd/student_latest.npz (backbone_meta) and as the reference-layout
+    teacher_checkpoints/seed0.pt, and the graphs' reference latents
+    (`inputs`, imported_inputs) as tryme/latents.npy. Returns the backbone
+    params and (R, tokens, S, duration)."""
+    import numpy as np
+
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.utils import checkpoint as ckpt
+    from smalltts_tpu_torch.utils.config_io import backbone_meta
+    from smalltts_tpu_torch.utils.convert import params_to_jax
+    from smalltts_tpu_torch.utils.torch_convert import backbone_state_dict
+
+    for sub in ("tryme", "teacher_checkpoints"):
+        os.makedirs(os.path.join(root, sub))
+    cfg = BackboneConfig()
+    gb = torch.Generator(device=dev).manual_seed(0)
+    bp = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
+    ref, tokens, duration = inputs["ref"], inputs["tokens"], inputs["duration"]
+    np.save(os.path.join(root, "tryme", "latents.npy"), ref)
+    jax_layout = params_to_jax(bp)
+    ckpt.save_pytree(os.path.join(root, "dmd", "student_latest.npz"), jax_layout, meta=backbone_meta(cfg))
+    torch.save(backbone_state_dict(jax_layout), os.path.join(root, "teacher_checkpoints", "seed0.pt"))
+    del jax_layout
+    torch.cuda.empty_cache()
+    return bp, (ref.shape[0], tokens, max(1, int(duration * 24_000 / 3_200)), duration)
+
+
+def certify_graphs(torch, dev, root):
+    """`--certify`'s four graphs, without the onnx phases' checks: the
+    seed-1 CodecConfig() codec and the seed-0 backbone's condition encoder
+    and denoiser at the imported phase's inputs, exported by the helpers
+    that phase uses into `root`. Returns those inputs."""
+    from smalltts_tpu_torch.models.backbone import BackboneConfig, init_backbone, redraw_zero_init
+    from smalltts_tpu_torch.models.codec import CodecConfig, init_codec
+    from smalltts_tpu_torch.onnxtorch.export import ConditionEncoder, Denoiser
+
+    ccfg = CodecConfig()
+    export_codec_graphs(torch, dev, root, init_codec(torch.Generator(device=dev).manual_seed(1), ccfg, device=dev),
+                        ccfg)
+    cfg = BackboneConfig()
+    gb = torch.Generator(device=dev).manual_seed(0)
+    bp = redraw_zero_init(init_backbone(gb, cfg, device=dev), gb)
+    _, inputs = imported_inputs()
+    export_backbone_graphs(torch, dev, root, ConditionEncoder(bp, cfg), Denoiser(bp, cfg), inputs["ref"],
+                           inputs["tokens"], int(inputs["duration"] * 24_000 / 3_200))
+    torch.cuda.empty_cache()
+    return inputs
+
+
+def certify_only(torch, dev, entries):
+    """`--certify`'s phase: certify_graphs into a directory of its own, then
+    phase certify on it."""
+    root = tempfile.mkdtemp(prefix="smoke_graphs_")
+    try:
+        return certify_phase(torch, dev, entries, root, certify_graphs(torch, dev, root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def certify_phase(torch, dev, entries, root, inputs):
+    """Phase certify: smalltts_tpu_torch.scripts.certify at full width on a
+    fixture tree in `root`, the four graphs already there and the rest made
+    here (certify_fixture), the whole run as a user
+    makes it: every stage passes but espeak_goldens, which skips (no espeak
+    on the card), and the quality stage, whose mel reading against the
+    imported audio is a reading on random weights with noise of its own
+    (it passes under certify's 2.0, or fails on that assertion alone, with
+    the reading in its error). The quality stage's launches are counted (set
+    to 0 just before it): the attention kernel and every scan kernel, at
+    least one batch's (68, 384). Then SmallTTS's sampler and codec on the
+    same weights, in fp32 on the split layout and in bf16 through the scan
+    kernels, with the imported stage's RandomState(7) noises injected at its
+    frames, the S frames of latents decoded alone as the imported pipeline
+    decodes them, against the imported audio (CERTIFY_VS_IMPORTED_TOL rel-L2
+    of the waveform); a run
+    without assets (every stage skips, main exits 0) and a corrupt decoder
+    (codec_parity fails, main exits 1). Prints every stage's status and
+    seconds."""
+    import numpy as np
+
+    from smalltts_tpu_torch.data.bucketing import (
+        LATENT_BUCKETS,
+        SERVING_PHONEME_BUCKETS,
+        SERVING_REF_BUCKETS,
+        pad_to,
+        pick_bucket,
+    )
+    from smalltts_tpu_torch.infer.pipeline import SmallTTS
+    from smalltts_tpu_torch.infer.sampler import sample_latents
+    from smalltts_tpu_torch.onnxtorch.codec import OnnxCodec
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.scripts import certify
+
+    t_phase = time.perf_counter()
+    print("phase certify: smalltts_tpu_torch.scripts.certify on a full-width fixture tree (the CodecConfig() codec and "
+          "the seed-0 328M backbone exported with the published contracts, as an npz and a reference .pt)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="smoke_certify_")
+    stages0, env = list(certify.STAGES), dict(os.environ)
+    hub = sys.modules.get("huggingface_hub")
+    sys.modules["huggingface_hub"] = None  # certify's assets stage must find no hub to download from
+    os.environ.pop(certify.REFERENCE_SRC_VAR, None)  # checkpoint_parity's oracle skips (no reference tree here)
+    result = dict(card=card_line())
+    try:
+        t0 = time.perf_counter()
+        bp, (R, tokens, S, duration) = certify_fixture(torch, dev, root, inputs)
+        result["fixture_s"] = time.perf_counter() - t0
+        print(f"  fixture made in {result['fixture_s']:.2f} s: R {R}, P {len(tokens)}, S {S}", flush=True)
+        ctxs, launches = [], {}
+
+        def wrap(name, fn):
+            def stage(ctx):
+                if name == "quality":
+                    kernels.reset_launches()
+                try:
+                    return fn(ctx)
+                finally:
+                    if name == "quality":
+                        launches.update({k: v for k, v in kernels.LAUNCHES.items() if v})
+                    ctxs.append(ctx)
+
+            return name, stage
+
+        certify.STAGES = [wrap(n, f) for n, f in stages0]
+        report = certify.run_certification(root, os.path.join(tmp, "CERTIFY.json"), device="cuda",
+                                           ctx_extra={"tokens": tokens, "duration": duration})
+        certify.STAGES = stages0
+        st = report["stages"]
+        result["stages"] = {n: dict(status=e["status"], elapsed_s=e["elapsed_s"],
+                                    **{k: e[k] for k in ("reason", "error", "mel_distance_native_vs_imported",
+                                                         "sv_similarity", "roundtrip_mel_distance", "roundtrip_snr_db",
+                                                         "latent_shape", "hop", "decode_shape", "samples",
+                                                         "forward_rms", "oracle_cross_check", "seconds", "rms")
+                                       if k in e}) for n, e in st.items()}
+        print(f"  report: {report['summary']}; {json.dumps(result['stages'])}", flush=True)
+        want = {n: "pass" for n, _ in stages0}
+        want["espeak_goldens"] = "skip"
+        quality_fail = (st["quality"]["status"] == "fail"
+                        and "native pipeline diverges from imported reference graphs (mel" in st["quality"]["error"])
+        if quality_fail:
+            want["quality"] = "fail"
+        check({n: e["status"] for n, e in st.items()} == want, f"certify statuses {json.dumps(result['stages'])}")
+        check(st["checkpoint_parity"]["oracle_cross_check"].startswith("skipped: reference source unavailable"),
+              f"certify checkpoint_parity: {st['checkpoint_parity']}")
+        result["quality_outcome"] = "fail: mel over the threshold" if quality_fail else "pass"
+        result["quality_launches"] = launches
+        check(launches.get("attention", 0) >= 68 and all(launches.get(n, 0) >= 1 for n in SCAN_KERNELS),
+              f"certify quality launched {launches}: the attention and scan kernels are missing")
+
+        # SmallTTS's sampler and codec on the same weights, with the imported stage's noises at its frames, against
+        # the imported audio: its S frames of latents decoded alone, as the imported pipeline decodes them
+        ctx = ctxs[-1]
+        codec = OnnxCodec(os.path.join(root, "codec", "encoder.onnx"), os.path.join(root, "codec", "decoder.onnx"),
+                          device=dev)
+        rb, pb, tb = (pick_bucket(R, SERVING_REF_BUCKETS), pick_bucket(len(tokens), SERVING_PHONEME_BUCKETS),
+                      pick_bucket(S, LATENT_BUCKETS))
+        noises = torch.zeros((4, 1, tb, 64), device=dev)
+        noises[:, :, :S] = torch.from_numpy(ctx["imported_noises"]).to(dev)
+        ph = torch.zeros((1, pb), dtype=torch.int64, device=dev)
+        ph[0, :len(tokens)] = torch.tensor(tokens, device=dev)
+        want_a = np.asarray(ctx["imported_audio"]).reshape(-1)
+        rels = {}
+        for label, opts in (("fp32 split", dict(dtype=torch.float32, fused_block=False)), ("bf16 scan", {})):
+            tts = SmallTTS(bp, codec=codec, device=dev, **opts)
+            with torch.inference_mode():
+                lat = sample_latents(tts.params, tts.cfg, torch.from_numpy(pad_to(ctx["imported_ref"], rb, 0)[None]).to(
+                    dev, tts.dtype), torch.tensor([R], device=dev), ph, torch.tensor([len(tokens)], device=dev),
+                    torch.tensor([S], device=dev), num_steps=4, noises=noises.to(tts.dtype))
+                got = tts._decode(lat[:, :S].float()).reshape(-1).cpu().numpy()
+            rels[label] = float(np.linalg.norm(got - want_a) / np.linalg.norm(want_a))
+            del tts
+        result["smalltts_vs_imported_rel_l2"] = rels
+        print(f"  SmallTTS's sampler and codec vs the imported graphs (fp32), the imported stage's noises, {S} frames: "
+              f"waveform rel-L2 {json.dumps(rels)} (tolerance {json.dumps(CERTIFY_VS_IMPORTED_TOL)})", flush=True)
+        check(all(rels[k] <= CERTIFY_VS_IMPORTED_TOL[k] for k in rels), f"SmallTTS vs imported: {rels}")
+        del codec, bp, ctxs
+        torch.cuda.empty_cache()
+
+        # no assets; a corrupt decoder
+        empty = os.path.join(tmp, "empty")
+        out = os.path.join(tmp, "c.json")
+        rc = certify.main(["--assets-root", empty, "--out", out, "--device", "cuda"])
+        none = json.load(open(out))
+        check(rc == 0 and {e["status"] for e in none["stages"].values()} == {"skip"} and none["ok"],
+              f"certify without assets: exit {rc}, {none['summary']}")
+        bad = os.path.join(tmp, "bad")
+        os.makedirs(os.path.join(bad, "codec"))
+        with open(os.path.join(bad, "codec", "decoder.onnx"), "wb") as f:
+            f.write(b"not a model")
+        rc = certify.main(["--assets-root", bad, "--out", out, "--stages", "codec_parity", "--device", "cuda"])
+        corrupt = json.load(open(out))["stages"]["codec_parity"]
+        check(rc == 1 and corrupt["status"] == "fail", f"certify, a corrupt decoder: exit {rc}, {corrupt}")
+        result["no_assets"] = none["summary"]
+        result["corrupt_decoder"] = dict(exit=rc, error=corrupt["error"][:120])
+    finally:
+        certify.STAGES = stages0
+        if hub is None:
+            sys.modules.pop("huggingface_hub", None)
+        else:
+            sys.modules["huggingface_hub"] = hub
+        os.environ.clear()
+        os.environ.update(env)
+        shutil.rmtree(tmp, ignore_errors=True)
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase certify: {json.dumps(result)}", flush=True)
+    for e in entries:
+        if e["name"] == "attention":
+            e["certify"] = dict(quality_launches=launches.get("attention", 0), seconds=result["seconds"])
+        elif e["name"] == "fused_dit_scan":
+            e["certify"] = dict(quality_launches={n: launches.get(n, 0) for n in SCAN_KERNELS},
+                                quality_outcome=result["quality_outcome"],
+                                smalltts_vs_imported_rel_l2=result["smalltts_vs_imported_rel_l2"])
+    return result
+
+
+def ab_phase(torch, dev, entries):
+    """Phase ab: both A/B scripts (smalltts_tpu_torch/scripts/
+    ab_fused_block{,_e2e}.py) at their default cells, in this process, each
+    with the launch counts set to 0 just before it: the split layout against
+    the scan kernels, one denoise pass (8x40, 1x40, 8x120 at K 16) and the
+    whole served synthesis (5 s x 8 and x 32 at K 16). Every line must time
+    both arms (split_ms and fused_ms positive, finite) with a finite sum_rel;
+    the attention kernel and every scan kernel must have launched in each
+    script (the split arm launches the attention kernel alone)."""
+    import math
+
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.scripts import ab_fused_block, ab_fused_block_e2e
+
+    t_phase = time.perf_counter()
+    print("phase ab: the DiT block scan kernels against the split layout (PyTorch ops), one denoise pass and the "
+          "served synthesis, full width, bf16, CUDA graphs timed by CUDA events", flush=True)
+    result = dict(card=card_line())
+    for name, main in (("ab_fused_block", ab_fused_block.main), ("ab_fused_block_e2e", ab_fused_block_e2e.main)):
+        kernels.reset_launches()
+        rc, out, secs = run_script(name, main, [])
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        lines = [json.loads(line) for line in out.strip().splitlines()]
+        check(rc == 0 and len(lines) == (3 if name == "ab_fused_block" else 2), f"{name}: exit {rc}, {len(lines)} lines")
+        for line in lines:
+            check(all(isinstance(line.get(k), float) and math.isfinite(line[k]) and line[k] > 0
+                      for k in ("split_ms", "fused_ms")) and math.isfinite(line["sum_rel"]), f"{name}: {line}")
+        check(launches.get("attention", 0) > 0 and all(launches.get(n, 0) > 0 for n in SCAN_KERNELS),
+              f"{name}: launches {launches}")
+        result[name] = dict(lines=lines, seconds=secs, launches=launches)
+        torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase ab: {json.dumps(result)}", flush=True)
+    for e in entries:
+        if e["name"] == "fused_dit_scan":
+            e["ab"] = {n: [{k: v for k, v in line.items() if k != "k"} for line in result[n]["lines"]]
+                       for n in ("ab_fused_block", "ab_fused_block_e2e")}
+        elif e["name"] == "attention":
+            e["ab_launches"] = {n: result[n]["launches"].get("attention", 0) for n in ("ab_fused_block",
+                                                                                       "ab_fused_block_e2e")}
+    return result
+
+
+def imf_exp_phase(torch, dev, entries):
+    """Phase imf: the corpus experiments (exp_imf_boundary with p = 0.25,
+    exp_imf_source's `base`) on the card at cut step counts (IMF_CUT), each
+    with the launch counts set to 0 just before it: every printed mel and
+    cosine finite, the codec floor line first, and the attention kernel at
+    head dim 16 launched."""
+    import math
+
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.scripts import exp_imf_boundary, exp_imf_source
+    from smalltts_tpu_torch.scripts import imf_corpus as H
+
+    t_phase = time.perf_counter()
+    print(f"phase imf: the IMF corpus experiments on the synthetic corpus, the tiny models in fp32, cut to {IMF_CUT} "
+          "steps", flush=True)
+    orig = H.build_corpus_and_models, H.train_dmd2, H.train_imf_student
+    H.build_corpus_and_models = functools.partial(orig[0], codec_steps=IMF_CUT["codec_steps"],
+                                                  teacher_steps=IMF_CUT["teacher_steps"])
+    H.train_dmd2 = lambda *a, steps=None, **k: orig[1](*a, steps=IMF_CUT["dmd_steps"], **k)
+    H.train_imf_student = lambda *a, steps=None, **k: orig[2](*a, steps=IMF_CUT["imf_steps"], **k)
+    result = dict(card=card_line(), steps=IMF_CUT)
+    try:
+        for name, main, argv in (("exp_imf_boundary", exp_imf_boundary.main, ["0.25"]),
+                                 ("exp_imf_source", exp_imf_source.main, ["base"])):
+            kernels.reset_launches()
+            rc, out, secs = run_script(name, main, argv)
+            lines = out.strip().splitlines()
+            d16 = sum(n for (k, shape), n in kernels.SHAPE_LAUNCHES.items() if k == "attention" and shape[4] == 16)
+            mels = [float(line.split("mel=")[1].split()[0]) for line in lines if "mel=" in line]
+            svs = [float(line.split("sv=")[1]) for line in lines if "sv=" in line]
+            check(rc == 0 and lines[0].startswith("codec floor mel=") and len(mels) == len(lines)
+                  and len(svs) == len(lines) - 1 and all(math.isfinite(v) for v in mels + svs) and d16 > 0,
+                  f"{name}: exit {rc}, {lines}, head-dim-16 attention launches {d16}")
+            result[name] = dict(lines=lines, seconds=secs, attention_launches_d16=d16,
+                                launches={k: v for k, v in kernels.LAUNCHES.items() if v})
+    finally:
+        H.build_corpus_and_models, H.train_dmd2, H.train_imf_student = orig
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase imf: {json.dumps(result)}", flush=True)
+    for e in entries:
+        if e["name"] == "attention":
+            e["imf_corpus"] = {n: result[n]["attention_launches_d16"] for n in ("exp_imf_boundary", "exp_imf_source")}
+    return result
+
+
+def imf_quality_only(torch):
+    """`--imf-quality`: the kernels built, then tests/test_torch_imf_quality.py
+    (the corpus test's assertions at the harness's step counts: codec 300,
+    teacher 800, DMD2 150, IMF 400) on the card in a process of its own,
+    RUN_SLOW=1; prints its result line and pytest's outcome, and exits with
+    pytest's code."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pytest", "--noconftest", "-q", "-s", "-p", "no:cacheprovider",
+                          "tests/test_torch_imf_quality.py"], cwd=root, capture_output=True, text=True,
+                         env={**os.environ, "RUN_SLOW": "1"}, timeout=3000)
+    secs = time.perf_counter() - t0
+    print(res.stdout[-6000:], flush=True)
+    print(res.stderr[-2000:], file=sys.stderr, flush=True)
+    print(f"imf quality: pytest exit {res.returncode} in {secs:.1f} s", flush=True)
+    return res.returncode
+
+
+def phase_only(torch, phase, entries):
+    """`--certify` / `--ab` / `--imf`: the kernels built, then that phase alone."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    phase(torch, torch.device("cuda"), entries)
     print(json.dumps({"kernels": entries}))
     return 0
 

@@ -143,6 +143,14 @@ class SmallTTS:
     when those assets are present and no native codec weights were passed,
     else "native".
 
+    `fused_block` (default True): the block projections are fused into the
+    serving layout and the denoiser's block scan runs the hand-written scan
+    kernels (ops/kernels/dit_block.py). False keeps the split layout of
+    training: the blocks run `_block_core` layer by layer in PyTorch ops,
+    their attention still the attention kernel; the int8 stream weights
+    need the fused layout. The JAX argument of that name opts into its
+    Pallas scan (default off there); here the scan is the default.
+
     `mesh` (parallel/mesh.py), as in the JAX package, runs the pipeline
     SPMD over a process group: every rank calls with the same inputs. The
     backbone params hold this rank's tensor-parallel shards (on the fused
@@ -171,6 +179,7 @@ class SmallTTS:
         pcm16_out: bool = False,
         w8_modulation: bool = False,
         w8_stream: bool = False,
+        fused_block: bool = True,
         device=None,
         mesh=None,
     ) -> None:
@@ -221,7 +230,11 @@ class SmallTTS:
             sampler = "imf" if "r_gate" in params else "dmd"
         if sampler == "imf" and "r_gate" not in params:
             raise ValueError("sampler='imf' needs an IMF checkpoint: the params carry no r_gate leaf")
-        params = fuse_serving_projections(params)
+        if fused_block:
+            params = fuse_serving_projections(params)
+        elif w8_stream:
+            raise ValueError("w8_stream needs fused_block: the int8 stream weights are the fused scan's")
+        self.fused_block = fused_block
         if w8_modulation:
             params = quantize_modulations(params)
         if w8_stream:

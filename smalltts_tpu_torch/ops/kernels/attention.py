@@ -35,6 +35,9 @@ from smalltts_tpu_torch.ops import kernels, nn
 
 NAME = "attention"
 HEAD_DIMS = (4, 16, 64, 120, 128)
+# head dims that run zero-padded in a larger instance: the pads add nothing to q.k or to p.v, and the scale
+# is the true head dim's (the tiny discriminator's conformer: 4 heads of 8)
+PADDED_HEAD_DIMS = {8: 16}
 KEY_TILE = 64  # keys per tile of the bf16 kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -108,12 +111,12 @@ def _strides(t: torch.Tensor, name: str):
     return [t.stride(0), t.stride(1), t.stride(2)]
 
 
-def st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out):
+def st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out, scale=None):
     """(args, masks): the arguments of the C entry `st_attention`
     (csrc/attention.cu) for checked CUDA tensors (dtype, head dim, the 9
     pointers, the 23 (b, h, t) and mask strides, (B, H, Tq, S1, S2),
-    1/sqrt(D), the current stream), and the contiguous bool masks they
-    point to, which must live until the launch is queued."""
+    `scale` (default 1/sqrt(D)), the current stream), and the contiguous
+    bool masks they point to, which must live until the launch is queued."""
     B, H, Tq, D = q.shape
     two = k2 is not None
     m1 = key_mask.to(torch.bool).contiguous()
@@ -128,7 +131,8 @@ def st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out):
             m2.data_ptr() if two else None,
             gate.data_ptr() if gate is not None else None, out.data_ptr()]
     return (_DTYPES[q.dtype], D, (ctypes.c_void_p * 9)(*ptrs), (ctypes.c_longlong * 23)(*strides),
-            (ctypes.c_int * 5)(B, H, Tq, k.shape[2], k2.shape[2] if two else 0), 1.0 / math.sqrt(D),
+            (ctypes.c_int * 5)(B, H, Tq, k.shape[2], k2.shape[2] if two else 0),
+            1.0 / math.sqrt(D) if scale is None else scale,
             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream)), (m1, m2)
 
 
@@ -149,7 +153,9 @@ def fused_attention(
     (B,H,Tq,D) view of a (B,Tq,H,D) buffer. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise, and count the launch
     by (B, H, Tq, S1 + S2, D, dtype) as well. In bf16 the kernel chooses its
-    key split from the shape."""
+    key split from the shape. A head dim of PADDED_HEAD_DIMS runs on zero-
+    padded copies in the larger instance, its result a view of the padded
+    output."""
     if kernels.use_plain(q):
         res = attention_plain(q, k, v, key_mask, k2, v2, key_mask2, gate)
         if out is None:
@@ -163,8 +169,8 @@ def fused_attention(
         raise ValueError("attention: all inputs must be given on one device")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in srcs if t.dtype != torch.bool):
         raise ValueError(f"attention: q/k/v/gate must share fp32 or bf16, got {q.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"attention: head dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS and D not in PADDED_HEAD_DIMS:
+        raise ValueError(f"attention: head dim {D} not in {HEAD_DIMS} or {tuple(PADDED_HEAD_DIMS)}")
     S1 = k.shape[2]
     S2 = k2.shape[2] if two else 0
     if k.shape != (B, H, S1, D) or v.shape != k.shape or key_mask.shape != (B, S1):
@@ -173,10 +179,29 @@ def fused_attention(
         raise ValueError("attention: k2/v2/key_mask2 shapes do not match q")
     if gate is not None and gate.shape != q.shape:
         raise ValueError("attention: gate must have q's shape")
+    if out is not None and (out.shape != q.shape or out.dtype != q.dtype):
+        raise ValueError("attention: out must have q's shape and dtype")
+    if D in PADDED_HEAD_DIMS:
+        Dp = PADDED_HEAD_DIMS[D]
+        pad = lambda t: None if t is None else torch.nn.functional.pad(t, (0, Dp - D))  # noqa: E731
+        res = torch.empty((B, Tq, H, Dp), device=q.device, dtype=q.dtype).transpose(1, 2)
+        _launch(pad(q), pad(k), pad(v), key_mask, pad(k2), pad(v2), key_mask2, pad(gate), res, 1.0 / math.sqrt(D))
+        kernels.count_launch(NAME, (B, H, Tq, S1 + S2, D, q.dtype))
+        if out is None:
+            return res[..., :D]
+        out.copy_(res[..., :D])
+        return out
     if out is None:
         out = torch.empty((B, Tq, H, D), device=q.device, dtype=q.dtype).transpose(1, 2)
-    elif out.shape != q.shape or out.dtype != q.dtype:
-        raise ValueError("attention: out must have q's shape and dtype")
+    _launch(q, k, v, key_mask, k2, v2, key_mask2, gate, out)
+    kernels.count_launch(NAME, (B, H, Tq, S1 + S2, D, q.dtype))
+    return out
+
+
+def _launch(q, k, v, key_mask, k2, v2, key_mask2, gate, out, scale=None):
+    """The kernel on checked CUDA tensors, after the alignment checks."""
+    D = q.shape[-1]
+    two = k2 is not None
     if q.dtype == torch.bfloat16 and D != 4:  # the tensor-core kernel copies q/k/v rows in 16-byte chunks
         for t in [q, k, v] + ([k2, v2] if two else []):
             if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:3]):
@@ -188,12 +213,9 @@ def fused_attention(
             if t.data_ptr() % 16 or any(st % 4 for st in t.stride()[:3]):
                 raise ValueError("attention: fp32 q/k/v/gate/out need 16-byte aligned rows (strides of 4)")
     lib = kernels.load("attention")
-    args, _masks = st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out)
+    args, _masks = st_args(q, k, v, key_mask, k2, v2, key_mask2, gate, out, scale)
     status = lib.st_attention(*args)
     kernels.check(lib, "attention", status, "attention kernel")
-    kernels.count_launch(NAME, (B, H, Tq, S1 + S2, D, q.dtype))
-    return out
-
 
 
 def attention_backward(q, k, v, key_mask, out, dout):

@@ -168,6 +168,12 @@ def _read_flat(path: str) -> Dict[str, np.ndarray]:
                 for k in data.files if k not in (_BF16_KEY, _META_KEY)}
 
 
+def cast_floating(tree, dtype):
+    """Floating leaves cast to `dtype` (bf16 for serving on the card); other
+    leaves kept as they are."""
+    return map_pytree(lambda x: x.to(dtype) if isinstance(x, torch.Tensor) and x.is_floating_point() else x, tree)
+
+
 def map_pytree(fn, tree):
     """The same nesting of dicts and lists with fn applied to every leaf."""
     if isinstance(tree, dict):

@@ -50,6 +50,16 @@ def _tensor_bytes(tree) -> int:
     return 0
 
 
+def _mm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """aten.mm, and its out_dtype overload (whose dtype arg comes third)."""
+    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
+
+
+def _bmm_flop(a_shape, b_shape, *_, out_shape=None, **__) -> int:
+    """aten.bmm, and its out_dtype overload."""
+    return 2 * a_shape[0] * a_shape[1] * a_shape[2] * b_shape[2]
+
+
 def compiled_cost(fn, *args, **kwargs) -> Optional[dict]:
     """FLOPs and bytes of one call fn(*args, **kwargs), which this runs once:
     -> {"flops": float, "bytes": float}, or None when no FLOP is counted.
@@ -57,9 +67,13 @@ def compiled_cost(fn, *args, **kwargs) -> Optional[dict]:
     multiply-add; elementwise ops are not counted). Bytes are those of the
     tensors in the arguments and the results, each read or written once: a
     floor on the memory traffic, not a count of the bytes every kernel moves."""
+    import torch
     from torch.utils.flop_counter import FlopCounterMode
 
-    with FlopCounterMode(display=False) as counter:
+    # FlopCounterMode's own mm / bmm formulas take the out_dtype overload's dtype (nn.matmul_f32 on the
+    # card: torch.mm / torch.bmm with out_dtype=float32) for the output shape, and raise
+    mapping = {torch.ops.aten.mm: _mm_flop, torch.ops.aten.bmm: _bmm_flop}
+    with FlopCounterMode(display=False, custom_mapping=mapping) as counter:
         out = fn(*args, **kwargs)
     flops = float(counter.get_total_flops())
     if flops <= 0:

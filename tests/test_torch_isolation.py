@@ -84,7 +84,7 @@ NEW_HOST_MODULES = ["smalltts_tpu_torch.text", "smalltts_tpu_torch.text.numbers"
                     "smalltts_tpu_torch.native", "smalltts_tpu_torch.onnxtorch", "smalltts_tpu_torch.onnxtorch.proto",
                     "smalltts_tpu_torch.onnxtorch.interp", "smalltts_tpu_torch.onnxtorch.codec",
                     "smalltts_tpu_torch.onnxtorch.pipeline", "smalltts_tpu_torch.utils.onnx_import",
-                    "smalltts_tpu_torch.train.imf"]
+                    "smalltts_tpu_torch.train.imf", "smalltts_tpu_torch.assets", "smalltts_tpu_torch.assets.ensure"]
 
 # a CPU TTSServer answering one /synthesize through a tiny pipeline, the
 # text frontend and the Batcher, with neither JAX nor the JAX package blocked
@@ -164,7 +164,8 @@ def test_training_modules_and_a_cpu_teacher_run_load_no_jax():
 
 
 SCRIPTS = ["phonemize", "clone", "interactive", "batch", "tryme", "test_checkpoint", "import_codec", "test_x402",
-           "bench_serving", "demo_quality_loop", "eval_quality", "profile", "dryrun_multihost"]
+           "bench_serving", "demo_quality_loop", "eval_quality", "profile", "dryrun_multihost", "certify",
+           "ab_fused_block", "ab_fused_block_e2e", "imf_corpus", "exp_imf_boundary", "exp_imf_source"]
 
 RUN_SCRIPTS = """
 import contextlib, importlib, io, os, tempfile

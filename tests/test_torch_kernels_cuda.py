@@ -79,14 +79,18 @@ SMALL = [(2, 16, 1024, 1024, 4)] + [(3, 4, Tq, S, 4) for Tq in (1, 37, 130) for 
 # ASR's 4 of 64) at the demo loop's shapes, batch 2 at T 20-40, and ragged lengths at B 3
 HD16 = [(2, 4, 40, 40, 16), (2, 2, 24, 24, 16), (2, 4, 20, 8 + 16, 16), (2, 4, 160, 160, 16),
         (3, 4, 37, 65, 16), (3, 2, 130, 1031, 16)]
+# head dim 8 (the tiny discriminator's conformer, 4 heads of 8, which the corpus harness's DMD2 and
+# adversarial IMF runs send), zero-padded into the head-dim-16 instance: its real and fake halves at the
+# corpus's batch of 6, and ragged lengths at B 3
+HD8 = [(12, 4, 52, 52, 8), (6, 4, 52, 52, 8), (3, 4, 37, 65, 8), (3, 4, 130, 1031, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,Tq,S,D", [(8, 8, 256, 256, 64), (8, 4, 384, 384, 128), (2, 8, 40, 40, 120)] + SMALL
-                         + HD16)
+                         + HD16 + HD8)
 def test_attention_kernel(dev, dtype, B, H, Tq, S, D):
     """One launch against attention_plain (TOL, as chip_smoke's
-    DISTILL_FWD_TOL); at head dims 4 and 16 also the gradients through `attention`
+    DISTILL_FWD_TOL); at head dims 4, 8 and 16 also the gradients through `attention`
     against autograd through attention_plain (GRAD_TOL, as chip_smoke's
     TRAIN_GRAD_TOL), none to the fully masked row's q. With one key (S 1)
     a row's softmax is constant, so dq and dk are rounding noise around 0:
@@ -101,7 +105,7 @@ def test_attention_kernel(dev, dtype, B, H, Tq, S, D):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["attention"] == n0 + 1
     assert rel(got, A.attention_plain(q, k, v, m)) <= TOL[dtype]
-    if D not in (4, 16):
+    if D not in (4, 8, 16):
         return
     assert torch.allclose(got[-1].float(), v[-1].float().mean(1, keepdim=True).expand_as(got[-1]),
                           rtol=TOL[dtype], atol=TOL[dtype])  # the fully masked row: a uniform average
@@ -117,7 +121,7 @@ def test_attention_kernel(dev, dtype, B, H, Tq, S, D):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,D", [(8, 120), (16, 4), (4, 16)])
+@pytest.mark.parametrize("H,D", [(8, 120), (16, 4), (4, 16), (4, 8)])
 def test_attention_two_sources_gate(dev, dtype, H, D):
     """The DiT's joint attention: q/k/v/gate as views of one (B, T, 4 H D)
     buffer, a second source with its own mask, the output into a strided

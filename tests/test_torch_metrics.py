@@ -112,6 +112,21 @@ def test_compiled_cost_of_a_matmul_is_2mnk(m, n, k):
     assert pflops.compiled_cost(torch.add, a, a) is None  # no FLOP counted
 
 
+@pytest.mark.parametrize("batched", [False, True])
+def test_compiled_cost_counts_out_dtype_products(batched):
+    """torch.mm / torch.bmm with out_dtype=float32 (nn.matmul_f32's bf16
+    path on the card; meta tensors here, where the CPU has no such kernel)
+    count 2 M N K a product, as without out_dtype; FlopCounterMode's own
+    formulas raised on them."""
+    lead = (3,) if batched else ()
+    a = torch.empty(*lead, 5, 7, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(*lead, 7, 4, dtype=torch.bfloat16, device="meta")
+    op = torch.bmm if batched else torch.mm
+    cost = pflops.compiled_cost(lambda x, y: op(x, y, out_dtype=torch.float32), a, b)
+    assert cost["flops"] == 2 * (3 if batched else 1) * 5 * 7 * 4
+    assert pflops.compiled_cost(op, a, b)["flops"] == cost["flops"]
+
+
 def test_compiled_cost_of_a_codec_decode_counts_its_convolutions():
     cfg = PCo.CodecConfig(**dataclasses.asdict(TINY_CODEC))
     p = PCo.init_codec(torch.Generator().manual_seed(0), cfg)
