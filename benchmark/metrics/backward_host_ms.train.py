@@ -1,0 +1,8 @@
+"""Host ms a traced teacher step spends in its teacher.backward span (the
+program's own)."""
+
+
+def read(run):
+    from harness.spans import per_step_ms
+
+    return per_step_ms(run, "teacher.backward")

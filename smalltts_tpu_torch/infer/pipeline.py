@@ -15,6 +15,14 @@ there `compile_cache_size` counts the bucket shapes that have run.
 
 The pipeline runs on the card unless the caller passes `device="cpu"`; with
 no card it raises rather than quietly running on the CPU.
+
+While a torch.profiler runs, each `synthesize_padded` call is the span
+pipeline.call (utils/profiling.py) over its host stages: pipeline.inputs
+(the inputs' copies to the device), then on the card pipeline.lock (the
+wait for the graphs' lock), pipeline.capture (a graph captured in the
+request path), pipeline.stage (the static buffers' and the noise's
+copies), pipeline.replay and pipeline.clone (the output's copy); without
+graphs, pipeline.eager.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from smalltts_tpu_torch.ops import kernels
 from smalltts_tpu_torch.ops.masking import length_mask
 from smalltts_tpu_torch.parallel import comm
 from smalltts_tpu_torch.parallel.mesh import shard_params, use
+from smalltts_tpu_torch.utils import profiling
 from smalltts_tpu_torch.utils.transfer import resolve_device, to_device
 
 CHARS_PER_SECOND = 11.5
@@ -321,23 +330,26 @@ class SmallTTS:
         replaces the generator's noise: one draw a step for "dmd", the start
         noise alone for "imf" (sampler.noise_draws)."""
         b = len(seq_lengths)
-        with torch.inference_mode():
-            inputs = (self._tensor(ref_latents, self.dtype), self._tensor(ref_lengths, torch.int32),
-                      self._tensor(phonemes, torch.int64), self._tensor(phoneme_lengths, torch.int32),
-                      self._tensor(seq_lengths, torch.int32))
-            key = (b, inputs[0].shape[1], inputs[2].shape[1], t_bucket)
-            if self.graphs:
-                audio = self._replay(key, inputs, noises)
-            else:
-                noises = (self._noises(b, t_bucket) if noises is None
-                          else self._tensor(noises, self.dtype))
-                audio = self._synthesize_fn(self.params, self.codec_params, *inputs, noises,
-                                            t_bucket=t_bucket)
-                with self._graph_lock:
-                    self._shapes_run.add(key)
-        if not fetch:
-            return audio
-        return audio.cpu().numpy()
+        with profiling.annotate("pipeline.call", batch=b, t=t_bucket):
+            with torch.inference_mode():
+                with profiling.annotate("pipeline.inputs"):
+                    inputs = (self._tensor(ref_latents, self.dtype), self._tensor(ref_lengths, torch.int32),
+                              self._tensor(phonemes, torch.int64), self._tensor(phoneme_lengths, torch.int32),
+                              self._tensor(seq_lengths, torch.int32))
+                key = (b, inputs[0].shape[1], inputs[2].shape[1], t_bucket)
+                if self.graphs:
+                    audio = self._replay(key, inputs, noises)
+                else:
+                    with profiling.annotate("pipeline.eager"):
+                        noises = (self._noises(b, t_bucket) if noises is None
+                                  else self._tensor(noises, self.dtype))
+                        audio = self._synthesize_fn(self.params, self.codec_params, *inputs, noises,
+                                                    t_bucket=t_bucket)
+                    with self._graph_lock:
+                        self._shapes_run.add(key)
+            if not fetch:
+                return audio
+            return audio.cpu().numpy()
 
     def _replay(self, key, inputs, noises):
         """Run bucket shape `key` as its CUDA graph, captured first if it has
@@ -346,18 +358,26 @@ class SmallTTS:
         buffers, the graph is replayed, and a copy of its static output,
         queued right after the replay, is returned, so that the next batch of
         the same bucket cannot overwrite a result not fetched yet."""
-        with self._graph_lock:
+        with profiling.annotate("pipeline.lock"):
+            self._graph_lock.acquire()
+        try:
             g = self._graphs.get(key)
             if g is None:
-                g = self._graphs[key] = self._capture(key, inputs)
-            for static, x in zip(g.inputs, inputs):
-                static.copy_(x)
-            g.noises.copy_(self._noises(key[0], key[3]) if noises is None
-                           else self._tensor(noises, self.dtype))
-            g.graph.replay()
+                with profiling.annotate("pipeline.capture"):
+                    g = self._graphs[key] = self._capture(key, inputs)
+            with profiling.annotate("pipeline.stage"):
+                for static, x in zip(g.inputs, inputs):
+                    static.copy_(x)
+                g.noises.copy_(self._noises(key[0], key[3]) if noises is None
+                               else self._tensor(noises, self.dtype))
+            with profiling.annotate("pipeline.replay"):
+                g.graph.replay()
             g.replays += 1
             kernels.add_launches(g.launches)
-            return g.out.clone()
+            with profiling.annotate("pipeline.clone"):
+                return g.out.clone()
+        finally:
+            self._graph_lock.release()
 
     def _capture(self, key, inputs) -> _Graph:
         """Capture the eager synthesize fn at bucket shape `key` into a CUDA

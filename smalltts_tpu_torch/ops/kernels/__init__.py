@@ -38,7 +38,6 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES: Dict[str, int] = {}
 SHAPE_LAUNCHES: Dict[tuple, int] = {}
-BUILD_SECONDS: Dict[str, float] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _plain = threading.local()
@@ -141,7 +140,6 @@ def _build(name: str) -> str:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         try:
             if not os.path.exists(out):
-                t0 = time.perf_counter()
                 tmp = out + f".tmp{os.getpid()}"
                 res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
                                      capture_output=True, text=True)
@@ -150,7 +148,6 @@ def _build(name: str) -> str:
                 if res.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr[-4000:]}")
                 os.replace(tmp, out)
-                BUILD_SECONDS[name] = time.perf_counter() - t0
         finally:
             fcntl.flock(lockf, fcntl.LOCK_UN)
     return out
@@ -202,14 +199,17 @@ def load(name: str) -> ctypes.CDLL:
 
 def build_all() -> Dict[str, float]:
     """Build every source at once (one nvcc per source, started together);
-    returns the seconds each build took (0 where the build was cached)."""
-    errors = []
+    returns the seconds each source took to build and load (a fraction of a
+    second where the build was cached)."""
+    errors, seconds = [], {}
 
     def run(n):
+        t0 = time.perf_counter()
         try:
             load(n)
         except Exception as exc:  # reported after every build has ended
             errors.append(exc)
+        seconds[n] = time.perf_counter() - t0
 
     threads = [threading.Thread(target=run, args=(n,)) for n in SOURCES]
     for t in threads:
@@ -218,7 +218,7 @@ def build_all() -> Dict[str, float]:
         t.join()
     if errors:
         raise errors[0]
-    return {n: BUILD_SECONDS.get(n, 0.0) for n in SOURCES}
+    return {n: seconds[n] for n in SOURCES}
 
 
 def check(lib: ctypes.CDLL, name: str, status: int, what: str) -> None:

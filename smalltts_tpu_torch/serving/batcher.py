@@ -10,11 +10,20 @@ hands it to a fetch thread that copies the waveform to the host and resolves
 the futures. The in-flight queue is bounded (MAX_INFLIGHT) so device memory
 stays capped. The batch-class numbers in the comments below were measured
 with the JAX package on a TPU v5e; they are not measurements of this port.
+
+While a torch.profiler runs, each request's path is five spans
+(utils/profiling.py) that meet end to end: batcher.queue (submit to its
+group's dispatch), batcher.dispatch (its children batcher.pad and
+batcher.synthesize, the call into the pipeline), batcher.inflight (the
+call's return to the fetch thread taking the group), batcher.fetch (the
+copy to the host) and batcher.resolve (the futures set). Each request has
+an id, each group an id and its requests' ids.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
@@ -33,11 +42,14 @@ from smalltts_tpu_torch.data.bucketing import (
     pad_to,
     pick_bucket,
 )
+from smalltts_tpu_torch.utils import profiling
 
 MAX_BATCH = 8  # server default; raise via TTSServer(max_batch=...) for throughput
                # (measured on v5e-1: batch 32 -> RTF 0.00054, batch 64 -> 0.00043)
 MAX_QUEUE = 256  # backpressure: submit() raises QueueFull beyond this
 MAX_INFLIGHT = 4  # dispatched-but-unfetched groups (bounds device memory)
+_request_ids = itertools.count(1)
+_group_ids = itertools.count(1)
 
 
 def batch_ladder(base: int, limit) -> List[int]:
@@ -76,6 +88,9 @@ class Request:
     # submit timestamp: the adaptive controller's latency signal is request
     # SOJOURN (submit -> result), which is what a client actually feels
     t_submit: float = field(default_factory=time.monotonic)
+    # the same moment on the wall clock: where the request's batcher.queue span starts
+    t_submit_ns: int = field(default_factory=time.time_ns)
+    rid: int = field(default_factory=_request_ids.__next__)
 
     @property
     def seq_len(self) -> int:
@@ -380,13 +395,23 @@ class Batcher:
     def _execute(self, group: List[Request], classes: List[int] = None) -> None:
         """Dispatch one padded group asynchronously; the fetch thread
         materializes the waveform and resolves the futures."""
+        gid = next(_group_ids)
         try:
-            ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, _ = pad_group(
-                group, self.max_batch, classes=classes
-            )
-            audio = self.tts.synthesize_padded(
-                ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, fetch=False
-            )
+            with profiling.annotate("batcher.dispatch", group=gid) as dispatch:
+                if dispatch.recording:
+                    dispatch.set(requests=[r.rid for r in group])
+                    for r in group:
+                        profiling.record("batcher.queue", r.t_submit_ns, dispatch.start, request=r.rid, group=gid)
+                with profiling.annotate("batcher.pad", group=gid) as pad:
+                    ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, b_bucket = pad_group(
+                        group, self.max_batch, classes=classes
+                    )
+                    if pad.recording:
+                        pad.set(requested_frames=int(seq_lens[: len(group)].sum()), padded_frames=b_bucket * t_bucket)
+                with profiling.annotate("batcher.synthesize", group=gid):
+                    audio = self.tts.synthesize_padded(
+                        ref, ref_lens, ph, ph_lens, seq_lens, t_bucket, fetch=False
+                    )
             if self._sealed:
                 # only reachable when close() timed out joining this thread
                 # and has already sealed the queue — fail cleanly instead of
@@ -400,7 +425,7 @@ class Batcher:
             # the queue after the final drain (ADVICE r2)
             while True:
                 try:
-                    self._inflight.put((group, seq_lens, audio), timeout=0.5)
+                    self._inflight.put((group, seq_lens, audio, gid, dispatch.end), timeout=0.5)
                     break
                 except queue.Full:
                     if self._sealed:
@@ -417,27 +442,30 @@ class Batcher:
             item = self._inflight.get()
             if item is None:
                 return
-            group, seq_lens, audio = item
+            group, seq_lens, audio, gid, returned = item
             try:
-                # blocks until this group completes; a device tensor is
-                # copied to the host (np.asarray raises on a CUDA tensor)
-                host = audio.cpu().numpy() if hasattr(audio, "cpu") else np.asarray(audio)
-                now = time.monotonic()
-                for r in group:
-                    # feed the adaptive controller's latency signal (deque
-                    # append is atomic; controller reads on its own thread)
-                    self._sojourn_ms.append((now - r.t_submit) * 1e3)
-                for i, r in enumerate(group):
-                    samples = int(seq_lens[i]) * HOP_SIZE
-                    # a client may cancel its future at ANY moment (asyncio
-                    # disconnect propagates cancel) — the done() check alone
-                    # is racy, so a cancelled future must fail only itself,
-                    # never the rest of the batch
-                    try:
-                        if not r.future.done():
-                            r.future.set_result(host[i, :, :samples])
-                    except Exception:
-                        pass
+                with profiling.annotate("batcher.fetch", group=gid) as fetch:
+                    profiling.record("batcher.inflight", returned, fetch.start, group=gid)
+                    # blocks until this group completes; a device tensor is
+                    # copied to the host (np.asarray raises on a CUDA tensor)
+                    host = audio.cpu().numpy() if hasattr(audio, "cpu") else np.asarray(audio)
+                with profiling.annotate("batcher.resolve", start=fetch.end, group=gid):
+                    now = time.monotonic()
+                    for r in group:
+                        # feed the adaptive controller's latency signal (deque
+                        # append is atomic; controller reads on its own thread)
+                        self._sojourn_ms.append((now - r.t_submit) * 1e3)
+                    for i, r in enumerate(group):
+                        samples = int(seq_lens[i]) * HOP_SIZE
+                        # a client may cancel its future at ANY moment (asyncio
+                        # disconnect propagates cancel) — the done() check alone
+                        # is racy, so a cancelled future must fail only itself,
+                        # never the rest of the batch
+                        try:
+                            if not r.future.done():
+                                r.future.set_result(host[i, :, :samples])
+                        except Exception:
+                            pass
             except Exception as exc:
                 for r in group:
                     try:

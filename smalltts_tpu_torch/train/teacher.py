@@ -12,6 +12,12 @@ on a non-finite loss or gradient norm the params, the moments and the
 optimizer count stay as they were, and the EMA still updates; nothing in
 the step waits for the card.
 
+While a torch.profiler runs, a step is the span teacher.step
+(utils/profiling.py) over teacher.forward, teacher.backward and
+teacher.update, the last over teacher.guard (the dp all-reduce, the
+finite check and the global norm), teacher.optimizer (AdamW, its updates
+applied and the guard's selects) and teacher.ema.
+
     python -m smalltts_tpu_torch.train.teacher --steps N [--batch-size 16]
         [--compute-dtype bfloat16] [--resume DIR/train_state.npz] [--dp N]
         [--checkpoint-dir assets/teacher_checkpoints] [--data-dir DIR] [--codec-checkpoint C]
@@ -35,6 +41,7 @@ from smalltts_tpu_torch.parallel import comm
 from smalltts_tpu_torch.parallel.mesh import use
 from smalltts_tpu_torch.train.ema import ema_decay, ema_init, ema_update
 from smalltts_tpu_torch.train.optim import apply_updates, global_norm, teacher_optimizer
+from smalltts_tpu_torch.utils import profiling
 from smalltts_tpu_torch.utils.checkpoint import flatten_pytree, unflatten_pytree
 
 
@@ -109,23 +116,30 @@ def make_teacher_step(cfg: BackboneConfig, tx, train_cfg: TeacherTrainConfig = T
     guard's and the clip's norm then the whole tree's."""
 
     def step(params, opt_state, ema_params, batch, draws, ema_decay=None):
-        flat = flatten_pytree(params)
-        leaves = [p.detach().requires_grad_(True) for p in flat.values()]
-        with torch.enable_grad(), use(mesh):
-            loss = teacher_loss(unflatten_pytree(dict(zip(flat, leaves))), cfg, batch, draws, train_cfg)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        with torch.no_grad():
-            grads = comm.all_reduce_grads([torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)],
-                                          mesh)
-            params = unflatten_pytree(dict(zip(flat, (p.detach() for p in leaves))))
-            finite = torch.isfinite(loss) & torch.isfinite(global_norm(grads, list(flat), mesh))
-            zero = torch.zeros((), device=loss.device)
-            grads = unflatten_pytree({k: torch.where(finite, g, zero) for k, g in zip(flat, grads)})
-            updates, new_state = tx.update(grads, opt_state, params, mesh)
-            params = _where(finite, apply_updates(params, updates), params)
-            opt_state = _where(finite, new_state, opt_state)
-            ema_params = ema_update(ema_params, params, train_cfg.ema_beta if ema_decay is None else ema_decay)
-        return params, opt_state, ema_params, loss.detach()
+        with profiling.annotate("teacher.step"):
+            flat = flatten_pytree(params)
+            leaves = [p.detach().requires_grad_(True) for p in flat.values()]
+            with torch.enable_grad(), use(mesh):
+                with profiling.annotate("teacher.forward"):
+                    loss = teacher_loss(unflatten_pytree(dict(zip(flat, leaves))), cfg, batch, draws, train_cfg)
+                with profiling.annotate("teacher.backward"):
+                    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            with torch.no_grad(), profiling.annotate("teacher.update"):
+                with profiling.annotate("teacher.guard"):
+                    grads = comm.all_reduce_grads(
+                        [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)], mesh)
+                    params = unflatten_pytree(dict(zip(flat, (p.detach() for p in leaves))))
+                    finite = torch.isfinite(loss) & torch.isfinite(global_norm(grads, list(flat), mesh))
+                    zero = torch.zeros((), device=loss.device)
+                    grads = unflatten_pytree({k: torch.where(finite, g, zero) for k, g in zip(flat, grads)})
+                with profiling.annotate("teacher.optimizer"):
+                    updates, new_state = tx.update(grads, opt_state, params, mesh)
+                    params = _where(finite, apply_updates(params, updates), params)
+                    opt_state = _where(finite, new_state, opt_state)
+                with profiling.annotate("teacher.ema"):
+                    ema_params = ema_update(ema_params, params,
+                                            train_cfg.ema_beta if ema_decay is None else ema_decay)
+            return params, opt_state, ema_params, loss.detach()
 
     return step
 
