@@ -33,7 +33,10 @@
    repeated-label, infeasible, 384-label, switch, 512-, 4095-label, long
    and batch-8 batches, loss and gradient; ptxas's spills; kernel (the
    backward's factor blocks and chains also alone), plain, F.ctc_loss
-   times and the chain floors.
+   times and the chain floors. Phase A, codec (see
+   `codec_pointwise_phase`): the codec decoder's pointwise pass against its
+   plain version and the channel-last op chain, bit for bit, at the
+   offline cell's largest batch; its time beside its bytes bound.
 3. Serving phases, both at full width (default BackboneConfig /
    CodecConfig, bf16, the same seeded random weights) behind the port's
    Batcher, 10 requests each: SmallTTS(pcm16_out=True), then the int8
@@ -181,6 +184,11 @@ plain and timed in turns.
 
 runs the codec phases alone, after the kernels' build.
 
+    python3 chip_smoke.py --codec-pointwise
+
+runs phase A, codec (the decoder's pointwise pass, `codec_pointwise_phase`)
+alone, after the codec source's build.
+
     python3 chip_smoke.py --parallel
 
 runs phase parallel alone, after the kernels' build.
@@ -254,6 +262,7 @@ KERNEL_NAMES = {"adaln_modulate": ("adaln_kernel",), "qk_norm_rope": ("qk_norm_r
 # one, 5e-2, a tenth of the 10% of peak at which the JAX package holds the
 # int8 stream path's waveform (tests/test_pallas.py)
 W8_VS_BF16_TOL = 5e-2
+CODEC_PASSES = 27  # codec_pointwise launches a decode of CodecConfig(): one after each convolution
 
 
 def card_line() -> str:
@@ -449,6 +458,8 @@ def main() -> int:
         return attn_small_only(torch)
     if "--codec" in sys.argv:
         return codec_only(torch)
+    if "--codec-pointwise" in sys.argv:
+        return codec_pointwise_only(torch)
     if "--scripts" in sys.argv:
         return scripts_only(torch)
     if "--imf-quality" in sys.argv:
@@ -578,6 +589,7 @@ def main() -> int:
     attn_small_phase(torch, dev, entries, parent=_arg("--attn-small-parent"))
 
     ctc_phase(torch, dev, entries, parent=_arg("--ctc-parent"))
+    codec_pointwise_phase(torch, dev, entries)
 
     # ------------------------------------------------------------- kernel B
     from smalltts_tpu_torch.models.dit import DiTConfig, fuse_serving_projections, init_dit, rope_cos_sin
@@ -1023,10 +1035,12 @@ def main() -> int:
     check(not any(launches.get(n) for n in W8_TPU), "an int8 kernel ran on the bf16 path")
     check_scan_counts(replayed, len(batches), tts, "")
     unserved = {n: launches.get(n, 0) for n in ("w8_matmul", "w8_matmul_stacked")}  # no serving path calls them
+    check(replayed.get("codec_pointwise", 0) == CODEC_PASSES * len(batches),
+          f"codec_pointwise replayed {replayed.get('codec_pointwise', 0)} times for {len(batches)} batches")
     for e in entries:
         if e["name"] == "fused_dit_scan":
             e["launches"], e["launches_of"] = scan_launches(launches, GEMMS)
-        elif e["name"] in ("attention",) + SCAN_KERNELS:
+        elif e["name"] in ("attention", "codec_pointwise") + SCAN_KERNELS:
             e["launches"] = launches.get(e["name"], 0)
         else:
             continue
@@ -2118,6 +2132,107 @@ def ctc_phase(torch, dev, entries, parent=None):
     print(f"  phase A, CTC: {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+CODEC_SRC = "smalltts_tpu_torch/csrc/codec.cu"
+
+
+def codec_pointwise_phase(torch, dev, entries, B=32, t=80):
+    """Phase A, codec: the codec decoder's pointwise pass (csrc/codec.cu) at
+    the offline cell's largest batch (B 32, t 80) of CodecConfig(), on the
+    passes that move the most bytes: stage 3's and stage 4's first residual
+    pass (x kept, the next unit's snake at dilation 3: borders 9), the
+    stage 3 -> 4 depth-to-time pass (r 5) and the head (tanh, r 8). Each
+    equal bit for bit to its plain version (force_plain) and to the
+    channel-last op chain it replaces (models/codec.py's ops from the
+    convolution's output to the next convolution's padded input), one launch
+    a call; its device ms beside its bytes at 3.35 TB/s and the op chain's
+    device ms."""
+    import math
+
+    import torch.nn.functional as F
+
+    from smalltts_tpu_torch.models import codec as M
+    from smalltts_tpu_torch.ops import kernels
+    from smalltts_tpu_torch.ops.kernels.codec import codec_pointwise
+
+    t_phase = time.perf_counter()
+    cfg = M.CodecConfig()
+    ch, st = cfg.channels, cfg.strides
+    rate = [t * math.prod(st[:i]) for i in range(len(st))]
+    g = torch.Generator(device=dev).manual_seed(23)
+    rnd = lambda *shape, s=1.0: s * torch.randn(shape, generator=g, device=dev)  # noqa: E731
+    cases = (("stage 3 residual", ch[3], ch[3], rate[3], 1, "res", (9, 9)),
+             ("stage 4 residual", ch[4], ch[4], rate[4], 1, "res", (9, 9)),
+             ("stage 3 -> 4 depth to time", ch[4] * st[3], ch[4], rate[3], st[3], "x", (3, 3)),
+             ("head", st[-1], 1, rate[4], st[-1], "head", (0, 0)))
+    print(f"phase A, codec: codec_pointwise at B {B}, t {t} against plain (force_plain) and the channel-last op "
+          "chain, bit for bit", flush=True)
+    rows = []
+    for label, cr, C, T, r, kind, pad in cases:
+        y, bias = rnd(B, cr, T), rnd(cr, s=0.1)
+        x = rnd(B, C, T * r) if kind == "res" else None
+        la = rnd(C, s=0.3) if kind != "head" else None
+        alpha = torch.exp(la) if la is not None else None
+        args = dict(r=r, tanh=kind == "head", keep=True, alpha=alpha, pad=pad)
+        run = lambda: codec_pointwise(y, bias, x, **args)  # noqa: E731
+
+        def chain():  # the channel-last decode's ops between the two convolutions
+            v = (y.float() + bias.float()[:, None]).transpose(1, 2)
+            if kind == "res":
+                v = x.transpose(1, 2) + v
+            if kind == "head":
+                v = torch.tanh(v)
+                return v.reshape(B, 1, -1), None
+            if r > 1:
+                v = M._depth_to_time(v, r)
+            return v, F.pad(M.snake(v, la).transpose(1, 2), pad)
+
+        kernels.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        check(launched == {"codec_pointwise": 1}, f"codec {label}: launches {launched}")
+        with kernels.force_plain():
+            plain = run()
+        old_v, old_s = chain()
+        want = (old_v if kind == "head" else old_v.transpose(1, 2), old_s)
+        for name, ref in (("plain", plain), ("op chain", want)):
+            for a_, b_ in zip(got, ref):
+                check((a_ is None) == (b_ is None) and (a_ is None or torch.equal(a_, b_.contiguous())),
+                      f"codec {label}: the kernel differs from the {name}")
+        ms, wall, clock = timed(run, 20, ("codec_pointwise_kernel",))
+        chain_ms = timed(chain, 10)[0]
+        moved = nbytes(y) + (nbytes(x) if x is not None else 0) + sum(nbytes(o) for o in got if o is not None)
+        row = dict(case=label, y=list(y.shape), r=r, pad=list(pad), ms=ms, wall_ms=wall, clock=clock,
+                   bytes=moved, bound_ms=moved / MEM_BW * 1e3, bound_share=moved / MEM_BW * 1e3 / ms,
+                   plain_ms=chain_ms)
+        print("  " + json.dumps(row), flush=True)
+        rows.append(row)
+        del y, x, got, plain, old_v, old_s, want
+        torch.cuda.empty_cache()
+    head = rows[1]
+    entries.append(dict(name="codec_pointwise", route="cuda", source=CODEC_SRC, replaces=None,
+                        replaces_note="XLA's fusions around the codec's convolutions; no pallas_call",
+                        max_abs_err=0.0, launches=None, **{k: head[k] for k in (
+                            "ms", "wall_ms", "clock", "plain_ms", "bound_ms")}, bound_by="bytes", cases=rows))
+    print(f"  phase A, codec: {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+def codec_pointwise_only(torch):
+    """`--codec-pointwise`: the codec source built alone, then phase A, codec."""
+    from smalltts_tpu_torch.ops import kernels
+
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    t0 = time.perf_counter()
+    kernels.load("codec")
+    with open(os.path.join(kernels.BUILD_DIR, "codec.log")) as f:
+        ptxas = [ln.strip() for ln in f if "spill" in ln or "Used" in ln]
+    print(f"build: codec {time.perf_counter() - t0:.2f} s; ptxas: {json.dumps(ptxas)}", flush=True)
+    entries = []
+    codec_pointwise_phase(torch, torch.device("cuda"), entries)
+    print(json.dumps({"kernels": entries}))
+    return 0
+
+
 def ctc_consumers(N, per):
     """The backward chain's consumer threads: ceil((N + 1) / per), to a whole warp."""
     return -(-(-(-(N + 1) // per)) // 32) * 32
@@ -2392,7 +2507,8 @@ def aux_trainer_phase(torch, dev, entries, which):
     width, batch 2, the dummy loader, seed 0: 5 steps with one save (the
     last, into a temporary directory that is removed). The counters, reset
     just before: the ASR step's 7 attention launches (the conformer's head
-    dim 4, fp32) and one of each CTC kernel a step; the SV step launches no
+    dim 4, fp32) and one of each CTC kernel a step; the SV step launches
+    the codec's 27 pointwise passes (its decode without grad) and no other
     kernel of the port. The loss finite, the BatchNorm running statistics
     moved from the init, the save reloading as train_distill reads it,
     equal to the returned params. Median step ms of steps 2-5 and latent
@@ -2454,7 +2570,9 @@ def aux_trainer_phase(torch, dev, entries, which):
         wall_s = time.perf_counter() - t0
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         peak = torch.cuda.max_memory_allocated()
-        want = {"attention": cfg.conformer.num_layers * steps, "ctc_forward": steps, "ctc_backward": steps} if asr else {}
+        # the SV step decodes its latents without grad: the codec's 27 pointwise passes a step
+        want = ({"attention": cfg.conformer.num_layers * steps, "ctc_forward": steps, "ctc_backward": steps} if asr
+                else {"codec_pointwise": CODEC_PASSES * steps})
         check(launches == want, f"train {which}: launches {launches}, want {want}")
         check(all(np.isfinite(losses)), f"train {which}: losses {losses}")
         fi, fp = ckpt.flatten_pytree(init), ckpt.flatten_pytree(params)
@@ -4068,7 +4186,7 @@ def codec_serve_and_tools_phases(torch, dev, entries, codec_ckpt, tmp):
     launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
     per = tts.num_steps * tts.cfg.dit.n_blocks
     want = {"attention": 68, "adaln_modulate": 2 * per, "qk_norm_rope": per, "gemm_bias": per, "gemm_swiglu": per,
-            "gemm_residual": 2 * per}
+            "gemm_residual": 2 * per, "codec_pointwise": CODEC_PASSES}
     check(launches == want, f"serve trained codec: launches {launches}, want {want}")
     check(out.dtype == np.int16 and out.shape == (8, 1, args[5] * CodecConfig().hop) and int(np.abs(out).max()) > 0,
           f"serve trained codec: {out.dtype} {out.shape}")

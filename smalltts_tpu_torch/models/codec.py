@@ -6,6 +6,16 @@ reshapes resample, and the input/output heads are folded into the finest low
 rate. Activations are the Bhaskara fast snake the codec is trained with.
 Runs in fp32; its convolutions (nn.conv1d) run with cuDNN's TF32 off, since
 cuDNN would otherwise compute fp32 convolutions in TF32.
+
+The decoder has two paths that share only the arithmetic's definition.
+Training, export and the CPU keep the channel-last op chain below (the JAX
+package's layout, under autograd and the exporter's tracer). The card's
+serving decode (float32 latents on CUDA, no gradient wanted, not traced)
+keeps its activations in cuDNN's NCW layout from dec_in to dec_out, and
+after each convolution one pass (ops/kernels/codec.py) adds the bias and
+the residual, applies tanh and depth to time, and writes the snake of the
+next convolution's input straight into its padded buffer: the same bits,
+with about a tenth of the bytes.
 """
 
 from __future__ import annotations
@@ -15,8 +25,11 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from smalltts_tpu_torch.ops import nn
+from smalltts_tpu_torch.ops.kernels.codec import bhaskara_snake, codec_pointwise
+from smalltts_tpu_torch.utils.convert import tree_leaves
 
 
 @dataclass(frozen=True)
@@ -34,15 +47,9 @@ class CodecConfig:
 
 
 def snake(x: torch.Tensor, log_alpha: torch.Tensor) -> torch.Tensor:
-    """x + sin^2(a x)/a with Bhaskara I's approximation of |sin| over the
-    period pi: sin(pi f) ~= 16 f (1-f) / (5 - 4 f (1-f)), f in [0, 1)
-    (codec.py:64-80). Channel-last: log_alpha (C,)."""
-    a = torch.exp(log_alpha).to(x.dtype)
-    y = a * x * (1.0 / math.pi)
-    f = y - torch.floor(y)
-    g = f * (1.0 - f)
-    s = 16.0 * g / (5.0 - 4.0 * g)
-    return x + (s * s) / a
+    """The Bhaskara fast snake (ops/kernels/codec.bhaskara_snake), channel-last:
+    log_alpha (C,)."""
+    return bhaskara_snake(x, torch.exp(log_alpha).to(x.dtype))
 
 
 def _init_res_unit(gen, ch, kernel, dtype, device):
@@ -120,8 +127,68 @@ def codec_encode(p, audio: torch.Tensor, cfg: CodecConfig = CodecConfig()) -> to
     return nn.conv1d(p["enc_out"], x)
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _inference_only(p, latents: torch.Tensor) -> bool:
+    """float32 latents, no gradient wanted, and neither a jit trace nor an
+    ONNX export running: what the NCW decode may serve."""
+    if latents.dtype != torch.float32 or torch.jit.is_tracing() or torch.onnx.is_in_onnx_export():
+        return False
+    return not torch.is_grad_enabled() or not (
+        latents.requires_grad or any(torch.is_tensor(t) and t.requires_grad for t in tree_leaves(p)))
+
+
+def _same_pad(k: int, dilation: int) -> Tuple[int, int]:
+    total = (k - 1) * dilation
+    return total // 2, total - total // 2
+
+
+def _decoder_convs(p, cfg: CodecConfig):
+    """The decoder's convolutions in order: (params, dilation, log_alpha of
+    the snake before it or None, what its output is, depth-to-time factor).
+    Outputs: "x" the residual stream, "h" a unit's hidden, "res" x plus the
+    unit, "head" the waveform."""
+    n = len(cfg.strides)
+    out = [(p["dec_in"], 1, None, "x", 1)]
+    for i, (stage, r) in enumerate(zip(p["dec_stages"], cfg.strides)):
+        for ru, d in zip(stage["res"], cfg.res_dilations):
+            out += [(ru["conv1"], d, ru["log_alpha1"], "h", 1), (ru["conv2"], 1, ru["log_alpha2"], "res", 1)]
+        out.append((stage["conv"], 1, stage["log_alpha"], "x", r if i < n - 1 else 1))
+    out.append((p["dec_out"], 1, p["dec_log_alpha"], "head", cfg.strides[-1]))
+    return out
+
+
+def _decode_ncw(p, latents: torch.Tensor, cfg: CodecConfig) -> torch.Tensor:
+    """The serving decode: cuDNN's float32 convolutions (TF32 off) on NCW
+    buffers, each followed by one codec_pointwise pass that writes the next
+    convolution's padded input; the residual stream is kept only where a
+    unit adds it."""
+    convs = _decoder_convs(p, cfg)
+    f32 = torch.float32
+    with nn.no_tf32():
+        h = F.pad(latents.transpose(1, 2), _same_pad(p["dec_in"]["w"].shape[-1], 1))
+        x = out = None
+        for k, (cp, d, _, kind, r) in enumerate(convs):
+            y = F.conv1d(h, cp["w"].to(f32), None, dilation=d)
+            nxt = convs[k + 1] if k + 1 < len(convs) else None
+            keep = kind == "head" or (kind in ("x", "res") and nxt[3] == "h")
+            out, h = codec_pointwise(
+                y, cp["b"].to(f32), x if kind == "res" else None, r=r, tanh=kind == "head", keep=keep,
+                alpha=torch.exp(nxt[2]).to(f32) if nxt else None,
+                pad=_same_pad(nxt[0]["w"].shape[-1], nxt[1]) if nxt else (0, 0))
+            if kind in ("x", "res"):
+                x = out
+    return out
+
+
 def codec_decode(p, latents: torch.Tensor, cfg: CodecConfig = CodecConfig()) -> torch.Tensor:
-    """(B, T', latent_dim) -> (B, 1, T' * hop) waveform in [-1, 1]."""
+    """(B, T', latent_dim) -> (B, 1, T' * hop) waveform in [-1, 1]. On the
+    card without autograd: the NCW decode (_decode_ncw); otherwise the
+    channel-last op chain."""
+    if _on_card(latents) and _inference_only(p, latents):
+        return _decode_ncw(p, latents, cfg)
     n = len(cfg.strides)
     x = nn.conv1d(p["dec_in"], latents)
     for i, (stage, r) in enumerate(zip(p["dec_stages"], cfg.strides)):

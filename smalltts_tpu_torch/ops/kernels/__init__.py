@@ -32,7 +32,7 @@ from typing import Dict, Optional
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-SOURCES = ("attention", "dit_block", "w8", "ctc")
+SOURCES = ("attention", "dit_block", "w8", "ctc", "codec")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -173,6 +173,9 @@ SIGNATURES = {
         "st_ctc_forward": ([_P] * 7 + [_I, _I, _I, _P], _I),
         "st_ctc_factor_floats": ([_I, _I, _I], _L),
         "st_ctc_backward": ([_P] * 11 + [_I] * 4 + [_P], _I),
+    },
+    "codec": {
+        "st_codec_pointwise": ([_P] * 6 + [_I] * 7 + [_P], _I),
     },
 }
 

@@ -74,19 +74,20 @@ def params_from_jax(tree, cfg):
                 "style_encoder": cfg.style.num_layers}
         for key, n in want.items():
             blocks = out[key]["blocks"]
-            lead = {t.shape[0] for t in _leaves(blocks)}
+            lead = {t.shape[0] for t in tree_leaves(blocks)}
             if lead != {n}:
                 raise ValueError(f"{key}: block stacks lead with {sorted(lead)}, config says {n}")
     return out
 
 
-def _leaves(tree):
+def tree_leaves(tree):
+    """The leaves of nested dicts, lists and tuples, in order."""
     if isinstance(tree, dict):
         for v in tree.values():
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     elif isinstance(tree, (list, tuple)):
         for v in tree:
-            yield from _leaves(v)
+            yield from tree_leaves(v)
     else:
         yield tree
 
